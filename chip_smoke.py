@@ -17,6 +17,11 @@ Phases, each printing one JSON line:
                   CLI entry point; checks the label file and that the
                   cycle launched every kernel (launch counts zeroed just
                   before, read just after).
+5. ``daemon``   — the supervised daemon loop: ``cmd.main.run`` on a
+                  worker thread with ``--burnin-interval 2
+                  --sleep-interval 1s`` (one ``daemon_cycle`` line per
+                  cycle), SIGHUP and SIGTERM through its signal queue;
+                  then the real CLI as a subprocess with real signals.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -28,9 +33,11 @@ from __future__ import annotations
 import json
 import logging
 import os
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -229,6 +236,292 @@ def phase_main_path(entries: dict, count: int) -> None:
         entries[name]["launches"] = n
 
 
+class _CycleCapture(logging.Handler):
+    """One entry per labeling cycle of the daemon loop, cut at its "Cycle
+    timings" line: the mode (probing, cached-health, or full without
+    health), the cycle's wall ms, the probe's ``probe_ms`` and
+    ``phases``, and the kernel launches counted so far."""
+
+    def __init__(self, launches):
+        super().__init__(logging.DEBUG)
+        self._launches = launches
+        self.cycles = []
+        self._probe = None
+        self._cached = False
+
+    def emit(self, record):
+        msg = str(record.msg)
+        if msg.startswith("burn-in probe timing="):
+            self._probe = {"probe_ms": record.args[2], "phases": record.args[1]}
+        elif msg.startswith("burn-in not due"):
+            self._cached = True
+        elif msg.startswith("Cycle timings: "):
+            stages = dict(
+                part.split("=", 1) for part in str(record.args[0]).split()
+            )
+            mode = (
+                "probing" if self._probe
+                else "cached-health" if self._cached
+                else "full"
+            )
+            self.cycles.append({
+                "mode": mode,
+                "wall_ms": float(stages["labelgen.total"].rstrip("ms")),
+                "launches": self._launches(),
+                **(self._probe or {}),
+            })
+            self._probe, self._cached = None, False
+
+
+def _read_labels(path: str) -> dict:
+    try:
+        with open(path) as f:
+            return dict(l.rstrip("\n").split("=", 1) for l in f if "=" in l)
+    except FileNotFoundError:
+        return {}
+
+
+def _wait_for(cond, timeout: float, what: str, poll: float = 0.02):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        value = cond()
+        if value:
+            return value
+        time.sleep(poll)
+    raise SystemExit(f"chip_smoke: check failed: {what} within {timeout}s")
+
+
+HEALTH_KEYS = ("nvidia.com/gpu.health.matmul-tflops", "nvidia.com/gpu.health.hbm-gbps")
+
+
+def _has_health(labels: dict) -> bool:
+    return (
+        labels.get("nvidia.com/gpu.health.ok") == "true"
+        and labels.get("nvidia.com/gpu.health.timing") == "device-profiler"
+        and all(int(labels.get(k, "0")) > 0 for k in HEALTH_KEYS)
+    )
+
+
+def phase_daemon(entries: dict, count: int) -> None:
+    """(a) ``run()`` in process, (b) the CLI as a subprocess."""
+    import queue
+
+    import torch
+
+    from gpu_feature_discovery_tpu_torch.cmd.main import run
+    from gpu_feature_discovery_tpu_torch.cmd.supervisor import Supervisor
+    from gpu_feature_discovery_tpu_torch.config.flags import new_config
+    from gpu_feature_discovery_tpu_torch.lm import health
+    from gpu_feature_discovery_tpu_torch.ops import hbm, healthcheck
+    from gpu_feature_discovery_tpu_torch.resource import factory
+
+    # The daemon's first probe pays its first use (warm-up, graph
+    # capture) again, as in a fresh process; CUDA, cuBLAS and NCCL stay
+    # set up from the earlier phases.
+    healthcheck.reset_probe_workspaces()
+    capture = _CycleCapture(lambda: hbm.hbm_stream_sum.launches)
+    tfd_log = logging.getLogger("tfd")
+    lm_log = logging.getLogger("tfd.lm")
+    tfd_log.setLevel(logging.INFO)
+    lm_log.setLevel(logging.DEBUG)
+    tfd_log.addHandler(capture)
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        out = os.path.join(tmp, "tfd")
+        config = new_config(
+            cli_values={"with-burnin": "true", "backends": "gpu",
+                        "burnin-interval": "2", "sleep-interval": "1s",
+                        "output-file": out},
+            environ=dict(os.environ),
+        )
+        sigs = queue.SimpleQueue()
+        process_state = {"live_full_served": False}
+        result = {}
+
+        def epoch():
+            result["restart"] = run(
+                lambda: factory.build_manager(config), config, sigs,
+                supervisor=Supervisor(config), process_state=process_state,
+            )
+
+        health.reset_burnin_schedule()
+        hbm.hbm_stream_sum.launches = 0
+        # With CUDA already warm the first probe may end inside the wait
+        # and be published at once, as a synchronous probe would. A wait
+        # of 0 makes the first write prove it did not wait for the probe:
+        # it must carry the base labels and no health label.
+        wait_s = health.FIRST_PROBE_WAIT_S
+        health.FIRST_PROBE_WAIT_S = 0.0
+        try:
+            t0 = time.monotonic()
+            worker = threading.Thread(target=epoch, daemon=True)
+            worker.start()
+            first = _wait_for(lambda: _read_labels(out), wait_s + 1.0,
+                              "first write", poll=0.005)
+            first_write_s = time.monotonic() - t0
+            _wait_for(lambda: _has_health(_read_labels(out)), 15.0,
+                      "health labels in the daemon's file")
+        finally:
+            health.FIRST_PROBE_WAIT_S = wait_s
+        check(first.get("nvidia.com/gpu.count") == str(count),
+              f"first write count {first.get('nvidia.com/gpu.count')!r}")
+        early = sorted(k for k in first if k.startswith("nvidia.com/gpu.health.")
+                       or k.startswith("nvidia.com/gpu.chip."))
+        check(not early, f"first write waited for the first probe: {early}")
+
+        def steady():
+            modes = [c["mode"] for c in capture.cycles]
+            probing = [i for i, m in enumerate(modes) if m == "probing"]
+            return len(probing) >= 2 and "cached-health" in modes[probing[1]:]
+
+        _wait_for(steady, 15.0, "two probing cycles and a cached one after")
+        torch.cuda.synchronize()
+        memory = {"reserved": torch.cuda.memory_reserved(),
+                  "allocated": torch.cuda.memory_allocated()}
+        sigs.put(signal.SIGHUP)
+        worker.join(10)
+        check(not worker.is_alive() and result.get("restart") is True,
+              f"SIGHUP: run() returned {result.get('restart')!r}")
+        check(not os.path.exists(out), "SIGHUP left the output file")
+        daemon_launches = hbm.hbm_stream_sum.launches
+        cycles = list(capture.cycles)
+
+        # A second epoch, as start()'s reload loop runs it.
+        health.reset_burnin_schedule()
+        worker = threading.Thread(target=epoch, daemon=True)
+        worker.start()
+        _wait_for(lambda: _has_health(_read_labels(out)), 15.0,
+                  "health labels after the reload")
+        sigs.put(signal.SIGTERM)
+        worker.join(10)
+        check(not worker.is_alive() and result.get("restart") is False,
+              f"SIGTERM: run() returned {result.get('restart')!r}")
+        check(not os.path.exists(out) and not os.path.exists(
+            os.path.join(tmp, "tfd-tmp")), "SIGTERM left the output file")
+    tfd_log.removeHandler(capture)
+
+    prev = 0
+    for i, c in enumerate(cycles):
+        phases = c.get("phases") or {}
+        emit("daemon_cycle", index=i, mode=c["mode"], wall_ms=c["wall_ms"],
+             probe_ms=c.get("probe_ms"), launches=c["launches"] - prev,
+             compile_ms=phases.get("compile_ms"),
+             burnin_device_ms=phases.get("burnin_device_ms"),
+             hbm_device_ms=phases.get("hbm_device_ms"))
+        prev = c["launches"]
+    probing = [c for c in cycles if c["mode"] == "probing"]
+    check(probing[0]["phases"]["compile_ms"] > 0, "first probe paid no warm-up")
+    check(probing[1]["phases"]["compile_ms"] == 0,
+          f"second probe compile_ms {probing[1]['phases']['compile_ms']}")
+    deltas = [c["launches"] - p["launches"]
+              for p, c in zip([{"launches": 0}] + cycles, cycles)]
+    cached = [d for c, d in zip(cycles, deltas) if c["mode"] == "cached-health"]
+    check(cached and all(d == 0 for d in cached),
+          f"cached cycles launched kernels: {cached}")
+    # Launches counted per probing cycle: the first one's count runs from
+    # the zeroing (its first probe may straddle earlier cycles) and holds
+    # the warm-up; each later one is its own delta.
+    per_probe = [c["launches"] if i == 0 else d
+                 for i, (c, d) in enumerate(
+                     (c, d) for c, d in zip(cycles, deltas) if c["mode"] == "probing")]
+    want = [healthcheck.PROBE_HBM_ITERS + 1] + [healthcheck.PROBE_HBM_ITERS] * (
+        len(per_probe) - 1)
+    check(per_probe == want,
+          f"launches per probing cycle {per_probe}, want {want}")
+    check(daemon_launches == sum(per_probe),
+          f"{daemon_launches} launches in the epoch, {sum(per_probe)} in its "
+          "probing cycles")
+    entries["hbm_stream_sum"]["daemon_launches"] = daemon_launches
+    entries["hbm_stream_sum"]["daemon_launches_per_probing_cycle"] = per_probe
+    emit("daemon", first_write_s=first_write_s, probing_cycles=len(probing),
+         cached_cycles=len(cached), launches=daemon_launches,
+         launches_per_probing_cycle=per_probe, memory_bytes=memory)
+    phase_daemon_cli(count)
+
+
+def _first_cycle_stages(log_path: str):
+    """Stage -> ms of the first "Cycle timings" line in a CLI log."""
+    with open(log_path) as f:
+        for line in f:
+            if "Cycle timings: " in line:
+                return {k: float(v.rstrip("ms")) for k, v in (
+                    part.split("=", 1)
+                    for part in line.split("Cycle timings: ", 1)[1].split())}
+    return None
+
+
+def phase_daemon_cli(count: int) -> None:
+    """The CLI in its own process, with real signals. Its first probe pays
+    cuBLAS's and NCCL's set-up; the first cycle waits for it no longer
+    than ``FIRST_PROBE_WAIT_S``."""
+    from gpu_feature_discovery_tpu_torch.lm import health
+
+    build_dir = os.path.join(REPO, "build")
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        out = os.path.join(tmp, "tfd")
+        log_path = os.path.join(tmp, "log")
+        t0 = time.monotonic()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "gpu_feature_discovery_tpu_torch",
+                 "--with-burnin", "--sleep-interval", "1s", "--output-file", out],
+                cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+            )
+        try:
+            base = _wait_for(lambda: _read_labels(out), 90.0, "CLI first write",
+                             poll=0.005)
+            first_write_s = time.monotonic() - t0
+            first_cycle = _wait_for(lambda: _first_cycle_stages(log_path), 5.0,
+                                    "CLI first cycle's timings line")
+            first = _wait_for(
+                lambda: (lambda l: l if _has_health(l) else None)(_read_labels(out)),
+                90.0, "CLI health labels",
+            )
+            health_s = time.monotonic() - t0
+            stamp = int(first["google.com/tfd.timestamp"])
+            # A new epoch's timestamp is later by at least a second.
+            time.sleep(max(0.0, stamp + 1.05 - time.time()))
+            proc.send_signal(signal.SIGHUP)
+            second = _wait_for(
+                lambda: (lambda l: l if _has_health(l) and int(
+                    l.get("google.com/tfd.timestamp", "0")) > stamp
+                    and "nvidia.com/gpu.health.probe-ms" in l else None)(
+                    _read_labels(out)),
+                30.0, "fresh health labels after SIGHUP",
+            )
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=15)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(log_path) as f:
+            text = f.read()
+        tail, head = text[-2000:], text[:3000]
+        check(rc == 0, f"CLI exited {rc} after SIGTERM; log tail:\n{tail}")
+        check(not os.path.exists(out), "CLI exit left the output file")
+    check(base.get("nvidia.com/gpu.count") == str(count),
+          f"CLI first write count {base.get('nvidia.com/gpu.count')!r}")
+    # The fresh first probe takes about as long as the wait: the first
+    # write carries its health labels when it ended inside the wait, and
+    # none when it did not. Either way the first cycle also acquires the
+    # backend (torch's import, CUDA's set-up: gpu.acquire), and the rest
+    # of it is bounded by the wait.
+    base_health = any(k.startswith("nvidia.com/gpu.health.") for k in base)
+    check(first_cycle["labeler.health"] <= (health.FIRST_PROBE_WAIT_S + 0.5) * 1e3
+          and first_cycle["labelgen.total"] - first_cycle["gpu.acquire"]
+          <= (health.FIRST_PROBE_WAIT_S + 1.0) * 1e3,
+          f"CLI first cycle took {first_cycle}; log:\n{head}")
+    emit("daemon_cli", first_write_s=first_write_s,
+         first_cycle_stages_ms=first_cycle, first_write_health=base_health,
+         health_s=health_s, rc=rc,
+         probe_ms_first=int(first.get("nvidia.com/gpu.health.probe-ms", -1)),
+         probe_ms_after_reload=int(second["nvidia.com/gpu.health.probe-ms"]),
+         matmul_tflops=int(second[HEALTH_KEYS[0]]),
+         hbm_gbps=int(second[HEALTH_KEYS[1]]))
+
+
 def main() -> int:
     import importlib.util
 
@@ -246,6 +539,7 @@ def main() -> int:
     phase_build()
     entries = {"hbm_stream_sum": phase_kernels()}
     phase_main_path(entries, info["count"])
+    phase_daemon(entries, info["count"])
     print(json.dumps({"kernels": list(entries.values())}))
     print(info["nvidia_smi"])
     print(json.dumps({

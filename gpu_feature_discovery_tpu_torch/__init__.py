@@ -2,7 +2,8 @@
 ``gpu_feature_discovery_tpu``.
 
 Twin: ``gpu_feature_discovery_tpu/__init__.py``. This package runs the
-oneshot ``--with-burnin`` label cycle on CUDA devices and publishes the
+supervised label daemon (or one ``--oneshot`` cycle), with the
+``--with-burnin`` device probe, on CUDA devices and publishes the
 ``nvidia.com/gpu.*`` label family to the Node Feature Discovery "local"
 feature source. It imports ``torch`` and never the JAX package: every
 module it needs is a trimmed copy of its twin at the same relative path
@@ -10,12 +11,17 @@ module it needs is a trimmed copy of its twin at the same relative path
 
 Layer map (outer to inner):
 
-- ``cmd``       : CLI entry point, one oneshot cycle
+- ``cmd``       : CLI entry point, reload loop, daemon loop, supervisor,
+                  reconcile events
 - ``config``    : flag table with ``TFD_*`` environment aliases
-- ``lm``        : label sources, health labeler, atomic file write
+- ``lm``        : label engine, label sources, health labeler, atomic
+                  churn-free file write
+- ``sandbox``   : persisted last-good labels, anti-flap hysteresis
 - ``resource``  : CUDA device manager + static mock
 - ``models``    : per-card spec table (plausibility peaks)
-- ``ops``       : burn-in, HBM stream-sum kernel, CUDA-event device clock
+- ``ops``       : burn-in (timed as a CUDA graph), HBM stream-sum kernel,
+                  CUDA-event device clock
+- ``utils``     : backoff policy, per-cycle timings, logging
 
 Importing any module initialises no CUDA context: the probe builds and
 launches kernels only when a cycle runs.

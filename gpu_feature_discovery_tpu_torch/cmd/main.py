@@ -1,11 +1,23 @@
-"""CLI entry point (twin: ``gpu_feature_discovery_tpu/cmd/main.py``).
+"""CLI entry point and daemon loop (twin:
+``gpu_feature_discovery_tpu/cmd/main.py``).
 
-``start(argv)`` parses the flags (each with its ``TFD_*`` alias), runs
-ONE oneshot label cycle — timestamp, device, health — and writes the NFD
-feature file atomically. The daemon loop, SIGHUP reload, supervisor,
-introspection server and probe broker are later slices: a run without
-``--oneshot``, or with ``--probe-isolation=subprocess``, exits non-zero
-with an error that says so, and never falls back silently.
+``start(argv)`` parses the flags (each with its ``TFD_*`` alias), installs
+the OS signal watcher and runs the config-reload loop: every SIGHUP
+starts a new epoch with a fresh config, burn-in schedule, engine and
+supervisor. ``run()`` is one epoch: generate → atomic write → wait, until
+a signal. SIGTERM/SIGINT end the process with exit 0 and remove the
+output file; ``--oneshot`` runs one cycle and leaves the file for NFD.
+
+The daemon is supervised (cmd/supervisor.py): degraded labels while the
+backend will not init, last-good re-serve when a cycle fails, escalation
+at the bounds. It waits on the event queue of cmd/events.py
+(``--reconcile=event``, the default) or sleeps ``--sleep-interval``.
+
+Left for later slices, and refused with an error that names them rather
+than falling back: ``--probe-isolation=subprocess`` and
+``--probe-broker=on`` (the broker slice), ``--config-file`` (the YAML
+config slice). The twin's introspection server, slice coordinator,
+actuation engine and multi-backend registry have no counterpart yet.
 """
 
 from __future__ import annotations
@@ -14,24 +26,52 @@ import argparse
 import faulthandler
 import logging
 import os
+import queue
+import signal
 import sys
-from typing import Optional
+import time
+from typing import Callable, Optional, Union
 
-from gpu_feature_discovery_tpu_torch.config.flags import FLAG_DEFS, new_config
+from gpu_feature_discovery_tpu_torch.cmd import events as reconcile_events
+from gpu_feature_discovery_tpu_torch.cmd.supervisor import (
+    DEGRADED_LABEL,
+    RESTORED_LABEL,
+    InitRetriesExhausted,
+    Supervisor,
+    TooManyConsecutiveFailures,
+)
+from gpu_feature_discovery_tpu_torch.config.flags import (
+    CONFIG_FILE_ENV_VARS,
+    DEFAULT_FLAP_WINDOW,
+    DEFAULT_MAX_PROBE_RATE,
+    DEFAULT_RECONCILE_DEBOUNCE,
+    FLAG_DEFS,
+    new_config,
+)
 from gpu_feature_discovery_tpu_torch.config.spec import (
+    PROBE_BROKER_ON,
     PROBE_ISOLATION_SUBPROCESS,
     Config,
     ConfigError,
 )
+from gpu_feature_discovery_tpu_torch.lm.engine import STALE_SOURCES_LABEL, new_label_engine
 from gpu_feature_discovery_tpu_torch.lm.health import reset_burnin_schedule
-from gpu_feature_discovery_tpu_torch.lm.labels import Labels
-from gpu_feature_discovery_tpu_torch.lm.labelers import new_label_sources
+from gpu_feature_discovery_tpu_torch.lm.labelers import (
+    degraded_label_sources,
+    new_label_sources,
+)
+from gpu_feature_discovery_tpu_torch.lm.labels import remove_output_file
 from gpu_feature_discovery_tpu_torch.lm.timestamp import new_timestamp_labeler
 from gpu_feature_discovery_tpu_torch.resource import factory
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
+from gpu_feature_discovery_tpu_torch.sandbox.flap import FlapDamper
 from gpu_feature_discovery_tpu_torch.utils import logging as tfd_logging
+from gpu_feature_discovery_tpu_torch.utils import timing
+from gpu_feature_discovery_tpu_torch.utils.timing import timed
 
 log = logging.getLogger("tfd")
+
+WATCHED_SIGNALS = (signal.SIGHUP, signal.SIGINT, signal.SIGTERM, signal.SIGQUIT)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -52,65 +92,366 @@ def build_arg_parser() -> argparse.ArgumentParser:
                 *names, dest=fd.name, default=None, nargs="?", const="true",
                 help=fd.help,
             )
+    parser.add_argument(
+        "--config-file", dest="config-file", default=None,
+        help="not available in this port yet (the config-file slice)",
+    )
     parser.add_argument("--debug", action="store_true", help="enable debug logging")
     return parser
 
 
-def _check_slice_scope(config: Config) -> None:
+def new_os_watcher() -> "queue.SimpleQueue[int]":
+    """Buffered signal channel. SimpleQueue, NOT queue.Queue: the handler
+    runs on the main thread at an arbitrary bytecode boundary, possibly
+    inside the queue's own ``get``; queue.Queue.put takes the mutex ``get``
+    holds and would deadlock, while SimpleQueue.put is reentrant by
+    contract."""
+    sigs: "queue.SimpleQueue[int]" = queue.SimpleQueue()
+    for s in WATCHED_SIGNALS:
+        signal.signal(s, lambda signum, _frame: sigs.put(signum))
+    return sigs
+
+
+def _check_slice_scope(config: Config, config_file: Optional[str]) -> None:
     """Refuse what this port does not run yet, naming the slice."""
     tfd = config.flags.tfd
-    if not tfd.oneshot:
+    if config_file:
         raise ConfigError(
-            "daemon mode is not ported yet (the daemon-loop slice of the "
-            "PyTorch port); run with --oneshot"
+            "--config-file / TFD_CONFIG_FILE is not ported yet (the "
+            "config-file slice of the PyTorch port); pass flags or TFD_* "
+            "environment variables"
         )
     if tfd.probe_isolation == PROBE_ISOLATION_SUBPROCESS:
         raise ConfigError(
             "--probe-isolation=subprocess is not ported yet (the broker "
             "slice of the PyTorch port); use none or auto"
         )
+    if tfd.probe_broker == PROBE_BROKER_ON:
+        raise ConfigError(
+            "--probe-broker=on is not ported yet (the broker slice of the "
+            "PyTorch port); use off or auto"
+        )
+    factory.new_manager(config)  # validates --backends; built per epoch
 
 
 def start(argv: Optional[list] = None) -> int:
-    """Parse, load the config, run one oneshot cycle; 0 on success."""
+    """OS watcher + config-reload loop; the process exit code."""
     ns = vars(build_arg_parser().parse_args(argv))
     tfd_logging.setup(debug=ns.pop("debug", False))
     faulthandler.enable()
-    cli_values = {k: v for k, v in ns.items() if v is not None}
-    try:
-        config = new_config(cli_values=cli_values, environ=dict(os.environ))
-        _check_slice_scope(config)
-    except ConfigError as e:
-        log.error("unable to load config: %s", e)
-        return 1
-    reset_burnin_schedule()
-    tfd_logging.reset_warn_once()
-    try:
-        run(factory.new_manager(config), config)
-    except Exception as e:  # noqa: BLE001 - error-to-exit, like the twin
-        log.error("Error: %s", e)
-        log.debug("Traceback:", exc_info=True)
-        return 1
-    return 0
-
-
-def run(manager: Manager, config: Config) -> None:
-    """One label cycle: every source in merge order, then the atomic
-    write. The first error propagates (oneshot strictness)."""
-    sources = new_label_sources(
-        manager, config, timestamp=new_timestamp_labeler(config)
+    config_file = ns.pop("config-file", None) or next(
+        (os.environ[e] for e in CONFIG_FILE_ENV_VARS if os.environ.get(e)), None
     )
+    cli_values = {k: v for k, v in ns.items() if v is not None}
+    log.info("Starting OS watcher.")
+    previous = {s: signal.getsignal(s) for s in WATCHED_SIGNALS}
+    sigs = new_os_watcher()
+    # Cross-epoch memory: a SIGHUP reload of a process that already
+    # served live labels must not re-enter the restored regime.
+    process_state: dict = {"live_full_served": False}
     try:
-        labels = Labels()
-        for _name, source in sources:
-            labels.update(source())
+        while True:
+            log.info("Loading configuration.")
+            try:
+                config = new_config(cli_values=cli_values, environ=dict(os.environ))
+                _check_slice_scope(config, config_file)
+            except ConfigError as e:
+                log.error("unable to load config: %s", e)
+                return 1
+            # New epoch: no health measured under the old config is
+            # republished, and every stable condition may warn once again.
+            reset_burnin_schedule()
+            tfd_logging.reset_warn_once()
+            log.info("Start running")
+            try:
+                if config.flags.tfd.oneshot:
+                    # Strict error-to-exit: a one-off Job fails loudly.
+                    restart = run(factory.new_manager(config), config, sigs)
+                else:
+                    restart = run(
+                        lambda: factory.build_manager(config),
+                        config,
+                        sigs,
+                        supervisor=Supervisor(config),
+                        process_state=process_state,
+                    )
+            except Exception as e:  # noqa: BLE001 - error-to-exit, like the twin
+                log.error("Error: %s", e)
+                log.debug("Traceback:", exc_info=True)
+                return 1
+            if not restart:
+                return 0
     finally:
-        manager.shutdown()
-    if len(labels) <= 1:
-        log.warning("no labels generated from any source")
-    output_file = config.flags.tfd.output_file
-    log.info("Writing labels to output file %s", output_file or "<stdout>")
-    labels.write_to_file(output_file)
+        # The twin's process ends here; an embedding caller (a test, the
+        # smoke script) gets its own handlers back.
+        for s, handler in previous.items():
+            signal.signal(s, handler)
+
+
+def _check_signal(
+    sigs: "queue.SimpleQueue[int]", timeout: Optional[float] = None
+) -> Optional[str]:
+    """One signal-queue read: "restart" (SIGHUP), "shutdown", or None.
+    ``timeout=None`` polls without blocking."""
+    try:
+        if timeout is None:
+            signum = sigs.get_nowait()
+        else:
+            signum = sigs.get(timeout=timeout)
+    except queue.Empty:
+        return None
+    if signum == signal.SIGHUP:
+        log.info("Received SIGHUP, restarting.")
+        return "restart"
+    log.info("Received signal %s, shutting down.", signum)
+    return "shutdown"
+
+
+def _wait_for_signal(sigs: "queue.SimpleQueue[int]", duration: float) -> Optional[str]:
+    """Sleep up to ``duration`` seconds, waking for signals: the first
+    decision, or None when the wait ran out."""
+    deadline = time.monotonic() + duration
+    while True:
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            return None
+        decision = _check_signal(sigs, timeout=remaining)
+        if decision is not None:
+            return decision
+
+
+def run(
+    manager_or_factory: Union[Manager, Callable[[], Manager]],
+    config: Config,
+    sigs: "queue.SimpleQueue[int]",
+    supervisor: Optional[Supervisor] = None,
+    process_state: Optional[dict] = None,
+) -> bool:
+    """One config epoch. Returns True to request a reload (SIGHUP), False
+    for a clean exit.
+
+    ``manager_or_factory`` is a ready Manager (oneshot, tests) or a
+    zero-arg factory (the supervised daemon, which (re)builds the backend
+    inside the cycle loop so init failures become degraded cycles). The
+    daemon runs supervised: a failing cycle re-serves last-good labels
+    with the unhealthy-cycles counter and retries after a capped backoff;
+    only InitRetriesExhausted / TooManyConsecutiveFailures escape. Oneshot
+    propagates the first error.
+
+    ``process_state`` is start()'s cross-epoch memory: once an epoch has
+    served a live full cycle, later reload epochs skip the --state-dir
+    restore, which is for process (re)starts."""
+    tfd = config.flags.tfd
+    output_file = tfd.output_file
+    oneshot = tfd.oneshot
+    sleep_interval = tfd.sleep_interval
+    make_manager = manager_or_factory if callable(manager_or_factory) else None
+    current: Optional[Manager] = None if make_manager is not None else manager_or_factory
+    supervised = not oneshot
+    if supervised and supervisor is None:
+        supervisor = Supervisor(config)
+    # A failure before this epoch's first write must not clobber a
+    # previous epoch's still-valid file; once this epoch owns the file its
+    # markers stay current.
+    wrote_this_epoch = False
+    # Restored last-good state is served FIRST, before any backend init,
+    # so a restart during an outage never strips the node.
+    restored_served = None
+    if supervised and not (process_state or {}).get("live_full_served"):
+        restored = supervisor.restore_last_good()
+        if restored is not None:
+            restored[RESTORED_LABEL] = "true"
+            try:
+                restored.write_to_file(output_file)
+            except Exception as e:  # noqa: BLE001 - restore is best-effort
+                log.warning("could not serve restored labels: %s", e)
+            else:
+                wrote_this_epoch = True
+                restored_served = restored
+                log.info("serving %d restored labels until the first live "
+                         "cycle completes", len(restored))
+    # One engine per epoch: its cache and stragglers die with the epoch.
+    engine = new_label_engine(config)
+    event_loop = None
+    forwarder = None
+    delta_tracker = None
+    if supervised and (
+        reconcile_events.resolve_reconcile_mode(config)
+        == reconcile_events.RECONCILE_EVENT
+    ):
+        events_q = reconcile_events.EventQueue()
+        event_loop = reconcile_events.ReconcileLoop(
+            events_q,
+            # 0 (the default) demotes --sleep-interval to the bound.
+            max_staleness=tfd.max_staleness or sleep_interval,
+            debounce=(
+                tfd.reconcile_debounce
+                if tfd.reconcile_debounce is not None
+                else DEFAULT_RECONCILE_DEBOUNCE
+            ),
+            max_probe_rate=tfd.max_probe_rate or DEFAULT_MAX_PROBE_RATE,
+        )
+        delta_tracker = reconcile_events.DeltaTracker(events_q)
+        # The signal watcher becomes one producer among several.
+        forwarder = reconcile_events.SignalForwarder(sigs, events_q).start()
+    # Anti-flap hysteresis: daemon only; oneshot publishes what it measured.
+    flap = None
+    if supervised:
+        flap = FlapDamper(
+            tfd.flap_window if tfd.flap_window is not None else DEFAULT_FLAP_WINDOW
+        )
+    try:
+        timestamp_labeler = new_timestamp_labeler(config)
+        if restored_served is not None:
+            # The restore->live transition is damped like any other.
+            flap.observe(restored_served)
+        while True:
+            timing.reset_cycle()
+            cycle_mode = "full"
+            try:
+                with timed("labelgen.total"):
+                    if current is None and make_manager is not None:
+                        # The backend's first init in a process pays the
+                        # import of torch and the CUDA runtime's set-up.
+                        with timed("gpu.acquire"):
+                            current = (
+                                supervisor.acquire_manager(make_manager)
+                                if supervised
+                                else make_manager()
+                            )
+                    if current is None:
+                        # Backend down: the non-device facts plus the
+                        # degraded marker, never nothing.
+                        cycle_mode = "degraded"
+                        labels = engine.generate(
+                            degraded_label_sources(timestamp=timestamp_labeler)
+                        )
+                        labels[DEGRADED_LABEL] = "true"
+                    else:
+                        # init() runs inside new_label_sources; its errors
+                        # propagate before shutdown is owed.
+                        sources = new_label_sources(
+                            current, config, timestamp=timestamp_labeler
+                        )
+                        try:
+                            labels = engine.generate(sources)
+                        finally:
+                            with timed("gpu.shutdown"):
+                                current.shutdown()
+
+                if len(labels) <= 1:
+                    log.warning("no labels generated from any source")
+                log.info("Cycle timings: %s", timing.cycle_summary())
+                timing.write_timings_file(tfd.timings_file or "")
+                if supervised and supervisor.restored and (
+                    cycle_mode == "degraded" or STALE_SOURCES_LABEL in labels
+                ):
+                    # Not trustworthy live inventory: overlay the fresh
+                    # facts onto the restored inventory.
+                    labels = supervisor.with_restored(labels)
+                if flap is not None:
+                    labels = flap.observe(labels)
+                log.info("Writing labels to output file %s", output_file or "<stdout>")
+                labels.write_to_file(output_file)
+                wrote_this_epoch = True
+                if delta_tracker is not None:
+                    # A moved health verdict wakes a prompt follow-up.
+                    delta_tracker.observe_labels(labels)
+            except (InitRetriesExhausted, TooManyConsecutiveFailures):
+                raise  # supervision verdicts, not containable faults
+            except Exception as e:  # noqa: BLE001 - supervision boundary
+                if not supervised:
+                    raise
+                delay = supervisor.cycle_failed(e)  # raises at the bound
+                if make_manager is not None:
+                    # The backend may be the broken part: release it and go
+                    # back through acquisition next cycle.
+                    if current is not None:
+                        try:
+                            current.shutdown()
+                        except Exception:  # noqa: BLE001 - already failed
+                            log.debug("shutdown of failed backend:", exc_info=True)
+                    current = None
+                if (
+                    not supervisor.has_last_good
+                    and not wrote_this_epoch
+                    and output_file
+                    and os.path.exists(output_file)
+                ):
+                    # Full labels from a previous epoch beat a counter-only
+                    # file now; the loop is alive, so heartbeat anyway.
+                    log.info("cycle failed before this epoch's first write; "
+                             "keeping the existing label file untouched")
+                    supervisor.touch_heartbeat()
+                else:
+                    reserve = supervisor.reserve_labels()
+                    try:
+                        reserve.write_to_file(output_file)
+                    except Exception as we:  # noqa: BLE001 - already degraded
+                        log.warning("could not re-serve last-good labels: %s", we)
+                    else:
+                        wrote_this_epoch = True
+                        log.info("re-served last-good labels (unhealthy-cycles=%d)",
+                                 supervisor.consecutive_failures)
+                        supervisor.touch_heartbeat()
+                # The backoff replaces the sleep interval for a failed
+                # cycle; a signal during it is serviced at once.
+                log.info("retrying failed cycle in %.3fs", delay)
+                if event_loop is None:
+                    decision = _wait_for_signal(sigs, delay)
+                else:
+                    decision = event_loop.wait_backoff(delay)
+                if decision == "restart":
+                    return True
+                if decision == "shutdown":
+                    return False
+                continue
+            else:
+                if supervised:
+                    supervisor.cycle_succeeded(labels, mode=cycle_mode)
+                    supervisor.touch_heartbeat()
+                    if (
+                        cycle_mode == "full"
+                        and not supervisor.restored
+                        and process_state is not None
+                    ):
+                        process_state["live_full_served"] = True
+
+            if oneshot:
+                return False
+
+            if event_loop is None:
+                # A signal that arrived during a long cycle is honored now.
+                decision = _check_signal(sigs)
+                if decision is None:
+                    log.info("Sleeping for %ss", sleep_interval)
+                    decision = _wait_for_signal(sigs, sleep_interval)
+            else:
+                wake = event_loop.wait_for_wake()
+                decision = wake.decision
+                if decision is None:
+                    log.info(
+                        "reconcile wake: %s%s",
+                        "+".join(wake.reasons),
+                        f" ({wake.coalesced} coalesced)" if wake.coalesced else "",
+                    )
+            if decision == "restart":
+                return True
+            if decision == "shutdown":
+                return False
+    finally:
+        # Signals forwarded but not serviced go back on ``sigs`` for the
+        # next epoch's reader.
+        if forwarder is not None:
+            forwarder.stop()
+        engine.close()
+        # A daemon exit removes the label file so stale labels do not
+        # outlive the pod; oneshot leaves it for NFD.
+        if not oneshot and output_file:
+            try:
+                remove_output_file(output_file)
+            except OSError as e:
+                log.warning("Error removing output file: %s", e)
 
 
 def main() -> None:

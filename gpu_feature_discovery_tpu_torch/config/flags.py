@@ -2,26 +2,57 @@
 ``gpu_feature_discovery_tpu/config/flags.py``).
 
 Each flag keeps its twin's spelling, its ``TFD_*`` environment alias and
-its default. Only the flags of the oneshot burn-in cycle are here.
+its default. Only the flags of the burn-in cycle and the supervised
+daemon loop are here.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from gpu_feature_discovery_tpu_torch.config.spec import (
+    PROBE_BROKER_AUTO,
+    PROBE_BROKER_MODES,
     PROBE_ISOLATION_AUTO,
     PROBE_ISOLATION_MODES,
+    RECONCILE_AUTO,
+    RECONCILE_MODES,
     Config,
     ConfigError,
     parse_bool as _parse_bool,
     parse_fraction as _parse_fraction,
+    parse_positive_float as _parse_positive_float,
     parse_positive_int as _parse_positive_int,
 )
 
 DEFAULT_OUTPUT_FILE = "/etc/kubernetes/node-feature-discovery/features.d/tfd"
+DEFAULT_SLEEP_INTERVAL = 60.0
+# Supervisor defaults (cmd/supervisor.py): 5 init attempts with backoff
+# capped at 30 s ride out a boot race before fail-fast; 5 contained cycle
+# failures before escalation bound how long a broken cycle re-serves
+# stale labels.
+DEFAULT_INIT_RETRIES = 5
+DEFAULT_INIT_BACKOFF_MAX = 30.0
+DEFAULT_MAX_CONSECUTIVE_FAILURES = 5
+# Per-labeler deadline (lm/engine.py): generous against every source's
+# worst case (the health labeler's bounded first-probe wait is 2 s), so
+# staleness marks genuine degradation, not routine variance.
+DEFAULT_LABELER_TIMEOUT = 10.0
+# Anti-flap hysteresis window: 1 = publish every cycle unchanged.
+DEFAULT_FLAP_WINDOW = 1
+# Event-driven reconcile loop (cmd/events.py): the staleness bound
+# defaults to the sleep interval (0 = track --sleep-interval), the
+# debounce window collapses an event burst into one cycle, and the token
+# bucket caps event-driven cycles per second.
+DEFAULT_MAX_STALENESS = 0.0
+DEFAULT_RECONCILE_DEBOUNCE = 0.5
+DEFAULT_MAX_PROBE_RATE = 1.0
+# The twin reads its YAML config file from --config-file or these; this
+# port refuses both until the config-file slice (cmd/main.py).
+CONFIG_FILE_ENV_VARS = ("TFD_CONFIG_FILE", "CONFIG_FILE")
 # Straggler detection (lm/health.py): a healthy device whose throughput
 # falls below this fraction of the healthy-device median on two
 # consecutive probes is published as gpu.straggler-chip.
@@ -38,6 +69,42 @@ def env_flag(name: str) -> bool:
         return _parse_bool(raw)
     except ConfigError as e:
         raise ConfigError(f"{name}={raw!r} is not a boolean: {e}") from e
+
+
+_DURATION_RE = re.compile(r"(\d+(?:\.\d+)?)(ns|us|µs|ms|s|m|h)")
+_DURATION_UNITS = {
+    "ns": 1e-9,
+    "us": 1e-6,
+    "µs": 1e-6,
+    "ms": 1e-3,
+    "s": 1.0,
+    "m": 60.0,
+    "h": 3600.0,
+}
+
+
+def parse_duration(value: Any) -> float:
+    """Parse a Go-style duration ("60s", "1m30s", "100ms") or a bare number
+    of seconds into float seconds."""
+    if isinstance(value, (int, float)):
+        return float(value)
+    s = str(value).strip()
+    if not s:
+        raise ConfigError("empty duration")
+    try:
+        return float(s)
+    except ValueError:
+        pass
+    pos = 0
+    total = 0.0
+    for m in _DURATION_RE.finditer(s):
+        if m.start() != pos:
+            raise ConfigError(f"invalid duration: {value!r}")
+        total += float(m.group(1)) * _DURATION_UNITS[m.group(2)]
+        pos = m.end()
+    if pos != len(s) or pos == 0:
+        raise ConfigError(f"invalid duration: {value!r}")
+    return total
 
 
 @dataclass(frozen=True)
@@ -59,6 +126,10 @@ FLAG_DEFS: List[FlagDef] = [
             "label once and exit", "oneshot"),
     FlagDef("no-timestamp", ("TFD_NO_TIMESTAMP",), _parse_bool, False,
             "do not add the timestamp to the labels", "no_timestamp"),
+    FlagDef("sleep-interval", ("TFD_SLEEP_INTERVAL",), parse_duration,
+            DEFAULT_SLEEP_INTERVAL,
+            "time to sleep between labeling (Go duration, e.g. 60s)",
+            "sleep_interval"),
     FlagDef("output-file", ("TFD_OUTPUT_FILE",), str, DEFAULT_OUTPUT_FILE,
             "path to the NFD feature file to write", "output_file",
             aliases=("output", "o")),
@@ -86,9 +157,85 @@ FLAG_DEFS: List[FlagDef] = [
     FlagDef("probe-isolation", ("TFD_PROBE_ISOLATION",), str,
             PROBE_ISOLATION_AUTO,
             "where device probing runs: 'none' keeps it in process; "
-            "'auto' (default) resolves to none for --oneshot; "
+            "'auto' (default) resolves to none, the twin's resolution "
+            "with the broker off for --oneshot and --with-burnin; "
             "'subprocess' is not available in this port yet",
             "probe_isolation"),
+    FlagDef("probe-broker", ("TFD_PROBE_BROKER",), str, PROBE_BROKER_AUTO,
+            "persistent probe broker: 'auto' (default) and 'off' keep the "
+            "probe in process; 'on' is not available in this port yet",
+            "probe_broker"),
+    FlagDef("fail-on-init-error", ("TFD_FAIL_ON_INIT_ERROR", "FAIL_ON_INIT_ERROR"),
+            _parse_bool, True,
+            "daemon mode: exit once --init-retries backend-init attempts "
+            "failed in a row; false stays degraded and keeps retrying",
+            "fail_on_init_error"),
+    FlagDef("init-retries", ("TFD_INIT_RETRIES",), _parse_positive_int,
+            DEFAULT_INIT_RETRIES,
+            "daemon mode: consecutive backend-init attempts (one per "
+            "labeling cycle, spaced by exponential backoff) tolerated before "
+            "the supervisor escalates; while the backend is down, degraded "
+            "labels are published with nvidia.com/gpu.tfd.degraded=true",
+            "init_retries"),
+    FlagDef("init-backoff-max", ("TFD_INIT_BACKOFF_MAX",), parse_duration,
+            DEFAULT_INIT_BACKOFF_MAX,
+            "cap (Go duration) on the exponential backoff between "
+            "backend-init re-attempts and between failed-cycle retries "
+            "(jittered; base 1s, doubling)", "init_backoff_max"),
+    FlagDef("max-consecutive-failures", ("TFD_MAX_CONSECUTIVE_FAILURES",),
+            _parse_positive_int, DEFAULT_MAX_CONSECUTIVE_FAILURES,
+            "daemon mode: labeling cycles may fail this many times in a row "
+            "(each contained: last-good labels re-served with the "
+            "nvidia.com/gpu.tfd.unhealthy-cycles counter) before the "
+            "supervisor escalates to a nonzero exit",
+            "max_consecutive_failures"),
+    FlagDef("parallel-labelers", ("TFD_PARALLEL_LABELERS",), _parse_bool, True,
+            "run the blocking labelers on a pool with per-labeler deadlines; "
+            "false runs every labeler inline, in order", "parallel_labelers"),
+    FlagDef("labeler-timeout", ("TFD_LABELER_TIMEOUT",), parse_duration,
+            DEFAULT_LABELER_TIMEOUT,
+            "with --parallel-labelers, per-cycle deadline for each labeler "
+            "(Go duration); a labeler exceeding it is served from its "
+            "last-good cache and named in nvidia.com/gpu.tfd.stale-sources",
+            "labeler_timeout"),
+    FlagDef("timings-file", ("TFD_TIMINGS_FILE",), str, "",
+            "path to write a JSON per-labeler timing summary after every "
+            "labeling cycle (empty = disabled)", "timings_file"),
+    FlagDef("state-dir", ("TFD_STATE_DIR",), str, "",
+            "directory where the last successful cycle's labels are "
+            "persisted; a restart re-serves them with "
+            "nvidia.com/gpu.tfd.restored=true until the first live cycle "
+            "(empty = disabled)", "state_dir"),
+    FlagDef("flap-window", ("TFD_FLAP_WINDOW",), _parse_positive_int,
+            DEFAULT_FLAP_WINDOW,
+            "daemon mode: a change to the published labels must hold for "
+            "this many consecutive cycles before the file changes; while "
+            "suppressed the previous labels are re-served with "
+            "nvidia.com/gpu.tfd.flapping=true (1 = publish every cycle)",
+            "flap_window"),
+    FlagDef("heartbeat-file", ("TFD_HEARTBEAT_FILE",), str, "",
+            "path whose mtime the daemon touches after every completed "
+            "labeling cycle, for an exec livenessProbe (empty = disabled)",
+            "heartbeat_file"),
+    FlagDef("reconcile", ("TFD_RECONCILE",), str, RECONCILE_AUTO,
+            "daemon loop shape: 'event' waits on an event queue (signals, "
+            "health deltas) with --max-staleness as the bound; 'interval' "
+            "sleeps --sleep-interval between cycles; 'auto' (default) is "
+            "event for the daemon and interval for oneshot", "reconcile"),
+    FlagDef("max-staleness", ("TFD_MAX_STALENESS",), parse_duration,
+            DEFAULT_MAX_STALENESS,
+            "with --reconcile=event, the longest the daemon may go without "
+            "a labeling cycle (Go duration); 0 (default) tracks "
+            "--sleep-interval", "max_staleness"),
+    FlagDef("reconcile-debounce", ("TFD_RECONCILE_DEBOUNCE",), parse_duration,
+            DEFAULT_RECONCILE_DEBOUNCE,
+            "with --reconcile=event, how long a wake waits for the rest of "
+            "an event burst before running the cycle (Go duration)",
+            "reconcile_debounce"),
+    FlagDef("max-probe-rate", ("TFD_MAX_PROBE_RATE",), _parse_positive_float,
+            DEFAULT_MAX_PROBE_RATE,
+            "with --reconcile=event, token-bucket cap on event-driven "
+            "labeling cycles per second", "max_probe_rate"),
 ]
 
 
@@ -113,9 +260,14 @@ def new_config(
             )
             value = fd.parse(env_val) if env_val is not None else fd.default
         setattr(tfd, fd.attr, value)
-    if tfd.probe_isolation not in PROBE_ISOLATION_MODES:
-        raise ConfigError(
-            f"invalid probe-isolation: {tfd.probe_isolation!r} "
-            f"(want one of {PROBE_ISOLATION_MODES})"
-        )
+    for attr, modes in (
+        ("probe_isolation", PROBE_ISOLATION_MODES),
+        ("probe_broker", PROBE_BROKER_MODES),
+        ("reconcile", RECONCILE_MODES),
+    ):
+        if getattr(tfd, attr) not in modes:
+            raise ConfigError(
+                f"invalid {attr.replace('_', '-')}: {getattr(tfd, attr)!r} "
+                f"(want one of {modes})"
+            )
     return config

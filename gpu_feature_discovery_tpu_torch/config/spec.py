@@ -1,8 +1,9 @@
 """Configuration spec (twin: ``gpu_feature_discovery_tpu/config/spec.py``).
 
-Trimmed to the flags the oneshot ``--with-burnin`` cycle reads. Every
-field starts as ``None`` ("not set anywhere yet"); the flag layer
-(config/flags.py) fills CLI > environment > default.
+Trimmed to the flags of the oneshot ``--with-burnin`` cycle and the
+supervised daemon loop. Every field starts as ``None`` ("not set
+anywhere yet"); the flag layer (config/flags.py) fills CLI > environment
+> default. The twin's YAML config file is a later slice.
 """
 
 from __future__ import annotations
@@ -10,10 +11,11 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
-# Probe-isolation modes, spelled as the twin spells them. This slice runs
-# the probe in process only: `auto` resolves to `none` under --oneshot
-# exactly as the twin resolves it (sandbox/probe.py isolation_mode), and
-# `subprocess` belongs to the daemon slice.
+# Probe-isolation and probe-broker modes, spelled as the twin spells
+# them. This port runs the probe in process only: `auto` resolves as the
+# twin resolves it with the broker off (sandbox/probe.py
+# isolation_mode), in process; an explicit `subprocess` or broker `on`
+# belongs to the broker slice and is refused.
 PROBE_ISOLATION_NONE = "none"
 PROBE_ISOLATION_SUBPROCESS = "subprocess"
 PROBE_ISOLATION_AUTO = "auto"
@@ -22,14 +24,28 @@ PROBE_ISOLATION_MODES = (
     PROBE_ISOLATION_SUBPROCESS,
     PROBE_ISOLATION_AUTO,
 )
+PROBE_BROKER_ON = "on"
+PROBE_BROKER_OFF = "off"
+PROBE_BROKER_AUTO = "auto"
+PROBE_BROKER_MODES = (PROBE_BROKER_ON, PROBE_BROKER_OFF, PROBE_BROKER_AUTO)
+
+# Reconcile-loop modes (cmd/events.py): `event` blocks the daemon loop on
+# a typed event queue with the staleness bound as its timeout; `interval`
+# is the fixed generate -> write -> sleep loop; `auto` is event for the
+# supervised daemon and interval for oneshot.
+RECONCILE_INTERVAL = "interval"
+RECONCILE_EVENT = "event"
+RECONCILE_AUTO = "auto"
+RECONCILE_MODES = (RECONCILE_INTERVAL, RECONCILE_EVENT, RECONCILE_AUTO)
 
 
 @dataclass
 class TfdFlags:
-    """Daemon flags read by the oneshot burn-in cycle."""
+    """Daemon flags: the label cycle, the burn-in, and supervision."""
 
     oneshot: Optional[bool] = None
     no_timestamp: Optional[bool] = None
+    sleep_interval: Optional[float] = None  # seconds
     output_file: Optional[str] = None
     with_burnin: Optional[bool] = None
     burnin_interval: Optional[int] = None  # probe every Nth cycle
@@ -37,6 +53,25 @@ class TfdFlags:
     straggler_threshold: Optional[float] = None  # fraction of median, (0,1)
     backends: Optional[str] = None  # "auto" | "gpu" | "mock-gpu[:<n>]"
     probe_isolation: Optional[str] = None  # none | subprocess | auto
+    probe_broker: Optional[str] = None  # on | off | auto
+    # Supervision (cmd/supervisor.py). The twin keeps fail_on_init_error
+    # on Flags, beside its device-plugin flags; this port has only tfd.
+    fail_on_init_error: Optional[bool] = None
+    init_retries: Optional[int] = None
+    init_backoff_max: Optional[float] = None  # seconds
+    max_consecutive_failures: Optional[int] = None
+    state_dir: Optional[str] = None
+    flap_window: Optional[int] = None
+    heartbeat_file: Optional[str] = None
+    # Label engine (lm/engine.py) and per-cycle timings.
+    parallel_labelers: Optional[bool] = None
+    labeler_timeout: Optional[float] = None  # seconds
+    timings_file: Optional[str] = None
+    # Reconcile loop (cmd/events.py).
+    reconcile: Optional[str] = None
+    max_staleness: Optional[float] = None  # seconds; 0 = --sleep-interval
+    reconcile_debounce: Optional[float] = None  # seconds
+    max_probe_rate: Optional[float] = None  # event-driven cycles per second
 
 
 @dataclass
@@ -83,4 +118,16 @@ def parse_fraction(value: Any) -> float:
         raise ConfigError(f"invalid fraction: {value!r}") from e
     if not 0.0 < f < 1.0:
         raise ConfigError(f"value must be in (0, 1) exclusive: {value!r}")
+    return f
+
+
+def parse_positive_float(value: Any) -> float:
+    """Strict positive float (the token-bucket refill rate: 0 would never
+    grant a token, so it is a config error)."""
+    try:
+        f = float(str(value).strip())
+    except ValueError as e:
+        raise ConfigError(f"invalid number: {value!r}") from e
+    if f <= 0.0:
+        raise ConfigError(f"value must be > 0: {value!r}")
     return f

@@ -4,23 +4,24 @@ with ``lm/pjrt_family.py``'s gpu family).
 On this port the accelerator family is gpu, so the health source (which
 the twin hangs off its tpu family) joins the gpu family's device source:
 both publish under ``nvidia.com/gpu.``, behind the family's namespace
-guard.
+guard. The device source is in-memory math against the initialized
+backend and runs inline; the health source does device I/O (acquisition
+and the burn-in probe) only with ``--with-burnin``, and is offloaded to
+the engine's pool then (lm/engine.py).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+from typing import List
 
 from gpu_feature_discovery_tpu_torch.config.spec import Config
+from gpu_feature_discovery_tpu_torch.lm.engine import LabelSource
 from gpu_feature_discovery_tpu_torch.lm.health import new_health_labeler
-from gpu_feature_discovery_tpu_torch.lm.labels import Labels
 from gpu_feature_discovery_tpu_torch.lm.pjrt_family import (
     _family_device_labels,
     family_guard,
 )
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
-
-LabelSource = Tuple[str, Callable[[], Labels]]
 
 
 def gpu_label_sources(manager: Manager, config: Config) -> List[LabelSource]:
@@ -30,9 +31,14 @@ def gpu_label_sources(manager: Manager, config: Config) -> List[LabelSource]:
     if not manager.get_chips():
         return []
     return [
-        ("device", lambda: family_guard("gpu", _family_device_labels(manager, "gpu"))),
-        (
+        LabelSource(
+            "device",
+            lambda: family_guard("gpu", _family_device_labels(manager, "gpu")),
+            offload=False,
+        ),
+        LabelSource(
             "health",
             lambda: family_guard("gpu", new_health_labeler(manager, config).labels()),
+            offload=bool(config.flags.tfd.with_burnin),
         ),
     ]

@@ -17,15 +17,22 @@ and, with --chip-probes (the default), per-device fault localisation:
 The keys are the twin's ``google.com/tpu.*`` keys under the one allowed
 translation to ``nvidia.com/gpu.``.
 
-This slice runs the probe synchronously in the labeling process; the
-broker path and the first-probe thread of the daemon belong to a later
-slice, as does the metrics plane.
+The probe runs every ``--burnin-interval`` cycles; cycles in between
+republish the cached labels without ``probe-ms``. In the daemon the
+FIRST probe of a schedule runs on a background thread, so the cycle's
+base labels publish at once while the first use (kernel build, cuBLAS
+and NCCL set-up, the burn-in's CUDA-graph capture) runs; later cycles
+collect it. Oneshot probes synchronously. The probe runs in the
+labeling process: the twin's broker path is a later slice, as is the
+metrics plane.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import statistics
+import threading
 import time
 import weakref
 
@@ -128,6 +135,44 @@ def _spec_peaks(manager: Manager) -> tuple:
     return peak_tf, peak_hbm
 
 
+# How long a daemon labeling cycle waits for the FIRST probe before
+# publishing without health labels. The first probe per process pays the
+# first use of every kernel; steady-state probes finish far inside this
+# budget and stay effectively synchronous.
+FIRST_PROBE_WAIT_S = 2.0
+
+
+class _FirstProbeThread(threading.Thread):
+    """Carries the first probe off the labeling path. ``outcome`` is
+    ``(report, error, probe_ms)`` once the probe finished — the inputs the
+    synchronous path produces. ``abandoned`` marks a probe whose result
+    must be DISCARDED (devices became unacquirable mid-flight)."""
+
+    def __init__(self, measure, devices):
+        super().__init__(name="tfd-burnin-first-probe", daemon=True)
+        self._measure = measure
+        self._devices = devices
+        self.outcome = None
+        self.abandoned = False
+
+    def run(self):
+        t0 = time.perf_counter()
+        try:
+            report, error = self._measure(devices=self._devices), None
+        except Exception as e:  # noqa: BLE001 - delivered to the consumer
+            log.debug("burn-in first probe failed:", exc_info=True)
+            report, error = None, e
+        self.outcome = (report, error, (time.perf_counter() - t0) * 1e3)
+
+
+# At most ONE first probe in flight per process: a SIGHUP reload retires
+# the schedule mid-probe, and a second thread would seize the devices
+# beside the orphan. The new schedule ADOPTS a non-abandoned in-flight
+# probe instead.
+_first_probe_lock = threading.Lock()
+_first_probe_inflight: "_FirstProbeThread | None" = None
+
+
 class _BurninSchedule:
     """Every-Nth-cycle scheduling of the burn-in, one per Manager: the
     probe occupies every device, so cycles in between republish the
@@ -137,6 +182,7 @@ class _BurninSchedule:
         self.cycle = -1
         self.cached: Labels | None = None
         self.consecutive_failures = 0
+        self.first_probe_thread: _FirstProbeThread | None = None
         self.straggler: StragglerDetector | None = None
 
     def due(self, interval: int) -> bool:
@@ -177,14 +223,17 @@ def _acquire_devices():
 
 def new_health_labeler(manager: Manager, config: Config) -> Labeler:
     """Empty unless --with-burnin and the node actually has devices. The
-    probe runs every --burnin-interval cycles and synchronously (a oneshot
-    cycle has no later cycle to collect it)."""
+    probe runs every --burnin-interval cycles; in between, the last
+    measured labels are republished from cache."""
+    global _first_probe_inflight
     if not config.flags.tfd.with_burnin:
         return Empty()
     if not manager.get_chips():
         return Empty()
     from gpu_feature_discovery_tpu_torch.ops.healthcheck import measure_node_health
 
+    # Acquisition is checked EVERY cycle, so cached health labels never
+    # outlive the devices being acquirable; only the probe is scheduled.
     sched = _schedule_for(manager)
     devices = _acquire_devices()
     if devices is None:
@@ -194,21 +243,61 @@ def new_health_labeler(manager: Manager, config: Config) -> Labeler:
             "burn-in skipped: no local CUDA devices acquirable; publishing "
             "no health labels",
         )
+        # Nothing measured before the gap survives it: the cache, the
+        # failure and straggler streaks, and a pending first probe.
         sched.cached = None
         sched.consecutive_failures = 0
         sched.straggler = None
+        if sched.first_probe_thread is not None:
+            sched.first_probe_thread.abandoned = True
+            sched.first_probe_thread = None
         return Empty()
     interval = config.flags.tfd.burnin_interval or 1
     if not sched.due(interval):
+        # A cycle that ran no probe carries no probe-ms (stored stripped).
+        log.debug("burn-in not due; republishing cached health labels")
         return sched.cached
     chip_probes, _ = _chip_probe_opts(config)
-    t0 = time.perf_counter()
-    try:
-        report, error = measure_node_health(devices=devices, per_chip=chip_probes), None
-    except Exception as e:  # noqa: BLE001 - a failing device must not kill labeling
-        log.debug("burn-in probe failed:", exc_info=True)
-        report, error = None, e
-    probe_ms = (time.perf_counter() - t0) * 1e3
+    measure = functools.partial(measure_node_health, per_chip=chip_probes)
+    first_probe = sched.cached is None and sched.consecutive_failures == 0
+    if first_probe and not config.flags.tfd.oneshot:
+        with _first_probe_lock:
+            thread = sched.first_probe_thread
+            if thread is None:
+                inflight = _first_probe_inflight
+                if inflight is not None and inflight.is_alive():
+                    if inflight.abandoned:
+                        # An orphan still holds the devices; a second
+                        # probe would double-seize them. Wait it out.
+                        return Empty()
+                    # e.g. after SIGHUP: adopt the running probe.
+                    sched.first_probe_thread = thread = inflight
+                else:
+                    thread = _FirstProbeThread(measure, devices)
+                    sched.first_probe_thread = thread
+                    _first_probe_inflight = thread
+                    thread.start()
+        thread.join(FIRST_PROBE_WAIT_S)
+        outcome = thread.outcome
+        if outcome is None:
+            log.info(
+                "burn-in first probe still running; publishing base labels "
+                "without health this cycle"
+            )
+            return Empty()
+        sched.first_probe_thread = None
+        with _first_probe_lock:
+            if _first_probe_inflight is thread:
+                _first_probe_inflight = None
+        report, error, probe_ms = outcome
+    else:
+        t0 = time.perf_counter()
+        try:
+            report, error = measure(devices=devices), None
+        except Exception as e:  # noqa: BLE001 - a failing device must not kill labeling
+            log.debug("burn-in probe failed:", exc_info=True)
+            report, error = None, e
+        probe_ms = (time.perf_counter() - t0) * 1e3
     return _labels_from_probe(sched, manager, config, report, error, probe_ms)
 
 
@@ -256,9 +345,10 @@ def _labels_from_probe(
         sched.cached = labels if sched.consecutive_failures >= 2 else None
         return labels
     log.debug(
-        "burn-in probe timing=%s phases=%s",
+        "burn-in probe timing=%s phases=%s probe_ms=%.3f",
         report.get("timing"),
         report.get("phases"),
+        probe_ms,
     )
     peak_tf, peak_hbm = _spec_peaks(manager)
     labels = Labels(

@@ -1,10 +1,13 @@
 """Labeler composition root (twin: ``gpu_feature_discovery_tpu/lm/labelers.py``).
 
 ``new_label_sources`` lists every source of one cycle in merge order —
-timestamp, device, health — which is the twin's eager sequential order
-(``lm/tpu.py:new_tpu_labeler``, ``--parallel-labelers=false``). The
-host-interconnect labeler of the twin labels the tpu family only and has
-no counterpart here yet.
+timestamp, device, health — for the label engine (lm/engine.py).
+``degraded_label_sources`` is its non-device subset, what the daemon can
+still publish while the backend will not init: in this port the
+timestamp alone. The twin's degraded set adds the DMI machine type and
+the host interconnect, which wait for the host-facts slice. Source names
+and merge order match the full list's, so the engine's per-source cache
+carries across degraded and healthy cycles.
 """
 
 from __future__ import annotations
@@ -12,9 +15,11 @@ from __future__ import annotations
 from typing import List, Optional
 
 from gpu_feature_discovery_tpu_torch.config.spec import Config
-from gpu_feature_discovery_tpu_torch.lm.gpu import LabelSource, gpu_label_sources
+from gpu_feature_discovery_tpu_torch.lm.engine import LabelSource
+from gpu_feature_discovery_tpu_torch.lm.gpu import gpu_label_sources
 from gpu_feature_discovery_tpu_torch.lm.labeler import Labeler
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
+from gpu_feature_discovery_tpu_torch.utils.timing import timed
 
 
 def new_label_sources(
@@ -22,9 +27,18 @@ def new_label_sources(
 ) -> List[LabelSource]:
     """Calls ``manager.init()`` (errors propagate); the caller owns
     ``manager.shutdown()`` after the sources have run."""
+    sources = degraded_label_sources(timestamp=timestamp)
+    with timed("gpu.init"):
+        manager.init()
+    sources.extend(gpu_label_sources(manager, config))
+    return sources
+
+
+def degraded_label_sources(timestamp: Optional[Labeler] = None) -> List[LabelSource]:
+    """The non-device sources; no manager is touched."""
     sources: List[LabelSource] = []
     if timestamp is not None:
-        sources.append(("timestamp", timestamp.labels))
-    manager.init()
-    sources.extend(gpu_label_sources(manager, config))
+        ts = timestamp
+        # A clock read: nothing to block on, so inline.
+        sources.append(LabelSource("timestamp", lambda: ts, offload=False))
     return sources

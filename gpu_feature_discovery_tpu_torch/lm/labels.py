@@ -4,7 +4,9 @@
 The output file is the whole API surface the NFD worker consumes, so the
 write is atomic: stage into ``<dir>/tfd-tmp/tfd-XXXX``, fsync, then
 ``os.replace`` over the target and fsync the directory. NFD never sees a
-torn file.
+torn file. The write is also churn-free: a daemon cycle whose labels are
+byte-identical to the file's skips the write, so the file keeps its
+inode and mtime and NFD, which re-parses on every change, stays idle.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import os
 import shutil
 import sys
 import tempfile
-from typing import TextIO
+import threading
+from typing import Dict, Optional, TextIO
 
 TMP_SUBDIR = "tfd-tmp"
 TMP_PREFIX = "tfd-"
@@ -53,20 +56,85 @@ class Labels(dict):
         return total
 
     def write_to_file(self, path: str) -> None:
-        """Write labels to ``path`` atomically; empty path → stdout."""
+        """Write labels to ``path`` atomically; empty path → stdout.
+
+        Churn-free: when the serialized content equals the file's, no
+        staging file, no rename, mtime untouched. Steady-state cycles pay
+        one stat(): the last-written bytes are cached per path with the
+        file's (mtime, size, inode) signature and compared in memory; the
+        disk is read only on an epoch's first cycle or after an
+        out-of-band edit, which moves the signature and, if the content
+        really differs, triggers a rewrite."""
         if not path:
             self.write_to(sys.stdout)
             return
         buf = io.StringIO()
         self.write_to(buf)
-        _write_file_atomically(path, buf.getvalue().encode(), OUTPUT_MODE)
+        contents = buf.getvalue().encode()
+        abs_path = os.path.abspath(path)
+        if _write_cache_matches(abs_path, contents):
+            return
+        # The signature is taken BEFORE the verifying read: an edit that
+        # lands after it moves the file off the cached signature.
+        pre_sig = _stat_signature(abs_path)
+        if pre_sig is not None and _file_contents_equal(abs_path, contents):
+            _write_cache_put(abs_path, contents, pre_sig)
+            return
+        sig = _write_file_atomically(path, contents, OUTPUT_MODE)
+        _write_cache_put(abs_path, contents, sig)
 
 
-def _write_file_atomically(path: str, contents: bytes, perm: int) -> None:
+# Last bytes this process wrote (or verified on disk) per absolute path,
+# with a stat signature that provably describes those bytes.
+_write_cache: Dict[str, "tuple[bytes, tuple]"] = {}
+_write_cache_lock = threading.Lock()
+
+
+def _stat_signature(path: str) -> Optional[tuple]:
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return (st.st_mtime_ns, st.st_size, st.st_ino)
+
+
+def _write_cache_matches(abs_path: str, contents: bytes) -> bool:
+    with _write_cache_lock:
+        cached = _write_cache.get(abs_path)
+    if cached is None or cached[0] != contents:
+        return False
+    sig = _stat_signature(abs_path)
+    return sig is not None and sig == cached[1]
+
+
+def _write_cache_put(abs_path: str, contents: bytes, sig: Optional[tuple]) -> None:
+    # ``sig`` comes from the staged temp file before the rename (rename
+    # keeps inode, size and mtime) or from a stat taken before the
+    # verifying read — never from a stat after the fact, which an
+    # out-of-band writer could have raced.
+    with _write_cache_lock:
+        if sig is None:
+            _write_cache.pop(abs_path, None)
+        else:
+            _write_cache[abs_path] = (contents, sig)
+
+
+def _file_contents_equal(path: str, contents: bytes) -> bool:
+    """True when ``path`` already holds exactly ``contents``; any read
+    failure answers False ("write it")."""
+    try:
+        with open(path, "rb") as f:
+            return f.read() == contents
+    except OSError:
+        return False
+
+
+def _write_file_atomically(path: str, contents: bytes, perm: int) -> Optional[tuple]:
     """Stage into ``<dir>/tfd-tmp`` then rename over the target. The
     staging dir lives on the target's filesystem so the rename is atomic;
     the temp file is fsynced before the rename and the directory after, so
-    a node crash cannot leave the target naming a truncated inode."""
+    a node crash cannot leave the target naming a truncated inode.
+    Returns the staged file's stat signature, taken before the rename."""
     abs_path = os.path.abspath(path)
     out_dir = os.path.dirname(abs_path)
     tmp_dir = os.path.join(out_dir, TMP_SUBDIR)
@@ -78,6 +146,7 @@ def _write_file_atomically(path: str, contents: bytes, perm: int) -> None:
             f.write(contents)
             f.flush()
             os.fsync(f.fileno())
+        sig = _stat_signature(tmp_name)
         os.replace(tmp_name, abs_path)
     except BaseException:
         try:
@@ -87,6 +156,7 @@ def _write_file_atomically(path: str, contents: bytes, perm: int) -> None:
         raise
     os.chmod(abs_path, perm)
     _fsync_dir(out_dir)
+    return sig
 
 
 def _fsync_dir(dir_path: str) -> None:
@@ -110,6 +180,8 @@ def remove_output_file(path: str) -> None:
     if not path:
         return
     abs_path = os.path.abspath(path)
+    with _write_cache_lock:
+        _write_cache.pop(abs_path, None)
     tmp_dir = os.path.join(os.path.dirname(abs_path), TMP_SUBDIR)
     shutil.rmtree(tmp_dir, ignore_errors=True)
     if os.path.exists(abs_path):

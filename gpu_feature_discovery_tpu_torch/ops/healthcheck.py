@@ -15,9 +15,14 @@ The probe behind the health labeler (lm/health.py, gated by
   mesh. On the CPU the count is summed on the host.
 
 On CUDA the rates come from CUDA events (ops/device_timing.py) at the
-2048x4 / 256 MiB geometry; on the CPU (tests, ``TFD_BURNIN_ALLOW_CPU``)
-the host clock times a 512x8 burn-in and there is no HBM probe, as the
-twin splits TPU and non-TPU devices. The ICI sweep, the timed all-reduce
+2048x4 / 256 MiB geometry. The twin times one compiled XLA program, pure
+device time; a pass of eager PyTorch launches about 40 kernels, and an
+event pair around them would wait on the host queueing them. So the
+timed burn-in pass is a CUDA graph, captured once per (device, size,
+depth) during the warm-up and replayed between the event pair: the
+window holds the device's work only. On the CPU (tests,
+``TFD_BURNIN_ALLOW_CPU``) the host clock times a 512x8 burn-in and there
+is no HBM probe, as the twin splits TPU and non-TPU devices. The ICI sweep, the timed all-reduce
 probe and the slice train step are not ported yet: ``ici_ok`` and
 ``ici_gbps`` stay None, as on a one-chip TPU.
 
@@ -197,28 +202,65 @@ def health_pack(checksum, rms, hbm_total) -> torch.Tensor:
 # window — see _warm_probe_kernels.
 _warmed_probe_keys: set = set()
 
+# (device, size, depth) -> (graph, checksum, rms): one burn-in pass at the
+# probe geometry captured as a CUDA graph, with its static outputs.
+_burnin_graphs: dict = {}
+
+
+def _burnin_graph(device: torch.device, size: int, depth: int) -> tuple:
+    """The captured burn-in pass for ``device`` (captured on first use).
+    Runs on whichever thread probes — the daemon's first probe runs off
+    the labeling thread — so every CUDA call sits under an explicit
+    device guard, and the capture checks only this thread's calls. A
+    failed capture raises: the probe never falls back to an ungraphed
+    window, which would time the host."""
+    key = (device, size, depth)
+    entry = _burnin_graphs.get(key)
+    if entry is not None:
+        return entry
+    xb, wsb = _burnin_workspace(device, size, depth, PROBE_DTYPE)
+    with torch.cuda.device(device):
+        # Warm on a side stream first: cuBLAS sets up its workspace on the
+        # stream it first runs on, outside the capture.
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            burnin_step(xb, wsb)
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            cs, rms = burnin_step(xb, wsb)
+    entry = (graph, cs, rms)
+    _burnin_graphs[key] = entry
+    return entry
+
 
 def reset_probe_workspaces() -> None:
-    """Drop every per-device probe cache: the resident burn-in inputs,
-    the HBM stream buffers and the warmed-probe memo."""
+    """Drop every per-device probe cache: the captured burn-in graphs,
+    the resident burn-in inputs, the HBM stream buffers and the
+    warmed-probe memo."""
+    _burnin_graphs.clear()
     stream_workspace.cache_clear()
     _burnin_workspace.cache_clear()
     _warmed_probe_keys.clear()
 
 
 def _warm_probe_kernels(devices: tuple, size: int, depth: int, per_chip: bool) -> float:
-    """Build the HBM kernel and run every probe once outside the timed
-    window; returns the wall ms spent (0.0 when already warm). The first
-    call of each probe pays the kernel build, cuBLAS handle creation and
-    the workspace fills; none of that belongs in a measured rate."""
+    """Build the HBM kernel, capture the burn-in graph and run every probe
+    once outside the timed window; returns the wall ms spent (0.0 when
+    already warm). The first call of each probe pays the kernel build,
+    cuBLAS handle creation, the graph capture and the workspace fills;
+    none of that belongs in a measured rate."""
     key = (devices, size, depth, per_chip)
     if key in _warmed_probe_keys:
         return 0.0
     t0 = time.perf_counter()
     rows = probe_rows(PROBE_HBM_MIB)
     for d in devices:
-        xb, wsb = _burnin_workspace(d, size, depth, PROBE_DTYPE)
-        cs, rms = burnin_step(xb, wsb)
+        graph, cs, rms = _burnin_graph(d, size, depth)
+        with torch.cuda.device(d):
+            graph.replay()
         total = hbm_stream_sum(stream_workspace(d, rows))
         health_pack(cs, rms, total).cpu()
     if per_chip:
@@ -310,20 +352,22 @@ def _measure_node_health_traced(
     per_chip: bool,
 ) -> dict:
     """Probe every CUDA device with device-clock timing: every burn-in
-    pass and every HBM stream sum runs between a CUDA event pair on its
-    device's stream; nothing waits until every device has its work
-    queued. Rates are median-of-iters per device, worst device
-    published."""
+    pass (a replay of its CUDA graph) and every HBM stream sum runs
+    between a CUDA event pair on its device's stream; nothing waits until
+    every device has its work queued. Rates are median-of-iters per
+    device, worst device published."""
     compile_ms = _warm_probe_kernels(tuple(devices), size, depth, per_chip)
     rows = probe_rows(PROBE_HBM_MIB)
     clock = device_timing.DeviceClock()
     t0 = time.perf_counter()
     packed = []
     for d in devices:
-        xb, wsb = _burnin_workspace(d, size, depth, PROBE_DTYPE)
+        graph, cs, rms = _burnin_graph(d, size, depth)
         buf = stream_workspace(d, rows)
         for _ in range(max(1, iters)):
-            cs, rms = clock.time(BURNIN_KERNEL_NAME, d, burnin_step, xb, wsb)
+            # The replay writes the pass's checksum and rms into the
+            # graph's static outputs, read by health_pack below.
+            clock.time(BURNIN_KERNEL_NAME, d, graph.replay)
         for _ in range(PROBE_HBM_ITERS):
             total = clock.time(HBM_KERNEL_NAME, d, hbm_stream_sum, buf)
         packed.append(health_pack(cs, rms, total))
@@ -366,7 +410,7 @@ def _measure_node_health_traced(
             # compile_ms: the kernel build and first run of every probe
             # (first probe per geometry only; 0.0 thereafter).
             # trace_ms: queueing + device work + readback of the timed
-            # probes.
+            # probes. burnin_device_ms: one graph replay.
             "compile_ms": round(compile_ms, 3),
             "trace_ms": round(trace_ms, 3),
             "report_ms": round((time.perf_counter() - t1) * 1e3, 3),

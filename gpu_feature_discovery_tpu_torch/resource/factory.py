@@ -9,6 +9,12 @@ with the registry tokens of ``resource/registry.py``).
 
 Every other token, and any list of tokens, is rejected: the port has one
 device family so far, and the twin's registry grammar stays its to keep.
+
+``build_manager`` is the supervised daemon's acquisition unit (the
+twin's ``cmd/main.py:_build_manager``, in-process branch): the factory
+and an eager ``init()`` as ONE retryable step, raising the raw init
+error for the supervisor (cmd/supervisor.py), whose degraded mode
+replaces any silent fallback.
 """
 
 from __future__ import annotations
@@ -34,3 +40,11 @@ def new_manager(config: Config) -> Manager:
         f"unsupported backend {token!r}: this port labels one device "
         "family; use 'gpu' or 'mock-gpu[:<n>]'"
     )
+
+
+def build_manager(config: Config) -> Manager:
+    """Factory + eager init; init() is idempotent, so the per-cycle
+    init() inside lm/labelers.new_label_sources stays a cheap re-check."""
+    manager = new_manager(config)
+    manager.init()
+    return manager

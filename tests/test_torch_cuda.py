@@ -81,3 +81,67 @@ def test_warm_runs_once_per_geometry(dev, monkeypatch):
     assert healthcheck.warm_probe_kernels_for((dev,)) > 0.0
     assert healthcheck.warm_probe_kernels_for((dev,)) == 0.0
     healthcheck.reset_probe_workspaces()
+
+
+def test_graphed_burnin_matches_eager_and_times_the_device(dev):
+    healthcheck.reset_probe_workspaces()
+    size, depth = healthcheck.CUDA_PROBE_SIZE, healthcheck.CUDA_PROBE_DEPTH
+    x, ws = healthcheck._burnin_workspace(dev, size, depth, healthcheck.PROBE_DTYPE)
+    eager_cs, eager_rms = healthcheck.burnin_step(x, ws)
+    graph, cs, rms = healthcheck._burnin_graph(dev, size, depth)
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    assert float(cs) == float(eager_cs)
+    assert float(rms) == float(eager_rms)
+
+    report = healthcheck.measure_node_health(devices=[dev], per_chip=False)
+    reps = 20
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    back_to_back_ms = start.elapsed_time(end) / reps
+    # rel 0.15: a single replay's window adds the graph's launch latency
+    # on the device, which back-to-back replays hide.
+    assert report["phases"]["burnin_device_ms"] == pytest.approx(
+        back_to_back_ms, rel=0.15
+    )
+    healthcheck.reset_probe_workspaces()
+
+
+def test_daemon_first_probe_runs_off_the_labeling_thread(dev, monkeypatch):
+    import threading
+
+    from gpu_feature_discovery_tpu_torch.config.flags import new_config
+    from gpu_feature_discovery_tpu_torch.lm import health
+    from gpu_feature_discovery_tpu_torch.resource.cuda_backend import CudaManager
+
+    threads = []
+    measure = healthcheck.measure_node_health
+
+    def spy(**kwargs):
+        threads.append(threading.current_thread().name)
+        return measure(**kwargs)
+
+    monkeypatch.setattr(healthcheck, "measure_node_health", spy)
+    healthcheck.reset_probe_workspaces()
+    health.reset_burnin_schedule()
+    manager = CudaManager()
+    manager.init()
+    config = new_config(
+        cli_values={"with-burnin": "true", "burnin-interval": "1"}, environ={}
+    )
+    labels = {}
+    for _ in range(10):  # each cycle waits at most FIRST_PROBE_WAIT_S
+        labels = health.new_health_labeler(manager, config).labels()
+        if labels:
+            break
+    assert threads == ["tfd-burnin-first-probe"]
+    assert labels[health.HEALTH_OK] == "true"
+    assert labels[health.HEALTH_TIMING] == "device-profiler"
+    health.new_health_labeler(manager, config).labels()
+    assert threads[1] == threading.current_thread().name
+    health.reset_burnin_schedule()

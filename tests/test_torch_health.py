@@ -142,3 +142,114 @@ def test_rate_plausible_matches_twin():
     for args in [(None, False, 10.0), (0.5, True, 0.0), (0.5, False, 0.0),
                  (16.0, False, 10.0), (14.0, True, 10.0)]:
         assert health._rate_plausible(*args) == twin._rate_plausible(*args)
+
+
+# ---------------------------------------------------------------------------
+# The burn-in schedule across daemon cycles: first probe off the labeling
+# thread, cached cycles, abandon on an unacquirable gap, adoption after a
+# reload. measure_node_health and device acquisition are stubbed in both
+# packages; FIRST_PROBE_WAIT_S is cut to WAIT_S.
+# ---------------------------------------------------------------------------
+
+WAIT_S = 0.3
+
+
+class _StubProbe:
+    """measure_node_health stand-in: the first call blocks until released
+    (a slow first probe), later calls return at once."""
+
+    def __init__(self):
+        import threading
+
+        self.gate = threading.Event()
+        self.threads = []
+
+    def __call__(self, devices=None, per_chip=False, sick_chips=frozenset(),
+                 slow_chips=frozenset()):
+        import copy
+        import threading
+
+        self.threads.append(threading.current_thread().name)
+        if len(self.threads) == 1:
+            assert self.gate.wait(10), "test gate never released"
+        return copy.deepcopy(REPORTS["healthy"])
+
+
+class _Node:
+    """A one-device manager stand-in (the schedule registry keys on it)."""
+
+    def get_chips(self):
+        return [object()]
+
+
+def _schedule_run(mod, conf, monkeypatch, script, oneshot=False):
+    from gpu_feature_discovery_tpu.ops import healthcheck as twin_ops
+    from gpu_feature_discovery_tpu_torch.ops import healthcheck as port_ops
+
+    probe = _StubProbe()
+    acquirable = {"on": True}
+    acquire = "_acquire_tpu_devices" if mod is twin else "_acquire_devices"
+    monkeypatch.setattr(mod, acquire, lambda: ["dev0"] if acquirable["on"] else None)
+    monkeypatch.setattr(twin_ops if mod is twin else port_ops,
+                        "measure_node_health", probe)
+    monkeypatch.setattr(mod, "FIRST_PROBE_WAIT_S", WAIT_S)
+    mod.reset_burnin_schedule()
+    config = conf(cli_values={"with-burnin": "true", "burnin-interval": "3",
+                              "oneshot": oneshot}, environ={})
+    node = _Node()
+    out = []
+    for step in script:
+        if step == "cycle":
+            labels = _translated(mod.new_health_labeler(node, config).labels())
+            if health.HEALTH_PROBE_MS in labels:
+                labels[health.HEALTH_PROBE_MS] = "measured"
+            out.append(labels)
+        elif step == "release":
+            probe.gate.set()
+            inflight = mod._first_probe_inflight
+            if inflight is not None:
+                inflight.join(10)
+        elif step in ("gone", "back"):
+            acquirable["on"] = step == "back"
+        elif step == "reload":
+            mod.reset_burnin_schedule()
+            node = _Node()
+    probe.gate.set()
+    return out, probe.threads
+
+
+SCHEDULE_SCRIPTS = {
+    "slow-first-probe-then-interval": ["cycle", "cycle", "release", "cycle", "cycle",
+                                       "cycle", "cycle", "cycle"],
+    "abandon-on-unacquirable-gap": ["cycle", "gone", "cycle", "back", "cycle",
+                                    "release", "cycle", "cycle"],
+    "adopt-after-reload": ["cycle", "reload", "cycle", "release", "cycle", "cycle"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCHEDULE_SCRIPTS))
+def test_daemon_schedule_matches_twin(name, same_peaks, monkeypatch):
+    script = SCHEDULE_SCRIPTS[name]
+    want, want_threads = _schedule_run(twin, twin_new_config, monkeypatch, script)
+    got, got_threads = _schedule_run(health, new_config, monkeypatch, script)
+    assert got == want
+    assert got_threads == want_threads
+    assert got_threads[0] == "tfd-burnin-first-probe"
+    assert got[0] == {}  # base labels first, health later
+    if name == "adopt-after-reload":
+        assert len(got_threads) == 1  # adopted, not probed twice
+        assert got[2][health.HEALTH_OK] == "true"
+    if name == "abandon-on-unacquirable-gap":
+        # The orphan's result is discarded; a fresh first probe follows it.
+        assert got[1:3] == [{}, {}]
+        assert got_threads[:2] == ["tfd-burnin-first-probe"] * 2
+
+
+def test_oneshot_probes_synchronously_like_twin(same_peaks, monkeypatch):
+    import threading
+
+    for mod, conf in ((twin, twin_new_config), (health, new_config)):
+        got, threads = _schedule_run(mod, conf, monkeypatch, ["release", "cycle"],
+                                     oneshot=True)
+        assert got[0][health.HEALTH_OK] == "true"
+        assert threads == [threading.current_thread().name]

@@ -98,7 +98,7 @@ def test_oneshot_burnin_without_device_publishes_no_health(tmp_path, monkeypatch
 @pytest.mark.parametrize(
     "argv",
     [
-        ["--backends", "mock-gpu:2"],  # daemon mode: a later slice
+        ["--probe-broker", "on", "--backends", "mock-gpu:2"],  # broker slice
         ["--oneshot", "--probe-isolation", "subprocess", "--backends", "mock-gpu"],
         ["--oneshot", "--probe-isolation", "sideways"],
         ["--oneshot", "--backends", "gpu,mock-gpu"],

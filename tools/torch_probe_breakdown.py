@@ -3,28 +3,36 @@
 
 Run from the repo root on a CUDA card, in a fresh process:
 
-    python3 tools/torch_probe_breakdown.py [--size 2048] [--depth 4]
+    python3 tools/torch_probe_breakdown.py [--size 2048] [--depth 4] [--thread]
 
 Prints one JSON line per measurement, then the card's name and power
 limit (nvidia-smi). Two groups, at the probe geometry with the probe's
 own inputs (ops/healthcheck.py):
 
 First use, host ms around a synchronised call, in the order the first
-probe of a process meets them (the probe's ``compile_ms`` phase):
+probe of a process meets them (the probe's ``compile_ms`` phase); with
+``--thread`` they run on a worker thread, as the daemon's and the label
+engine's probes do:
 
 - ``first_cuda_context``: the first allocation on the device;
 - ``first_workspace``: generating the burn-in inputs;
 - ``first_burnin``: the first ``burnin_step`` (cuBLAS set-up);
+- ``first_graph``: capturing the probe's CUDA graph of the pass
+  (``ops/healthcheck.py:_burnin_graph``, a side-stream warm pass
+  included);
 - ``first_hbm``: the first ``hbm_stream_sum`` (library load; the nvcc
   build runs before, untimed);
 - ``first_nccl``: the first one-device ``torch.cuda.nccl.all_reduce``.
 
 Steady state, device ms by CUDA events after warm-up, per pass or call:
 
-- ``probe_window``: one pass between an event pair, as the probe times it;
-- ``back_to_back``: many passes between one event pair;
-- ``host_enqueue``: host time to queue one pass (no synchronisation);
-- ``graph_replay``: the same pass captured once in a CUDA graph;
+- ``probe_window``: one eager pass between an event pair;
+- ``probe_replay``: one replay of the probe's CUDA graph of the pass
+  between an event pair, as the probe times it;
+- ``back_to_back``: many eager passes between one event pair;
+- ``host_enqueue``: host time to queue one eager pass (no synchronisation);
+- ``graph_replay``: many replays of the probe's graph between one event
+  pair;
 - ``mm_f32_out`` / ``mm_bf16_out``: one product alone, f32 and bf16 out;
 - ``epilogue``: the RMS normalisation of one layer alone.
 """
@@ -37,6 +45,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -85,6 +94,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--size", type=int, default=healthcheck.CUDA_PROBE_SIZE)
     parser.add_argument("--depth", type=int, default=healthcheck.CUDA_PROBE_DEPTH)
+    parser.add_argument("--thread", action="store_true",
+                        help="run the first-use measures on a worker thread")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -95,18 +106,31 @@ def main() -> int:
     mm_flops = 2.0 * size**3
 
     hbm.build_kernel()
-    emit("first_cuda_context", host_ms(lambda: torch.empty(1, device=dev)))
-    buf = hbm.stream_pattern(hbm.probe_rows(healthcheck.PROBE_HBM_MIB), dev)
-    emit("first_workspace", host_ms(
-        lambda: healthcheck._burnin_workspace(dev, size, depth, torch.bfloat16)))
+
+    def first_use():
+        with torch.cuda.device(dev):
+            emit("first_cuda_context", host_ms(lambda: torch.empty(1, device=dev)))
+            buf = hbm.stream_pattern(hbm.probe_rows(healthcheck.PROBE_HBM_MIB), dev)
+            emit("first_workspace", host_ms(lambda: healthcheck._burnin_workspace(
+                dev, size, depth, torch.bfloat16)))
+            x, ws = healthcheck._burnin_workspace(dev, size, depth, torch.bfloat16)
+            emit("first_burnin", host_ms(lambda: healthcheck.burnin_step(x, ws)))
+            emit("first_graph", host_ms(
+                lambda: healthcheck._burnin_graph(dev, size, depth)))
+            emit("first_hbm", host_ms(lambda: hbm.hbm_stream_sum(buf)))
+            import torch.cuda.nccl as nccl
+
+            emit("first_nccl", host_ms(lambda: nccl.all_reduce(
+                [torch.ones(1, dtype=torch.int32, device=dev)])))
+
+    if args.thread:
+        worker = threading.Thread(target=first_use)
+        worker.start()
+        worker.join()
+    else:
+        first_use()
     x, ws = healthcheck._burnin_workspace(dev, size, depth, torch.bfloat16)
     step = lambda: healthcheck.burnin_step(x, ws)  # noqa: E731
-    emit("first_burnin", host_ms(step))
-    emit("first_hbm", host_ms(lambda: hbm.hbm_stream_sum(buf)))
-    import torch.cuda.nccl as nccl
-
-    emit("first_nccl", host_ms(
-        lambda: nccl.all_reduce([torch.ones(1, dtype=torch.int32, device=dev)])))
 
     for _ in range(3):
         step()
@@ -122,15 +146,8 @@ def main() -> int:
     torch.cuda.synchronize()
     emit("host_enqueue", enqueue_ms)
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            step()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        step()
+    graph, _, _ = healthcheck._burnin_graph(dev, size, depth)
+    emit("probe_replay", window_ms(graph.replay, REPS), pass_flops)
     emit("graph_replay", events_ms(graph.replay, REPS), pass_flops)
 
     w = ws[0]
