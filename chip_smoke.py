@@ -17,11 +17,19 @@ Phases, each printing one JSON line:
                   CLI entry point; checks the label file and that the
                   cycle launched every kernel (launch counts zeroed just
                   before, read just after).
-5. ``daemon``   — the supervised daemon loop: ``cmd.main.run`` on a
-                  worker thread with ``--burnin-interval 2
-                  --sleep-interval 1s`` (one ``daemon_cycle`` line per
-                  cycle), SIGHUP and SIGTERM through its signal queue;
-                  then the real CLI as a subprocess with real signals.
+5. ``daemon``   — the supervised daemon loop with the probe in process
+                  (``--probe-broker off``): ``cmd.main.run`` on a worker
+                  thread with ``--burnin-interval 2 --sleep-interval 1s``
+                  (one ``daemon_cycle`` line per cycle), SIGHUP and
+                  SIGTERM through its signal queue; then the real CLI as
+                  a subprocess at its defaults, so through the broker
+                  worker, with real signals (``daemon_cli``).
+6. ``broker``   — ``cmd.main.run`` at the default isolation and broker
+                  settings: the burn-in and the HBM kernel run in the
+                  broker worker process (one ``broker_cycle`` line per
+                  cycle, launches read from the reports it ships); a
+                  ``broker.hang`` and a ``broker.crash`` fault shot are
+                  killed and respawned to fresh health labels.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -33,6 +41,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -242,12 +251,16 @@ class _CycleCapture(logging.Handler):
     health), the cycle's wall ms, the probe's ``probe_ms`` and
     ``phases``, and the kernel launches counted so far."""
 
-    def __init__(self, launches):
+    def __init__(self, launches, on_cycle=None):
         super().__init__(logging.DEBUG)
         self._launches = launches
+        self._on_cycle = on_cycle
         self.cycles = []
+        self.spawns = []    # (pid, ms) per broker worker spawn
+        self.failures = []  # supervisor's failed-cycle messages
         self._probe = None
         self._cached = False
+        self._warming = False
 
     def emit(self, record):
         msg = str(record.msg)
@@ -255,6 +268,12 @@ class _CycleCapture(logging.Handler):
             self._probe = {"probe_ms": record.args[2], "phases": record.args[1]}
         elif msg.startswith("burn-in not due"):
             self._cached = True
+        elif msg.startswith("burn-in probe still warming"):
+            self._warming = True
+        elif msg.startswith("broker worker %d ready in"):
+            self.spawns.append((record.args[0], record.args[1]))
+        elif msg.startswith("labeling cycle failed"):
+            self.failures.append(record.getMessage())
         elif msg.startswith("Cycle timings: "):
             stages = dict(
                 part.split("=", 1) for part in str(record.args[0]).split()
@@ -262,6 +281,7 @@ class _CycleCapture(logging.Handler):
             mode = (
                 "probing" if self._probe
                 else "cached-health" if self._cached
+                else "warming" if self._warming
                 else "full"
             )
             self.cycles.append({
@@ -270,7 +290,11 @@ class _CycleCapture(logging.Handler):
                 "launches": self._launches(),
                 **(self._probe or {}),
             })
-            self._probe, self._cached = None, False
+            self._probe, self._cached, self._warming = None, False, False
+            if self._on_cycle is not None:
+                # On the daemon's own thread, between this cycle's probe
+                # and the next cycle's first broker request.
+                self._on_cycle()
 
 
 def _read_labels(path: str) -> dict:
@@ -329,10 +353,12 @@ def phase_daemon(entries: dict, count: int) -> None:
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         out = os.path.join(tmp, "tfd")
+        # Broker off: auto isolation then resolves to in process under
+        # burn-in, as in the twin (the broker phase drives the default).
         config = new_config(
             cli_values={"with-burnin": "true", "backends": "gpu",
                         "burnin-interval": "2", "sleep-interval": "1s",
-                        "output-file": out},
+                        "probe-broker": "off", "output-file": out},
             environ=dict(os.environ),
         )
         sigs = queue.SimpleQueue()
@@ -451,16 +477,71 @@ def _first_cycle_stages(log_path: str):
     return None
 
 
+def _children(pid: int) -> list:
+    """Pids whose parent is ``pid``."""
+    kids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid:
+            kids.append(int(entry))
+    return kids
+
+
+def _maps_libcuda(pid: int) -> bool:
+    with open(f"/proc/{pid}/maps") as f:
+        return "libcuda.so" in f.read()
+
+
+def _gone(pid: int) -> bool:
+    """No such process, or a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+def _host_memory(pids: dict) -> dict:
+    """VmRSS (shared library pages included) and RssAnon (private) in KiB
+    per named pid; None for a field the machine's /proc does not give."""
+    out = {}
+    for name, pid in pids.items():
+        with open(f"/proc/{pid}/status") as f:
+            fields = dict(l.split(":", 1) for l in f if ":" in l)
+        for key in ("VmRSS", "RssAnon"):
+            value = fields.get(key)
+            out[f"{name}_{key}_kib"] = int(value.split()[0]) if value else None
+    return out
+
+
+def _device_used_mib() -> int:
+    """The card's memory in use, all processes, by nvidia-smi."""
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+
+
 def phase_daemon_cli(count: int) -> None:
-    """The CLI in its own process, with real signals. Its first probe pays
-    cuBLAS's and NCCL's set-up; the first cycle waits for it no longer
-    than ``FIRST_PROBE_WAIT_S``."""
-    from gpu_feature_discovery_tpu_torch.lm import health
+    """The CLI in its own process at its defaults, with real signals: it
+    acquires through the broker worker, which holds the card and runs the
+    burn-in, while the CLI process maps no libcuda.so. The first cycle's
+    health request waits no longer than ``HEALTH_WAIT_S``."""
+    from gpu_feature_discovery_tpu_torch.sandbox import broker
 
     build_dir = os.path.join(REPO, "build")
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         out = os.path.join(tmp, "tfd")
         log_path = os.path.join(tmp, "log")
+        # The card's memory before the CLI starts: its rise while the CLI
+        # runs is the worker's (the CLI process holds no CUDA context).
+        used_before = _device_used_mib()
         t0 = time.monotonic()
         with open(log_path, "w") as log:
             proc = subprocess.Popen(
@@ -468,6 +549,7 @@ def phase_daemon_cli(count: int) -> None:
                  "--with-burnin", "--sleep-interval", "1s", "--output-file", out],
                 cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
             )
+        workers = []
         try:
             base = _wait_for(lambda: _read_labels(out), 90.0, "CLI first write",
                              poll=0.005)
@@ -479,6 +561,13 @@ def phase_daemon_cli(count: int) -> None:
                 90.0, "CLI health labels",
             )
             health_s = time.monotonic() - t0
+            workers = _children(proc.pid)
+            check(len(workers) == 1, f"CLI children {workers}, want one worker")
+            check(not _maps_libcuda(proc.pid), "the CLI process maps libcuda.so")
+            check(_maps_libcuda(workers[0]), "the broker worker maps no libcuda.so")
+            memory = {**_host_memory({"parent": proc.pid, "worker": workers[0]}),
+                      "device_used_mib_before": used_before,
+                      "device_used_mib_with_worker": _device_used_mib()}
             stamp = int(first["google.com/tfd.timestamp"])
             # A new epoch's timestamp is later by at least a second.
             time.sleep(max(0.0, stamp + 1.05 - time.time()))
@@ -488,10 +577,17 @@ def phase_daemon_cli(count: int) -> None:
                     l.get("google.com/tfd.timestamp", "0")) > stamp
                     and "nvidia.com/gpu.health.probe-ms" in l else None)(
                     _read_labels(out)),
-                30.0, "fresh health labels after SIGHUP",
+                60.0, "fresh health labels after SIGHUP",
             )
+            workers += [w for w in _children(proc.pid) if w not in workers]
+            check(len(workers) == 2, f"workers {workers}: SIGHUP must respawn one")
+            check(not _maps_libcuda(proc.pid), "the CLI process maps libcuda.so")
+            t_term = time.monotonic()
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=15)
+            _wait_for(lambda: all(_gone(w) for w in workers),
+                      max(0.0, t_term + broker.GRACEFUL_CLOSE_S + 1.0 - time.monotonic()),
+                      f"no broker worker of {workers} alive after SIGTERM")
         finally:
             if proc.poll() is None:
                 proc.kill()
@@ -503,23 +599,204 @@ def phase_daemon_cli(count: int) -> None:
         check(not os.path.exists(out), "CLI exit left the output file")
     check(base.get("nvidia.com/gpu.count") == str(count),
           f"CLI first write count {base.get('nvidia.com/gpu.count')!r}")
-    # The fresh first probe takes about as long as the wait: the first
-    # write carries its health labels when it ended inside the wait, and
-    # none when it did not. Either way the first cycle also acquires the
-    # backend (torch's import, CUDA's set-up: gpu.acquire), and the rest
-    # of it is bounded by the wait.
+    # The first cycle acquires the backend (gpu.acquire: the worker's
+    # spawn, torch's import and CUDA's set-up in it); its health request
+    # then waits at most HEALTH_WAIT_S for the worker's first probe, which
+    # the first write carries when it ended inside the wait.
     base_health = any(k.startswith("nvidia.com/gpu.health.") for k in base)
-    check(first_cycle["labeler.health"] <= (health.FIRST_PROBE_WAIT_S + 0.5) * 1e3
+    check(first_cycle["labeler.health"] <= (broker.HEALTH_WAIT_S + 0.5) * 1e3
           and first_cycle["labelgen.total"] - first_cycle["gpu.acquire"]
-          <= (health.FIRST_PROBE_WAIT_S + 1.0) * 1e3,
+          <= (broker.HEALTH_WAIT_S + 1.0) * 1e3,
           f"CLI first cycle took {first_cycle}; log:\n{head}")
+    spawn_ms = [float(m) for m in re.findall(r"broker worker \d+ ready in (\d+) ms", text)]
     emit("daemon_cli", first_write_s=first_write_s,
          first_cycle_stages_ms=first_cycle, first_write_health=base_health,
-         health_s=health_s, rc=rc,
+         health_s=health_s, rc=rc, worker_spawn_ms=spawn_ms, memory=memory,
          probe_ms_first=int(first.get("nvidia.com/gpu.health.probe-ms", -1)),
          probe_ms_after_reload=int(second["nvidia.com/gpu.health.probe-ms"]),
          matmul_tflops=int(second[HEALTH_KEYS[0]]),
          hbm_gbps=int(second[HEALTH_KEYS[1]]))
+
+
+BROKER_PROBE_TIMEOUT_S = 20.0
+
+
+def phase_broker(entries: dict, count: int) -> None:
+    """``cmd.main.run`` at the default isolation and broker settings, on a
+    thread of this process (which holds CUDA from the earlier phases: the
+    worker is a fresh interpreter, never a fork). The HBM kernel runs in
+    the worker; its launches are read from the reports the worker ships
+    (``phases.hbm_stream_sum_launches*``), and this process launches
+    none."""
+    import queue
+
+    from gpu_feature_discovery_tpu_torch import sandbox
+    from gpu_feature_discovery_tpu_torch.cmd.main import run
+    from gpu_feature_discovery_tpu_torch.cmd.supervisor import Supervisor
+    from gpu_feature_discovery_tpu_torch.config.flags import new_config
+    from gpu_feature_discovery_tpu_torch.lm import health
+    from gpu_feature_discovery_tpu_torch.ops import hbm, healthcheck
+    from gpu_feature_discovery_tpu_torch.resource import factory
+    from gpu_feature_discovery_tpu_torch.sandbox import broker
+    from gpu_feature_discovery_tpu_torch.utils import faults
+
+    arm = {"spec": None}
+
+    def on_cycle():
+        if arm["spec"]:
+            faults.load_fault_spec(arm["spec"])
+            arm["spec"] = None
+
+    capture = _CycleCapture(lambda: hbm.hbm_stream_sum.launches, on_cycle)
+    tfd_log = logging.getLogger("tfd")
+    tfd_log.setLevel(logging.INFO)
+    logging.getLogger("tfd.lm").setLevel(logging.DEBUG)
+    tfd_log.addHandler(capture)
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    faults.reset()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        out = os.path.join(tmp, "tfd")
+        config = new_config(
+            cli_values={"with-burnin": "true", "backends": "gpu",
+                        "burnin-interval": "2", "sleep-interval": "1s",
+                        "probe-timeout": f"{BROKER_PROBE_TIMEOUT_S}s",
+                        "output-file": out},
+            environ=dict(os.environ),
+        )
+        check(sandbox.isolation_mode(config) == "subprocess"
+              and sandbox.broker_enabled(config), "defaults did not pick the broker")
+        sigs = queue.SimpleQueue()
+        result = {}
+
+        def epoch():
+            result["restart"] = run(
+                lambda: factory.build_manager(config), config, sigs,
+                supervisor=Supervisor(config),
+            )
+
+        def worker_pid():
+            client = broker._active
+            return client.pid if client is not None else None
+
+        def fresh_health(after_cycle):
+            return any(c["mode"] == "probing" and c["phases"] and
+                       i >= after_cycle for i, c in enumerate(capture.cycles)) \
+                and _has_health(_read_labels(out))
+
+        health.reset_burnin_schedule()
+        hbm.hbm_stream_sum.launches = 0
+        # A health request that waits 0 s answers "warming" whatever the
+        # worker's pre-warm did: the first write must then carry the base
+        # labels and no health label. Restored once it landed.
+        wait_s, broker.HEALTH_WAIT_S = broker.HEALTH_WAIT_S, 0.0
+        t0 = time.monotonic()
+        thread = threading.Thread(target=epoch, daemon=True)
+        thread.start()
+        try:
+            first = _wait_for(lambda: _read_labels(out), BROKER_PROBE_TIMEOUT_S + 10,
+                              "broker first write", poll=0.005)
+        finally:
+            broker.HEALTH_WAIT_S = wait_s
+        first_write_s = time.monotonic() - t0
+        check(first.get("nvidia.com/gpu.count") == str(count),
+              f"broker first write count {first.get('nvidia.com/gpu.count')!r}")
+        early = sorted(k for k in first if k.startswith("nvidia.com/gpu.health.")
+                       or k.startswith("nvidia.com/gpu.chip."))
+        check(not early, f"broker first write carried health labels: {early}")
+        pids = [worker_pid()]
+        check(pids[0] is not None and pids[0] != os.getpid(),
+              f"broker worker pid {pids[0]}")
+        _wait_for(lambda: fresh_health(0), 30.0, "health labels through the broker")
+
+        def steady():
+            modes = [c["mode"] for c in capture.cycles]
+            probing = [i for i, m in enumerate(modes) if m == "probing"]
+            return len(probing) >= 2 and "cached-health" in modes[probing[1]:]
+
+        _wait_for(steady, 15.0, "two probing cycles and a cached one after")
+        steady_cycles = list(capture.cycles)
+
+        recoveries, messages = {}, {}
+        for site in ("broker.hang", "broker.crash"):
+            old = worker_pid()
+            n_cycles, n_failures = len(capture.cycles), len(capture.failures)
+            arm["spec"] = f"{site}:fail:1"  # armed as the next cycle ends
+            _wait_for(lambda: len(capture.failures) > n_failures,
+                      BROKER_PROBE_TIMEOUT_S + 10, f"{site}: the cycle failing")
+            t_fail = time.monotonic()
+            messages[site] = capture.failures[n_failures]
+            check(_gone(old), f"{site}: worker {old} still alive after the failure")
+            _wait_for(lambda: worker_pid() not in (None, old),
+                      BROKER_PROBE_TIMEOUT_S + 10, f"{site}: respawn")
+            pids.append(worker_pid())
+            after = len(capture.cycles)
+            _wait_for(lambda: fresh_health(after), 30.0,
+                      f"{site}: fresh health labels after the respawn")
+            recoveries[site] = {"message": messages[site][:300],
+                                "failure_to_fresh_health_s": time.monotonic() - t_fail,
+                                "cycles_to_failure": after - n_cycles}
+        hang = re.search(r"SIGKILLed after ([0-9.]+)s", messages["broker.hang"])
+        check("exceeded its" in messages["broker.hang"] and hang is not None
+              and BROKER_PROBE_TIMEOUT_S <= float(hang.group(1))
+              <= BROKER_PROBE_TIMEOUT_S + 1,
+              f"broker.hang not killed at --probe-timeout: {messages['broker.hang']}")
+        check("SIGSEGV" in messages["broker.crash"],
+              f"broker.crash did not surface: {messages['broker.crash']}")
+        sigs.put(signal.SIGTERM)
+        t_term = time.monotonic()
+        thread.join(BROKER_PROBE_TIMEOUT_S)
+        check(not thread.is_alive() and result.get("restart") is False,
+              f"SIGTERM: run() returned {result.get('restart')!r}")
+        check(all(_gone(p) for p in pids), f"broker workers {pids} outlived run()")
+        close_s = time.monotonic() - t_term
+        check(not os.path.exists(out), "SIGTERM left the output file")
+    tfd_log.removeHandler(capture)
+    faults.reset()
+
+    cycles = list(capture.cycles)
+    for i, c in enumerate(cycles):
+        phases = c.get("phases") or {}
+        emit("broker_cycle", index=i, mode=c["mode"], wall_ms=c["wall_ms"],
+             probe_ms=c.get("probe_ms"),
+             launches=phases.get("hbm_stream_sum_launches"),
+             worker_launches=phases.get("hbm_stream_sum_launches_process"),
+             compile_ms=phases.get("compile_ms"),
+             burnin_device_ms=phases.get("burnin_device_ms"),
+             hbm_device_ms=phases.get("hbm_device_ms"))
+    check(hbm.hbm_stream_sum.launches == 0,
+          f"this process launched the kernel {hbm.hbm_stream_sum.launches} times")
+    probes = [c["phases"] for c in cycles if c["mode"] == "probing"]
+    per_probe = [p["hbm_stream_sum_launches"] for p in probes]
+    check(all(n in (healthcheck.PROBE_HBM_ITERS, healthcheck.PROBE_HBM_ITERS + 1)
+              for n in per_probe), f"launches per probe {per_probe}")
+    # Each worker launches the kernel once to warm up (its pre-warm, or its
+    # first probe when that took the devices first), then 3 per probe: the
+    # process count each report ships is 1 + 3k after the worker's k-th
+    # probe. A report of at most 4 opens a new worker.
+    last_counts = []
+    for p in probes:
+        total = p["hbm_stream_sum_launches_process"]
+        if total <= healthcheck.PROBE_HBM_ITERS + 1:
+            last_counts.append(0)
+        check(bool(last_counts) and total == last_counts[-1] + (
+            healthcheck.PROBE_HBM_ITERS + 1 if last_counts[-1] == 0
+            else healthcheck.PROBE_HBM_ITERS),
+            f"worker launch counts {[q['hbm_stream_sum_launches_process'] for q in probes]}")
+        last_counts[-1] = total
+    check(len(last_counts) == 3,
+          f"{len(last_counts)} workers probed, want 3 (start, after hang, after crash)")
+    broker_launches = sum(last_counts)
+    entries["hbm_stream_sum"]["broker_launches"] = broker_launches
+    entries["hbm_stream_sum"]["broker_launches_per_probing_cycle"] = per_probe
+    steady_probes = [c for c in steady_cycles if c["mode"] == "probing"]
+    emit("broker", first_write_s=first_write_s, worker_pids=pids,
+         spawn_ms=[ms for _, ms in capture.spawns],
+         warming_cycles=sum(c["mode"] == "warming" for c in steady_cycles),
+         probing_cycles=len(probes), launches=broker_launches,
+         launches_per_probing_cycle=per_probe,
+         steady_probe_ms=[c["probe_ms"] for c in steady_probes[1:]],
+         recoveries=recoveries, close_s=close_s)
 
 
 def main() -> int:
@@ -540,6 +817,7 @@ def main() -> int:
     entries = {"hbm_stream_sum": phase_kernels()}
     phase_main_path(entries, info["count"])
     phase_daemon(entries, info["count"])
+    phase_broker(entries, info["count"])
     print(json.dumps({"kernels": list(entries.values())}))
     print(info["nvidia_smi"])
     print(json.dumps({

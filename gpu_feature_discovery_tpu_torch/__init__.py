@@ -16,13 +16,17 @@ Layer map (outer to inner):
 - ``config``    : flag table with ``TFD_*`` environment aliases
 - ``lm``        : label engine, label sources, health labeler, atomic
                   churn-free file write
-- ``sandbox``   : persisted last-good labels, anti-flap hysteresis
+- ``sandbox``   : the probe sandbox and the persistent broker worker
+                  (device probing in a killable child process), persisted
+                  last-good labels, anti-flap hysteresis
 - ``resource``  : CUDA device manager + static mock
 - ``models``    : per-card spec table (plausibility peaks)
 - ``ops``       : burn-in (timed as a CUDA graph), HBM stream-sum kernel,
                   CUDA-event device clock
-- ``utils``     : backoff policy, per-cycle timings, logging
+- ``utils``     : backoff policy, per-cycle timings, logging, fault
+                  injection (``TFD_FAULT_SPEC``)
 
 Importing any module initialises no CUDA context: the probe builds and
-launches kernels only when a cycle runs.
+launches kernels only when a cycle runs, and under the broker (the
+daemon's default) only in the worker process.
 """

@@ -5,10 +5,12 @@ Under ``--reconcile=event`` (the supervised-daemon default via ``auto``)
 the daemon loop blocks on ONE event queue instead of sleeping:
 
 - **Producers** post :class:`Event`\\ s: the OS signal watcher through
-  :class:`SignalForwarder`, and the loop's own :class:`DeltaTracker`
-  (``HEALTH_DELTA`` when a health verdict moves between cycles). The
-  twin's broker-death, config-file and ``POST /probe`` producers belong
-  to later slices of this port.
+  :class:`SignalForwarder`, the broker-worker death watch
+  (``WORKER_DIED`` the moment the long-lived worker exits uncommanded,
+  sandbox/broker.py; posted by cmd/main.run), and the loop's own
+  :class:`DeltaTracker` (``HEALTH_DELTA`` when a health verdict moves
+  between cycles). The twin's config-file and ``POST /probe`` producers
+  belong to later slices of this port.
 - **The wait** (:meth:`ReconcileLoop.wait_for_wake`) has a deadline of
   ``--max-staleness`` (default: the sleep interval); the deadline
   expiring IS a wake, so the interval survives as a guarantee.
@@ -45,6 +47,7 @@ from gpu_feature_discovery_tpu_torch.config.spec import (
 log = logging.getLogger("tfd.events")
 
 REASON_SIGNAL = "signal"
+REASON_WORKER_DIED = "worker_died"
 REASON_HEALTH_DELTA = "health_delta"
 REASON_STALENESS_BOUND = "staleness_bound"
 

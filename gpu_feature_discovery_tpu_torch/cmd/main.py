@@ -12,12 +12,16 @@ The daemon is supervised (cmd/supervisor.py): degraded labels while the
 backend will not init, last-good re-serve when a cycle fails, escalation
 at the bounds. It waits on the event queue of cmd/events.py
 (``--reconcile=event``, the default) or sleeps ``--sleep-interval``.
+At its defaults it acquires the backend through the persistent broker
+worker (sandbox/broker.py), which holds the CUDA devices and runs the
+burn-in; this process never initialises CUDA then. Each epoch
+pre-spawns the worker, watches it for an uncommanded death, and closes
+it at the end.
 
-Left for later slices, and refused with an error that names them rather
-than falling back: ``--probe-isolation=subprocess`` and
-``--probe-broker=on`` (the broker slice), ``--config-file`` (the YAML
-config slice). The twin's introspection server, slice coordinator,
-actuation engine and multi-backend registry have no counterpart yet.
+Left for a later slice, and refused with an error that names it rather
+than falling back: ``--config-file`` (the YAML config slice). The
+twin's introspection server, slice coordinator, actuation engine and
+multi-backend registry have no counterpart yet.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import sys
 import time
 from typing import Callable, Optional, Union
 
+from gpu_feature_discovery_tpu_torch import sandbox
 from gpu_feature_discovery_tpu_torch.cmd import events as reconcile_events
 from gpu_feature_discovery_tpu_torch.cmd.supervisor import (
     DEGRADED_LABEL,
@@ -48,12 +53,7 @@ from gpu_feature_discovery_tpu_torch.config.flags import (
     FLAG_DEFS,
     new_config,
 )
-from gpu_feature_discovery_tpu_torch.config.spec import (
-    PROBE_BROKER_ON,
-    PROBE_ISOLATION_SUBPROCESS,
-    Config,
-    ConfigError,
-)
+from gpu_feature_discovery_tpu_torch.config.spec import Config, ConfigError
 from gpu_feature_discovery_tpu_torch.lm.engine import STALE_SOURCES_LABEL, new_label_engine
 from gpu_feature_discovery_tpu_torch.lm.health import reset_burnin_schedule
 from gpu_feature_discovery_tpu_torch.lm.labelers import (
@@ -65,6 +65,7 @@ from gpu_feature_discovery_tpu_torch.lm.timestamp import new_timestamp_labeler
 from gpu_feature_discovery_tpu_torch.resource import factory
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
 from gpu_feature_discovery_tpu_torch.sandbox.flap import FlapDamper
+from gpu_feature_discovery_tpu_torch.utils import faults
 from gpu_feature_discovery_tpu_torch.utils import logging as tfd_logging
 from gpu_feature_discovery_tpu_torch.utils import timing
 from gpu_feature_discovery_tpu_torch.utils.timing import timed
@@ -114,24 +115,13 @@ def new_os_watcher() -> "queue.SimpleQueue[int]":
 
 def _check_slice_scope(config: Config, config_file: Optional[str]) -> None:
     """Refuse what this port does not run yet, naming the slice."""
-    tfd = config.flags.tfd
     if config_file:
         raise ConfigError(
             "--config-file / TFD_CONFIG_FILE is not ported yet (the "
             "config-file slice of the PyTorch port); pass flags or TFD_* "
             "environment variables"
         )
-    if tfd.probe_isolation == PROBE_ISOLATION_SUBPROCESS:
-        raise ConfigError(
-            "--probe-isolation=subprocess is not ported yet (the broker "
-            "slice of the PyTorch port); use none or auto"
-        )
-    if tfd.probe_broker == PROBE_BROKER_ON:
-        raise ConfigError(
-            "--probe-broker=on is not ported yet (the broker slice of the "
-            "PyTorch port); use off or auto"
-        )
-    factory.new_manager(config)  # validates --backends; built per epoch
+    factory.select_manager(config)  # validates --backends; built per epoch
 
 
 def start(argv: Optional[list] = None) -> int:
@@ -294,6 +284,29 @@ def run(
         delta_tracker = reconcile_events.DeltaTracker(events_q)
         # The signal watcher becomes one producer among several.
         forwarder = reconcile_events.SignalForwarder(sigs, events_q).start()
+    if supervised:
+        # Broker-worker death watch (sandbox/broker.py), in both reconcile
+        # modes: a dead worker is marked dead at death time, so the next
+        # acquisition respawns instead of failing a cycle on a dead pipe;
+        # event mode also wakes the loop with WORKER_DIED.
+        listener = None
+        if event_loop is not None:
+            def listener(signame):
+                events_q.post(reconcile_events.Event(
+                    reconcile_events.REASON_WORKER_DIED, detail=signame,
+                ))
+        sandbox.set_broker_death_watch(True, listener=listener)
+        # Cold-start overlap: the worker's spawn (interpreter, torch's
+        # import, CUDA's set-up, the kernel pre-warm) starts NOW, beside
+        # the restored labels; the first cycle finds it up or queues
+        # behind it. Stood down under fault injection: a pre-spawn would
+        # consume an injected shot outside the supervisor's accounting.
+        if (
+            make_manager is not None
+            and sandbox.broker_enabled(config)
+            and not faults.active()
+        ):
+            sandbox.prespawn_broker(config)
     # Anti-flap hysteresis: daemon only; oneshot publishes what it measured.
     flap = None
     if supervised:
@@ -311,8 +324,9 @@ def run(
             try:
                 with timed("labelgen.total"):
                     if current is None and make_manager is not None:
-                        # The backend's first init in a process pays the
-                        # import of torch and the CUDA runtime's set-up.
+                        # The backend's first init pays the import of torch
+                        # and the CUDA runtime's set-up: in this process,
+                        # or in the spawn of the broker worker.
                         with timed("gpu.acquire"):
                             current = (
                                 supervisor.acquire_manager(make_manager)
@@ -444,7 +458,14 @@ def run(
         # next epoch's reader.
         if forwarder is not None:
             forwarder.stop()
+        sandbox.set_broker_death_watch(False)
         engine.close()
+        # The broker worker is epoch-scoped: closed GRACEFULLY (shutdown
+        # request, SIGKILL fallback) before the stray sweep, whose
+        # exemption covers the live worker in between; then no probe
+        # child outlives its epoch.
+        sandbox.close_broker()
+        sandbox.kill_stray_children()
         # A daemon exit removes the label file so stale labels do not
         # outlive the pod; oneshot leaves it for NFD.
         if not oneshot and output_file:

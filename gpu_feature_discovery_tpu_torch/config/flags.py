@@ -2,8 +2,8 @@
 ``gpu_feature_discovery_tpu/config/flags.py``).
 
 Each flag keeps its twin's spelling, its ``TFD_*`` environment alias and
-its default. Only the flags of the burn-in cycle and the supervised
-daemon loop are here.
+its default. Only the flags of the burn-in cycle, the supervised daemon
+loop and the probe sandbox are here.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from gpu_feature_discovery_tpu_torch.config.spec import (
     ConfigError,
     parse_bool as _parse_bool,
     parse_fraction as _parse_fraction,
+    parse_nonneg_int as _parse_nonneg_int,
     parse_positive_float as _parse_positive_float,
     parse_positive_int as _parse_positive_int,
 )
@@ -50,6 +51,11 @@ DEFAULT_FLAP_WINDOW = 1
 DEFAULT_MAX_STALENESS = 0.0
 DEFAULT_RECONCILE_DEBOUNCE = 0.5
 DEFAULT_MAX_PROBE_RATE = 1.0
+# Sandbox (sandbox/probe.py, sandbox/broker.py): the budget of a probe
+# child, a broker spawn and each broker request, and the broker's recycle
+# cap (0 = never).
+DEFAULT_PROBE_TIMEOUT = 30.0
+DEFAULT_BROKER_MAX_REQUESTS = 0
 # The twin reads its YAML config file from --config-file or these; this
 # port refuses both until the config-file slice (cmd/main.py).
 CONFIG_FILE_ENV_VARS = ("TFD_CONFIG_FILE", "CONFIG_FILE")
@@ -154,17 +160,34 @@ FLAG_DEFS: List[FlagDef] = [
     FlagDef("backends", ("TFD_BACKENDS",), str, "auto",
             "device backend: 'gpu' (CUDA devices), 'mock-gpu[:<n>]' (n "
             "static devices), or 'auto' (default, = gpu)", "backends"),
+    FlagDef("probe-timeout", ("TFD_PROBE_TIMEOUT",), parse_duration,
+            DEFAULT_PROBE_TIMEOUT,
+            "hard wall-clock budget (Go duration, e.g. 30s) of a probe "
+            "child, a broker worker's spawn (interpreter, torch import, "
+            "CUDA set-up, first enumeration) and each broker request; past "
+            "it the process is SIGKILLed and the failure is retried as a "
+            "degraded backend init, so a wedged CUDA call kills only the "
+            "child, never the daemon", "probe_timeout"),
     FlagDef("probe-isolation", ("TFD_PROBE_ISOLATION",), str,
             PROBE_ISOLATION_AUTO,
-            "where device probing runs: 'none' keeps it in process; "
-            "'auto' (default) resolves to none, the twin's resolution "
-            "with the broker off for --oneshot and --with-burnin; "
-            "'subprocess' is not available in this port yet",
-            "probe_isolation"),
+            "where backend enumeration runs: 'subprocess' in a killable "
+            "child process (--probe-timeout bounds it), 'none' in process; "
+            "'auto' (default) is subprocess for the supervised daemon and "
+            "none for oneshot, and none under --with-burnin when the "
+            "broker is off", "probe_isolation"),
     FlagDef("probe-broker", ("TFD_PROBE_BROKER",), str, PROBE_BROKER_AUTO,
-            "persistent probe broker: 'auto' (default) and 'off' keep the "
-            "probe in process; 'on' is not available in this port yet",
+            "persistent probe broker: 'on' routes backend acquisition and "
+            "the burn-in through ONE long-lived worker process that holds "
+            "the CUDA devices and serves snapshot/health requests over a "
+            "pipe; 'off' forks a probe child per acquisition; 'auto' "
+            "(default) is on for the supervised daemon and off for oneshot",
             "probe_broker"),
+    FlagDef("broker-max-requests", ("TFD_BROKER_MAX_REQUESTS",),
+            _parse_nonneg_int, DEFAULT_BROKER_MAX_REQUESTS,
+            "with the probe broker on, gracefully recycle the worker after "
+            "this many served requests (a hedge against slow native "
+            "leaks); 0 (default) keeps it for the config epoch",
+            "broker_max_requests"),
     FlagDef("fail-on-init-error", ("TFD_FAIL_ON_INIT_ERROR", "FAIL_ON_INIT_ERROR"),
             _parse_bool, True,
             "daemon mode: exit once --init-retries backend-init attempts "

@@ -8,14 +8,14 @@ anywhere yet"); the flag layer (config/flags.py) fills CLI > environment
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 from typing import Any, Optional
 
-# Probe-isolation and probe-broker modes, spelled as the twin spells
-# them. This port runs the probe in process only: `auto` resolves as the
-# twin resolves it with the broker off (sandbox/probe.py
-# isolation_mode), in process; an explicit `subprocess` or broker `on`
-# belongs to the broker slice and is refused.
+# Probe-isolation and probe-broker modes, spelled and resolved as the
+# twin resolves them (sandbox/probe.py isolation_mode, sandbox/broker.py
+# broker_mode): the supervised daemon runs its device probing in the
+# persistent broker worker; oneshot, and --with-burnin with the broker
+# off, probe in process.
 PROBE_ISOLATION_NONE = "none"
 PROBE_ISOLATION_SUBPROCESS = "subprocess"
 PROBE_ISOLATION_AUTO = "auto"
@@ -54,6 +54,11 @@ class TfdFlags:
     backends: Optional[str] = None  # "auto" | "gpu" | "mock-gpu[:<n>]"
     probe_isolation: Optional[str] = None  # none | subprocess | auto
     probe_broker: Optional[str] = None  # on | off | auto
+    # Hard wall-clock budget of a probe child, a broker spawn and each
+    # broker request (sandbox/).
+    probe_timeout: Optional[float] = None  # seconds
+    # Recycle the broker worker after this many served requests (0 = never).
+    broker_max_requests: Optional[int] = None
     # Supervision (cmd/supervisor.py). The twin keeps fail_on_init_error
     # on Flags, beside its device-plugin flags; this port has only tfd.
     fail_on_init_error: Optional[bool] = None
@@ -88,6 +93,17 @@ class ConfigError(Exception):
     pass
 
 
+def config_to_dict(config: Config) -> dict:
+    """The Config as plain JSON-safe values: what a probe child or the
+    broker worker receives as its first frame (sandbox/)."""
+    return asdict(config)
+
+
+def config_from_dict(d: dict) -> Config:
+    """Inverse of config_to_dict."""
+    return Config(flags=Flags(tfd=TfdFlags(**d["flags"]["tfd"])))
+
+
 def parse_bool(value: Any) -> bool:
     """Strict boolean parsing shared by CLI and env inputs."""
     if isinstance(value, bool):
@@ -107,6 +123,18 @@ def parse_positive_int(value: Any) -> int:
         raise ConfigError(f"invalid integer: {value!r}") from e
     if n < 1:
         raise ConfigError(f"value must be >= 1: {value!r}")
+    return n
+
+
+def parse_nonneg_int(value: Any) -> int:
+    """Strict non-negative integer: 0 is meaningful (--broker-max-requests
+    0 = never recycle)."""
+    try:
+        n = int(str(value).strip())
+    except ValueError as e:
+        raise ConfigError(f"invalid integer: {value!r}") from e
+    if n < 0:
+        raise ConfigError(f"value must be >= 0: {value!r}")
     return n
 
 

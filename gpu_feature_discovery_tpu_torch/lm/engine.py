@@ -12,8 +12,12 @@ last-good cached labels, names it in ``nvidia.com/gpu.tfd.stale-sources``
 and leaves the straggler running. Its result is harvested into the cache
 by a later cycle that finds it finished; it is never resubmitted while
 in flight, so a wedged source holds one pool thread, not one per cycle.
-The ``cancel`` seam (a hook that kills a straggler's probe child) stays,
-always ``None`` here: the probe sandbox is a later slice.
+A source may carry a ``cancel`` hook: the broker-routed health source's
+is ``BrokerClient.kill_child`` (lm/gpu.py), so a deadline miss, or the
+epoch's close, SIGKILLs the worker running its probe.
+
+The ``generate`` and ``labeler.<name>`` fault sites (utils/faults.py)
+fire at cycle entry and at each source's run.
 
 Results merge in source-list order whatever order the futures finish in,
 so the output is byte-identical to the sequential merge, which
@@ -65,6 +69,9 @@ class LabelSource:
     cancel: Optional[Callable[[], None]] = None
 
     def run(self) -> Labels:
+        from gpu_feature_discovery_tpu_torch.utils.faults import maybe_inject
+
+        maybe_inject(f"labeler.{self.name}")
         return self.produce().labels()
 
 
@@ -160,6 +167,9 @@ class LabelEngine:
         self._lock = threading.Lock()
 
     def generate(self, sources: List[LabelSource]) -> Labels:
+        from gpu_feature_discovery_tpu_torch.utils.faults import maybe_inject
+
+        maybe_inject("generate")
         if not self._parallel:
             return self._generate_sequential(sources)
         return self._generate_parallel(sources)

@@ -7,7 +7,10 @@ both publish under ``nvidia.com/gpu.``, behind the family's namespace
 guard. The device source is in-memory math against the initialized
 backend and runs inline; the health source does device I/O (acquisition
 and the burn-in probe) only with ``--with-burnin``, and is offloaded to
-the engine's pool then (lm/engine.py).
+the engine's pool then (lm/engine.py). Under the persistent broker the
+health source carries ``cancel=broker.kill_child``: a deadline miss
+SIGKILLs the worker running the probe instead of leaving a thread wedged
+in native code.
 """
 
 from __future__ import annotations
@@ -30,6 +33,12 @@ def gpu_label_sources(manager: Manager, config: Config) -> List[LabelSource]:
     before, shutdown() after the sources have run."""
     if not manager.get_chips():
         return []
+    broker = getattr(manager, "broker", None)
+    health_cancel = (
+        broker.kill_child
+        if broker is not None and config.flags.tfd.with_burnin
+        else None
+    )
     return [
         LabelSource(
             "device",
@@ -40,5 +49,6 @@ def gpu_label_sources(manager: Manager, config: Config) -> List[LabelSource]:
             "health",
             lambda: family_guard("gpu", new_health_labeler(manager, config).labels()),
             offload=bool(config.flags.tfd.with_burnin),
+            cancel=health_cancel,
         ),
     ]

@@ -18,19 +18,29 @@ The keys are the twin's ``google.com/tpu.*`` keys under the one allowed
 translation to ``nvidia.com/gpu.``.
 
 The probe runs every ``--burnin-interval`` cycles; cycles in between
-republish the cached labels without ``probe-ms``. In the daemon the
-FIRST probe of a schedule runs on a background thread, so the cycle's
-base labels publish at once while the first use (kernel build, cuBLAS
-and NCCL set-up, the burn-in's CUDA-graph capture) runs; later cycles
-collect it. Oneshot probes synchronously. The probe runs in the
-labeling process: the twin's broker path is a later slice, as is the
-metrics plane.
+republish the cached labels without ``probe-ms``.
+
+Where the probe runs follows the manager. Under the persistent broker
+(sandbox/broker.py, the supervised daemon's default) it is one
+``health`` RPC to the worker process that holds the devices; the
+worker pre-warms the kernels at spawn and answers ``warming`` until its
+probe is done, and the labeling process never touches CUDA. Otherwise
+(oneshot, ``--probe-broker=off``) it runs in the labeling process; there
+the daemon's FIRST probe of a schedule runs on a background thread, so
+the cycle's base labels publish at once while first use (kernel build,
+cuBLAS and NCCL set-up, the burn-in's CUDA-graph capture) runs, and
+later cycles collect it. Oneshot probes synchronously. Scheduling,
+caching and rendering stay here either way. The ``chip.<i>.sick`` /
+``chip.<i>.slow`` fault shots (utils/faults.py) are consumed here, at
+probe launch, and travel with the probe. The metrics plane is a later
+slice.
 """
 
 from __future__ import annotations
 
 import functools
 import logging
+import os
 import statistics
 import threading
 import time
@@ -184,6 +194,12 @@ class _BurninSchedule:
         self.consecutive_failures = 0
         self.first_probe_thread: _FirstProbeThread | None = None
         self.straggler: StragglerDetector | None = None
+        # Broker path only: True while the worker answered "warming" (the
+        # next RPC collects a running probe, so no chip.<i>.* shots are
+        # consumed for it), and the shots shipped with that probe, re-armed
+        # if the worker dies before a collect returns.
+        self.broker_probe_pending = False
+        self.pending_chip_faults: tuple = (frozenset(), frozenset())
 
     def due(self, interval: int) -> bool:
         self.cycle += 1
@@ -207,17 +223,25 @@ def reset_burnin_schedule() -> None:
     _schedules.clear()
 
 
+# Hermetic testing: how many CPU "devices" the TFD_BURNIN_ALLOW_CPU escape
+# hatch probes (default 1), the analog of the twin's virtual XLA host
+# devices, so per-device fault sites have more than one device to hit.
+BURNIN_CPU_DEVICES_ENV = "TFD_BURNIN_CPU_DEVICES"
+
+
 def _acquire_devices():
     """The local CUDA devices, or None when the probe cannot acquire any.
     ``TFD_BURNIN_ALLOW_CPU=1`` is the hermetic-testing escape hatch: with
-    no CUDA device it probes the CPU instead. Never set in production — a
-    CPU matmul rate is not device health."""
+    no CUDA device it probes the CPU instead (BURNIN_CPU_DEVICES_ENV
+    times). Never set in production — a CPU matmul rate is not device
+    health."""
     import torch
 
     if torch.cuda.is_available() and torch.cuda.device_count() > 0:
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     if env_flag("TFD_BURNIN_ALLOW_CPU"):
-        return [torch.device("cpu")]
+        count = int(os.environ.get(BURNIN_CPU_DEVICES_ENV, "").strip() or 1)
+        return [torch.device("cpu")] * max(1, count)
     return None
 
 
@@ -230,6 +254,11 @@ def new_health_labeler(manager: Manager, config: Config) -> Labeler:
         return Empty()
     if not manager.get_chips():
         return Empty()
+    broker = getattr(manager, "broker", None)
+    if broker is not None:
+        # The probe runs in the broker worker, which holds the devices;
+        # this process imports no torch for it.
+        return _broker_health_labels(manager, broker, config)
     from gpu_feature_discovery_tpu_torch.ops.healthcheck import measure_node_health
 
     # Acquisition is checked EVERY cycle, so cached health labels never
@@ -258,7 +287,21 @@ def new_health_labeler(manager: Manager, config: Config) -> Labeler:
         log.debug("burn-in not due; republishing cached health labels")
         return sched.cached
     chip_probes, _ = _chip_probe_opts(config)
-    measure = functools.partial(measure_node_health, per_chip=chip_probes)
+
+    def _armed_measure():
+        """Bind this probing cycle's chip fault shots into the measure
+        call, consumed at probe LAUNCH (never on a collect-only cycle)."""
+        from gpu_feature_discovery_tpu_torch.utils import faults
+
+        if chip_probes:
+            sick, slow = faults.consume_chip_faults()
+        else:
+            sick, slow = frozenset(), frozenset()
+        return functools.partial(
+            measure_node_health, per_chip=chip_probes,
+            sick_chips=sick, slow_chips=slow,
+        )
+
     first_probe = sched.cached is None and sched.consecutive_failures == 0
     if first_probe and not config.flags.tfd.oneshot:
         with _first_probe_lock:
@@ -273,7 +316,7 @@ def new_health_labeler(manager: Manager, config: Config) -> Labeler:
                     # e.g. after SIGHUP: adopt the running probe.
                     sched.first_probe_thread = thread = inflight
                 else:
-                    thread = _FirstProbeThread(measure, devices)
+                    thread = _FirstProbeThread(_armed_measure(), devices)
                     sched.first_probe_thread = thread
                     _first_probe_inflight = thread
                     thread.start()
@@ -293,7 +336,7 @@ def new_health_labeler(manager: Manager, config: Config) -> Labeler:
     else:
         t0 = time.perf_counter()
         try:
-            report, error = measure(devices=devices), None
+            report, error = _armed_measure()(devices=devices), None
         except Exception as e:  # noqa: BLE001 - a failing device must not kill labeling
             log.debug("burn-in probe failed:", exc_info=True)
             report, error = None, e
@@ -442,3 +485,88 @@ def _labels_from_probe(
         {k: v for k, v in labels.items() if k != HEALTH_PROBE_MS}
     )
     return labels
+
+
+def _broker_health_labels(manager, broker, config: Config) -> Labeler:
+    """The burn-in labeler when acquisition runs through the persistent
+    broker: scheduling, caching and rendering stay in THIS process (the
+    same _BurninSchedule and policy as the in-process path), the probe is
+    one ``health`` RPC executed in the worker. The engine routes this
+    source with cancel→kill (lm/gpu.py): a --labeler-timeout miss
+    SIGKILLs the worker, which respawns on next use.
+
+    One difference from the in-process path: acquirability is confirmed
+    per PROBING cycle (an RPC), not per cycle; the per-cycle snapshot
+    refresh already proves the worker live in between."""
+    sched = _schedule_for(manager)
+    interval = config.flags.tfd.burnin_interval or 1
+    if not sched.due(interval):
+        log.debug("burn-in not due; republishing cached health labels")
+        return sched.cached
+    chip_probes, _ = _chip_probe_opts(config)
+    # chip.<i>.* shots are consumed HERE (this process owns the registry)
+    # and shipped in the RPC, but only when this RPC may START a probe:
+    # while the worker answers "warming", the next RPC collects the
+    # running probe and must not burn shots it cannot deliver.
+    from gpu_feature_discovery_tpu_torch.utils import faults
+
+    sick, slow = (frozenset(), frozenset())
+    if chip_probes and not sched.broker_probe_pending:
+        sick, slow = faults.consume_chip_faults()
+    # Everything in flight: this launch's shots plus those shipped with a
+    # still-pending probe. A dead worker loses both alike.
+    pend_sick, pend_slow = sched.pending_chip_faults
+    sick_in_flight, slow_in_flight = sick | pend_sick, slow | pend_slow
+    try:
+        outcome = broker.health(
+            per_chip=chip_probes,
+            sick_chips=sorted(sick),
+            slow_chips=sorted(slow),
+        )
+    except Exception:
+        # The request died with the worker: the probe never published, so
+        # the shots go back for the next launch; the respawned worker holds
+        # no pending probe either.
+        faults.rearm_chip_faults(sick_in_flight, slow_in_flight)
+        sched.pending_chip_faults = (frozenset(), frozenset())
+        sched.broker_probe_pending = False
+        raise
+    status = outcome.get("status")
+    sched.broker_probe_pending = status == "warming"
+    sched.pending_chip_faults = (
+        (sick_in_flight, slow_in_flight)
+        if status == "warming"
+        else (frozenset(), frozenset())
+    )
+    if status == "unacquirable":
+        # The worker launched no probe: re-arm everything in flight.
+        faults.rearm_chip_faults(sick_in_flight, slow_in_flight)
+        # As _acquire_devices returning None in process: nothing about
+        # device health, publish nothing, drop the cache.
+        warn_once(
+            log,
+            "health:unacquirable",
+            "burn-in skipped: no local CUDA devices acquirable in the broker "
+            "worker; publishing no health labels",
+        )
+        sched.cached = None
+        sched.consecutive_failures = 0
+        sched.straggler = None
+        return Empty()
+    if status == "warming":
+        # The worker's probe (or its pre-warm) still runs: base labels
+        # without health this cycle, collected on a later one (cached
+        # stays None, so the next cycle re-asks).
+        log.info(
+            "burn-in probe still warming in the broker worker; publishing "
+            "base labels without health this cycle"
+        )
+        return Empty()
+    probe_ms = float(outcome.get("probe_ms") or 0.0)
+    if status == "probe-failed":
+        return _labels_from_probe(
+            sched, manager, config, None, outcome.get("error", ""), probe_ms
+        )
+    return _labels_from_probe(
+        sched, manager, config, outcome.get("report") or {}, None, probe_ms
+    )

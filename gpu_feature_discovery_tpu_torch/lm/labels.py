@@ -7,6 +7,7 @@ write is atomic: stage into ``<dir>/tfd-tmp/tfd-XXXX``, fsync, then
 torn file. The write is also churn-free: a daemon cycle whose labels are
 byte-identical to the file's skips the write, so the file keeps its
 inode and mtime and NFD, which re-parses on every change, stays idle.
+The ``write`` fault site (utils/faults.py) fires at every write.
 """
 
 from __future__ import annotations
@@ -65,6 +66,9 @@ class Labels(dict):
         disk is read only on an epoch's first cycle or after an
         out-of-band edit, which moves the signature and, if the content
         really differs, triggers a rewrite."""
+        from gpu_feature_discovery_tpu_torch.utils.faults import maybe_inject
+
+        maybe_inject("write")
         if not path:
             self.write_to(sys.stdout)
             return

@@ -468,8 +468,14 @@ def measure_node_health(
     per-device verdict program and the ``chips_allreduce_ok`` key; the
     ``sick_chips`` / ``slow_chips`` fault sites require it. ``size`` and
     ``depth`` default by platform (2048x4 on CUDA, 512x8 on the CPU)
-    unless BURNIN_GEOMETRY_ENV overrides them."""
+    unless BURNIN_GEOMETRY_ENV overrides them.
+
+    The report is plain JSON data (the broker worker ships it over a
+    pipe). Its ``phases`` carry the ``hbm_stream_sum`` launches of this
+    probe and of the whole process so far, so a caller in another process
+    can count the kernel's launches."""
     t_total = time.perf_counter()
+    launches_before = hbm_stream_sum.launches
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device; pass devices=[torch.device('cpu')]")
@@ -536,4 +542,8 @@ def measure_node_health(
             # A corrupt reduction is a collective fault: publish it.
             report["ici_ok"] = False
     report["phases"]["total_ms"] = round((time.perf_counter() - t_total) * 1e3, 3)
+    report["phases"]["hbm_stream_sum_launches"] = (
+        hbm_stream_sum.launches - launches_before
+    )
+    report["phases"]["hbm_stream_sum_launches_process"] = hbm_stream_sum.launches
     return report

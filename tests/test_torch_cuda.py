@@ -145,3 +145,36 @@ def test_daemon_first_probe_runs_off_the_labeling_thread(dev, monkeypatch):
     health.new_health_labeler(manager, config).labels()
     assert threads[1] == threading.current_thread().name
     health.reset_burnin_schedule()
+
+
+def test_broker_worker_probes_the_card_with_the_kernel(dev, tmp_path):
+    """The burn-in through the broker worker: a fresh process that holds
+    the card, pre-warms, and ships a device-clock report counting its own
+    kernel launches; this process launches none."""
+    import time
+
+    from gpu_feature_discovery_tpu_torch.config.flags import new_config
+    from gpu_feature_discovery_tpu_torch.sandbox import BrokerClient
+
+    config = new_config(
+        cli_values={"with-burnin": "true", "backends": "gpu",
+                    "output-file": str(tmp_path / "tfd")},
+        environ={},
+    )
+    before = hbm.hbm_stream_sum.launches
+    client = BrokerClient(config)
+    try:
+        assert client.snapshot().chips
+        deadline = time.monotonic() + 60
+        outcome = {"status": "warming"}
+        while outcome["status"] == "warming" and time.monotonic() < deadline:
+            outcome = client.health(per_chip=True)
+    finally:
+        client.close()
+    assert outcome["status"] == "ok", outcome
+    report = outcome["report"]
+    assert report["healthy"] is True and report["timing"] == "device-profiler"
+    phases = report["phases"]
+    assert phases["hbm_stream_sum_launches"] in (3, 4)
+    assert phases["hbm_stream_sum_launches_process"] == 4  # warm-up + 3
+    assert hbm.hbm_stream_sum.launches == before

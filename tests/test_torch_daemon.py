@@ -357,8 +357,6 @@ def test_oneshot_sequential_engine_keeps_the_golden(tmp_path):
     [
         (["--config-file", "tfd.yaml"], {}, "config-file slice"),
         ([], {"TFD_CONFIG_FILE": "tfd.yaml"}, "config-file slice"),
-        (["--probe-isolation", "subprocess"], {}, "broker slice"),
-        (["--probe-broker", "on"], {}, "broker slice"),
         (["--reconcile", "sometimes"], {}, "reconcile"),
     ],
 )

@@ -98,8 +98,8 @@ def test_oneshot_burnin_without_device_publishes_no_health(tmp_path, monkeypatch
 @pytest.mark.parametrize(
     "argv",
     [
-        ["--probe-broker", "on", "--backends", "mock-gpu:2"],  # broker slice
-        ["--oneshot", "--probe-isolation", "subprocess", "--backends", "mock-gpu"],
+        ["--oneshot", "--probe-broker", "sometimes", "--backends", "mock-gpu:2"],
+        ["--oneshot", "--broker-max-requests", "-1", "--backends", "mock-gpu"],
         ["--oneshot", "--probe-isolation", "sideways"],
         ["--oneshot", "--backends", "gpu,mock-gpu"],
         ["--oneshot", "--backends", "mock-gpu:zero"],
