@@ -14,22 +14,30 @@ Phases, each printing one JSON line:
                   version on the card, at the main path's shapes, timed
                   with CUDA events beside its bound and a library call.
 4. ``main_path``— one oneshot ``--with-burnin`` label cycle through the
-                  CLI entry point; checks the label file and that the
-                  cycle launched every kernel (launch counts zeroed just
-                  before, read just after).
-5. ``daemon``   — the supervised daemon loop with the probe in process
+                  CLI entry point; checks the label file (host facts
+                  included) and that the cycle launched every kernel
+                  (launch counts zeroed just before, read just after).
+5. ``host_facts``— NVML (loaded with ctypes) against nvidia-smi field by
+                  field; a fresh child running the NVML-only manager and
+                  the labelers without torch and without a CUDA context;
+                  ``--backends native`` against ``--backends gpu``; the
+                  three MIG strategies as the card's MIG mode implies;
+                  family, generation, slice capability and the PCI count
+                  against sysfs; NVML's cost beside ``gpu.acquire``.
+6. ``daemon``   — the supervised daemon loop with the probe in process
                   (``--probe-broker off``): ``cmd.main.run`` on a worker
                   thread with ``--burnin-interval 2 --sleep-interval 1s``
                   (one ``daemon_cycle`` line per cycle), SIGHUP and
                   SIGTERM through its signal queue; then the real CLI as
                   a subprocess at its defaults, so through the broker
                   worker, with real signals (``daemon_cli``).
-6. ``broker``   — ``cmd.main.run`` at the default isolation and broker
+7. ``broker``   — ``cmd.main.run`` at the default isolation and broker
                   settings: the burn-in and the HBM kernel run in the
                   broker worker process (one ``broker_cycle`` line per
-                  cycle, launches read from the reports it ships); a
-                  ``broker.hang`` and a ``broker.crash`` fault shot are
-                  killed and respawned to fresh health labels.
+                  cycle, launches read from the reports it ships); the
+                  first write carries the host facts; a ``broker.hang``
+                  and a ``broker.crash`` fault shot are killed and
+                  respawned to fresh health labels.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -234,15 +242,225 @@ def phase_main_path(entries: dict, count: int) -> None:
         "nvidia.com/gpu.health.timing": "device-profiler",
         "nvidia.com/gpu.chip.0.ok": "true",
         "nvidia.com/gpu.count": str(count),
+        "nvidia.com/gpu.family": "hopper",
+        "nvidia.com/gpu.generation.major": "9",
+        "nvidia.com/gpu.generation.minor": "0",
     }
     for key, value in want.items():
         check(labels.get(key) == value, f"label {key}={labels.get(key)!r}, want {value!r}")
+    for key in HOST_FACT_KEYS:
+        check(key in labels, f"main path published no {key}")
     for key in ("nvidia.com/gpu.health.matmul-tflops", "nvidia.com/gpu.health.hbm-gbps"):
         # Present means inside the plausibility gate (<= 1.5x the spec peak).
         check(int(labels.get(key, "0")) > 0, f"label {key} missing or zero")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched by the main path")
         entries[name]["launches"] = n
+
+
+def _oneshot_labels(*args: str) -> dict:
+    """One oneshot cycle of the CLI entry point in this process; its
+    labels without the timestamp."""
+    from gpu_feature_discovery_tpu_torch.cmd.main import start
+
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        out = os.path.join(tmp, "tfd")
+        rc = start(["--oneshot", "--no-timestamp", *args, "--output-file", out])
+        check(rc == 0, f"oneshot {args} exited {rc}")
+        return _read_labels(out)
+
+
+def _sysfs_gpu_functions() -> list:
+    """NVIDIA display-class functions (class 0x03xxxx) on the PCI bus,
+    read here without the port's scanner."""
+    root = "/sys/bus/pci/devices"
+    found = []
+    for address in sorted(os.listdir(root)) if os.path.isdir(root) else []:
+        try:
+            with open(os.path.join(root, address, "vendor")) as f:
+                vendor = f.read().strip()
+            with open(os.path.join(root, address, "class")) as f:
+                cls = f.read().strip()
+        except OSError:
+            continue
+        if vendor == "0x10de" and cls.startswith("0x03"):
+            with open(os.path.join(root, address, "config"), "rb") as f:
+                found.append({"address": address, "class": cls,
+                              "config_bytes": len(f.read())})
+    return found
+
+
+_NVML_CHILD = r"""
+import json, sys
+from gpu_feature_discovery_tpu_torch.cmd.main import new_interconnect_labeler
+from gpu_feature_discovery_tpu_torch.config.flags import new_config
+from gpu_feature_discovery_tpu_torch.lm.engine import LabelEngine
+from gpu_feature_discovery_tpu_torch.lm.labelers import new_label_sources
+from gpu_feature_discovery_tpu_torch.resource.nvml_backend import NvmlManager
+config = new_config(environ={})
+manager = NvmlManager()
+labels = LabelEngine(parallel=False).generate(new_label_sources(
+    manager, config, interconnect=new_interconnect_labeler(config)))
+with open("/proc/self/maps") as f:
+    maps = f.read()
+from chip_smoke import _nvml_used_mib
+# The card's memory in use while this process is alive: a CUDA context of
+# its own would add hundreds of MiB.
+used = _nvml_used_mib()
+print(json.dumps({
+    "labels": dict(labels),
+    "torch_imported": "torch" in sys.modules,
+    "maps_libcuda": "libcuda.so" in maps,
+    "maps_libnvidia_ml": "libnvidia-ml.so" in maps,
+    "device_used_mib": used,
+    "init_ms": manager.nvml_inventory.init_ms,
+    "enumerate_ms": manager.nvml_inventory.enumerate_ms,
+}))
+"""
+
+
+def _nvml_used_mib() -> list:
+    """Each GPU's memory in use (NVML's ``nvmlMemory_t.used``), MiB."""
+    from gpu_feature_discovery_tpu_torch.native import nvml
+
+    lib = nvml.load_library()
+    check(lib is not None, f"NVML not loadable ({nvml.NVML_LIBRARY})")
+    api = nvml.Nvml(lib)
+    api.init()
+    try:
+        return [api.memory_info(api.handle(i)).used // 2**20
+                for i in range(api.device_count())]
+    finally:
+        api.shutdown()
+
+
+def _strategy_expectation(inv, strategy: str, labels: dict) -> None:
+    """The labels the reference's MIG strategies give for NVML's view."""
+    enabled = [d for d in inv.devices if d.mig_enabled]
+    profiles = {}
+    for d in enabled:
+        for m in d.mig_devices:
+            profiles[m.profile] = profiles.get(m.profile, 0) + 1
+    strategy_label = labels.get("nvidia.com/gpu.topology.strategy")
+    mig_keys = sorted(k for k in labels if k.startswith("nvidia.com/mig-"))
+    if strategy == "none":
+        check(strategy_label is None and not mig_keys,
+              f"strategy none published {strategy_label!r} {mig_keys}")
+        return
+    check(strategy_label == strategy, f"strategy label {strategy_label!r}")
+    if strategy == "mixed":
+        got = {k[len("nvidia.com/mig-"):-len(".count")]: int(v)
+               for k, v in labels.items()
+               if k.startswith("nvidia.com/mig-") and k.endswith(".count")}
+        check(got == profiles, f"mixed MIG counts {got}, NVML {profiles}")
+        return
+    check(not mig_keys, f"strategy single published {mig_keys}")
+    product = labels.get("nvidia.com/gpu.product", "")
+    if not enabled:
+        check("-MIG-" not in product, f"single without MIG: product {product}")
+    elif (len(enabled) == len(inv.devices) and len(profiles) == 1
+          and all(d.mig_devices for d in enabled)):
+        check(product.endswith("-MIG-" + next(iter(profiles))), f"single: {product}")
+    else:
+        check(product.endswith("-MIG-INVALID"), f"single invalid: {product}")
+
+
+def phase_host_facts(count: int) -> dict:
+    """NVML, sysfs and the DMI file on the card: the facts against
+    nvidia-smi and sysfs, the NVML path without torch or CUDA, and the
+    labels of each backend and strategy. Returns the ``--backends gpu``
+    labels, which the daemon phases expect."""
+    import torch
+
+    from gpu_feature_discovery_tpu_torch.native import nvml
+
+    inv = nvml.read_inventory()  # raises where NVML does not load
+    again = nvml.read_inventory()
+    check(len(inv.devices) == torch.cuda.device_count(),
+          f"NVML sees {len(inv.devices)} GPUs, torch {torch.cuda.device_count()}")
+    rows = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version,name,memory.total,pci.bus_id,"
+         "mig.mode.current,compute_cap", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    check(len(rows) == len(inv.devices), f"nvidia-smi rows {rows}")
+    for dev, row in zip(inv.devices, rows):
+        driver, name, memory, bus_id, mig_mode, cc = [f.strip() for f in row.split(",")]
+        smi_mig = {"Enabled": (True, True), "Disabled": (True, False)}.get(
+            mig_mode, (False, False))
+        for what, got, want in (
+            ("driver_version", inv.driver_version, driver),
+            ("name", dev.name, name),
+            ("memory.total", dev.memory_mb, int(memory)),
+            # "[N/A]" where the host gives NVML no PCI information.
+            ("pci.bus_id", dev.bus_id,
+             None if bus_id.strip("[]") == "N/A" else nvml.normalize_bus_id(bus_id)),
+            ("mig.mode.current", (dev.mig_capable, dev.mig_enabled), smi_mig),
+            ("compute_cap", "%d.%d" % dev.compute_capability, cc),
+        ):
+            check(got == want, f"GPU {dev.index} {what}: NVML {got!r}, nvidia-smi {want!r}")
+
+    # NVML without torch and without a CUDA context. On some drivers
+    # nvmlInit_v2 itself maps libcuda.so (R580 does); that is recorded,
+    # and the check is that no context appears: the card's memory in use
+    # stays where it was before the child started.
+    used_before = sum(_nvml_used_mib())
+    proc = subprocess.run([sys.executable, "-c", _NVML_CHILD], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0, f"NVML child failed: {proc.stderr[-2000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(not child["torch_imported"], "the NVML child imported torch")
+    check(child["maps_libnvidia_ml"], "the NVML child maps no libnvidia-ml.so")
+    check(sum(child["device_used_mib"]) - used_before < CONTEXT_MIB,
+          f"the NVML child took device memory: {used_before} MiB before, "
+          f"{child['device_used_mib']} MiB while it ran")
+
+    gpu = _oneshot_labels("--backends", "gpu")
+    native = _oneshot_labels("--backends", "native")
+    diff = sorted(set(gpu.items()) ^ set(native.items()))
+    check(not diff, f"--backends native and gpu differ: {diff}")
+    check(child["labels"] == native, "the NVML child's labels differ from native's: "
+          f"{sorted(set(child['labels'].items()) ^ set(native.items()))}")
+    check(gpu.get("nvidia.com/gpu.count") == str(count), f"gpu.count {gpu}")
+    for key, value in (("nvidia.com/gpu.family", "hopper"),
+                       ("nvidia.com/gpu.generation.major", "9"),
+                       ("nvidia.com/gpu.generation.minor", "0"),
+                       ("nvidia.com/gpu.driver.major", inv.driver_version.split(".")[0]),
+                       ("nvidia.com/gpu.slice.capable",
+                        str(any(d.mig_capable for d in inv.devices)).lower()),
+                       ("nvidia.com/gpu.memory", str(inv.devices[0].memory_mb))):
+        check(gpu.get(key) == value, f"label {key}={gpu.get(key)!r}, want {value!r}")
+    check("nvidia.com/gpu.pci.host-interface" not in gpu,
+          f"a GPU's vendor capability decoded as a record: {gpu}")
+    functions = _sysfs_gpu_functions()
+    check(gpu.get("nvidia.com/gpu.pci.count") == (str(len(functions)) if functions else None),
+          f"pci.count {gpu.get('nvidia.com/gpu.pci.count')!r}, sysfs {functions}")
+
+    strategies = {}
+    for strategy in ("none", "single", "mixed"):
+        labels = _oneshot_labels("--backends", "gpu", "--tpu-topology-strategy", strategy)
+        _strategy_expectation(inv, strategy, labels)
+        strategies[strategy] = {k: v for k, v in labels.items()
+                                if "strategy" in k or k.startswith("nvidia.com/mig-")
+                                or k == "nvidia.com/gpu.product"}
+    props = torch.cuda.get_device_properties(0)
+    emit("host_facts", nvml_init_ms=[inv.init_ms, again.init_ms],
+         nvml_enumerate_ms=[inv.enumerate_ms, again.enumerate_ms],
+         child_nvml_init_ms=child["init_ms"], child_nvml_enumerate_ms=child["enumerate_ms"],
+         child_maps_libcuda=child["maps_libcuda"], device_used_mib_before=used_before,
+         child_device_used_mib=child["device_used_mib"],
+         driver_version=inv.driver_version, cuda_driver_version=inv.cuda_driver_version,
+         devices=[{"name": d.name, "bus_id": d.bus_id, "memory_mb": d.memory_mb,
+                   "compute_capability": d.compute_capability,
+                   "mig_capable": d.mig_capable, "mig_enabled": d.mig_enabled,
+                   "mig": [m.profile for m in d.mig_devices]} for d in inv.devices],
+         torch_total_memory_mib=props.total_memory // 2**20,
+         sysfs_gpu_functions=functions, labels=gpu, strategies=strategies)
+    # The fresh child's read is what a new process pays.
+    return {"labels": gpu, "nvml_init_ms": child["init_ms"],
+            "nvml_enumerate_ms": child["enumerate_ms"]}
 
 
 class _CycleCapture(logging.Handler):
@@ -316,6 +534,11 @@ def _wait_for(cond, timeout: float, what: str, poll: float = 0.02):
 
 
 HEALTH_KEYS = ("nvidia.com/gpu.health.matmul-tflops", "nvidia.com/gpu.health.hbm-gbps")
+# Less than the smallest CUDA context on an H100 (about 500 MiB).
+CONTEXT_MIB = 100
+# Labels every GPU node now carries beside its device count.
+HOST_FACT_KEYS = ("nvidia.com/gpu.machine", "nvidia.com/gpu.slice.capable",
+                  "nvidia.com/gpu.family", "nvidia.com/gpu.generation.major")
 
 
 def _has_health(labels: dict) -> bool:
@@ -326,8 +549,9 @@ def _has_health(labels: dict) -> bool:
     )
 
 
-def phase_daemon(entries: dict, count: int) -> None:
-    """(a) ``run()`` in process, (b) the CLI as a subprocess."""
+def phase_daemon(entries: dict, count: int) -> dict:
+    """(a) ``run()`` in process, (b) the CLI as a subprocess; returns the
+    CLI's first-cycle stages."""
     import queue
 
     import torch
@@ -395,6 +619,8 @@ def phase_daemon(entries: dict, count: int) -> None:
         early = sorted(k for k in first if k.startswith("nvidia.com/gpu.health.")
                        or k.startswith("nvidia.com/gpu.chip."))
         check(not early, f"first write waited for the first probe: {early}")
+        for key in HOST_FACT_KEYS:
+            check(key in first, f"daemon first write has no {key}")
 
         def steady():
             modes = [c["mode"] for c in capture.cycles]
@@ -463,7 +689,7 @@ def phase_daemon(entries: dict, count: int) -> None:
     emit("daemon", first_write_s=first_write_s, probing_cycles=len(probing),
          cached_cycles=len(cached), launches=daemon_launches,
          launches_per_probing_cycle=per_probe, memory_bytes=memory)
-    phase_daemon_cli(count)
+    return phase_daemon_cli(count)
 
 
 def _first_cycle_stages(log_path: str):
@@ -493,9 +719,9 @@ def _children(pid: int) -> list:
     return kids
 
 
-def _maps_libcuda(pid: int) -> bool:
+def _maps_libcuda(pid: int, library: str = "libcuda.so") -> bool:
     with open(f"/proc/{pid}/maps") as f:
-        return "libcuda.so" in f.read()
+        return library in f.read()
 
 
 def _gone(pid: int) -> bool:
@@ -528,7 +754,7 @@ def _device_used_mib() -> int:
     ).stdout.split()[0])
 
 
-def phase_daemon_cli(count: int) -> None:
+def phase_daemon_cli(count: int) -> dict:
     """The CLI in its own process at its defaults, with real signals: it
     acquires through the broker worker, which holds the card and runs the
     burn-in, while the CLI process maps no libcuda.so. The first cycle's
@@ -564,7 +790,11 @@ def phase_daemon_cli(count: int) -> None:
             workers = _children(proc.pid)
             check(len(workers) == 1, f"CLI children {workers}, want one worker")
             check(not _maps_libcuda(proc.pid), "the CLI process maps libcuda.so")
+            check(not _maps_libcuda(proc.pid, "libnvidia-ml.so"),
+                  "the CLI process loaded NVML")
             check(_maps_libcuda(workers[0]), "the broker worker maps no libcuda.so")
+            check(_maps_libcuda(workers[0], "libnvidia-ml.so"),
+                  "the broker worker did not load NVML")
             memory = {**_host_memory({"parent": proc.pid, "worker": workers[0]}),
                       "device_used_mib_before": used_before,
                       "device_used_mib_with_worker": _device_used_mib()}
@@ -616,12 +846,15 @@ def phase_daemon_cli(count: int) -> None:
          probe_ms_after_reload=int(second["nvidia.com/gpu.health.probe-ms"]),
          matmul_tflops=int(second[HEALTH_KEYS[0]]),
          hbm_gbps=int(second[HEALTH_KEYS[1]]))
+    for key in HOST_FACT_KEYS:
+        check(key in base, f"CLI first write has no {key}")
+    return first_cycle
 
 
 BROKER_PROBE_TIMEOUT_S = 20.0
 
 
-def phase_broker(entries: dict, count: int) -> None:
+def phase_broker(entries: dict, count: int, host_labels: dict) -> None:
     """``cmd.main.run`` at the default isolation and broker settings, on a
     thread of this process (which holds CUDA from the earlier phases: the
     worker is a fresh interpreter, never a fork). The HBM kernel runs in
@@ -704,6 +937,11 @@ def phase_broker(entries: dict, count: int) -> None:
         early = sorted(k for k in first if k.startswith("nvidia.com/gpu.health.")
                        or k.startswith("nvidia.com/gpu.chip."))
         check(not early, f"broker first write carried health labels: {early}")
+        # The host facts reach this process through the worker's snapshot
+        # (and its own sysfs and DMI reads): those of the oneshot cycle.
+        facts = {k: first.get(k) for k in host_labels}
+        check(facts == host_labels, "broker first write's host facts differ: "
+              f"{sorted(set(facts.items()) ^ set(host_labels.items()))}")
         pids = [worker_pid()]
         check(pids[0] is not None and pids[0] != os.getpid(),
               f"broker worker pid {pids[0]}")
@@ -816,8 +1054,15 @@ def main() -> int:
     phase_build()
     entries = {"hbm_stream_sum": phase_kernels()}
     phase_main_path(entries, info["count"])
-    phase_daemon(entries, info["count"])
-    phase_broker(entries, info["count"])
+    facts = phase_host_facts(info["count"])
+    first_cycle = phase_daemon(entries, info["count"])
+    # NVML's cost in a fresh process against the first acquisition of a
+    # fresh CLI (the broker worker's spawn), for the first-write item of
+    # the roadmap.
+    emit("nvml_vs_acquire", nvml_init_ms=facts["nvml_init_ms"],
+         nvml_enumerate_ms=facts["nvml_enumerate_ms"],
+         gpu_acquire_ms=first_cycle["gpu.acquire"])
+    phase_broker(entries, info["count"], facts["labels"])
     print(json.dumps({"kernels": list(entries.values())}))
     print(info["nvidia_smi"])
     print(json.dumps({

@@ -18,6 +18,13 @@ burn-in; this process never initialises CUDA then. Each epoch
 pre-spawns the worker, watches it for an uncommanded death, and closes
 it at the end.
 
+The host-interconnect labeler (a sysfs PCI scan, lm/interconnect.py) is
+built once per epoch here, as the twin builds it; its ``TFD_MOCK_PCI``
+fixture stands synthesized NVIDIA functions in for the bus. Oneshot wraps
+its manager in the fallback-to-null decorator under
+``--fail-on-init-error=false``; the daemon keeps raw init errors for its
+supervisor.
+
 Left for a later slice, and refused with an error that names it rather
 than falling back: ``--config-file`` (the YAML config slice). The
 twin's introspection server, slice coordinator, actuation engine and
@@ -51,17 +58,21 @@ from gpu_feature_discovery_tpu_torch.config.flags import (
     DEFAULT_MAX_PROBE_RATE,
     DEFAULT_RECONCILE_DEBOUNCE,
     FLAG_DEFS,
+    env_flag,
     new_config,
 )
 from gpu_feature_discovery_tpu_torch.config.spec import Config, ConfigError
 from gpu_feature_discovery_tpu_torch.lm.engine import STALE_SOURCES_LABEL, new_label_engine
 from gpu_feature_discovery_tpu_torch.lm.health import reset_burnin_schedule
+from gpu_feature_discovery_tpu_torch.lm.interconnect import InterconnectLabeler
+from gpu_feature_discovery_tpu_torch.lm.labeler import Labeler
 from gpu_feature_discovery_tpu_torch.lm.labelers import (
     degraded_label_sources,
     new_label_sources,
 )
 from gpu_feature_discovery_tpu_torch.lm.labels import remove_output_file
 from gpu_feature_discovery_tpu_torch.lm.timestamp import new_timestamp_labeler
+from gpu_feature_discovery_tpu_torch.pci.pciutil import MockNvidiaPCI, SysfsNvidiaPCI
 from gpu_feature_discovery_tpu_torch.resource import factory
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
 from gpu_feature_discovery_tpu_torch.sandbox.flap import FlapDamper
@@ -121,7 +132,9 @@ def _check_slice_scope(config: Config, config_file: Optional[str]) -> None:
             "config-file slice of the PyTorch port); pass flags or TFD_* "
             "environment variables"
         )
-    factory.select_manager(config)  # validates --backends; built per epoch
+    # The token alone: under the broker, detection (NVML) runs in the
+    # worker, never in this process.
+    factory.validate_backends(config)
 
 
 def start(argv: Optional[list] = None) -> int:
@@ -155,7 +168,9 @@ def start(argv: Optional[list] = None) -> int:
             log.info("Start running")
             try:
                 if config.flags.tfd.oneshot:
-                    # Strict error-to-exit: a one-off Job fails loudly.
+                    # The twin's oneshot: the fallback-to-null wrapper
+                    # under --fail-on-init-error=false, else strict
+                    # error-to-exit, so a one-off Job fails loudly.
                     restart = run(factory.new_manager(config), config, sigs)
                 else:
                     restart = run(
@@ -176,6 +191,31 @@ def start(argv: Optional[list] = None) -> int:
         # smoke script) gets its own handlers back.
         for s, handler in previous.items():
             signal.signal(s, handler)
+
+
+def new_interconnect_labeler(config: Config) -> Labeler:
+    """vgpu.NewVGPULib(NewNvidiaPCILib()) (main.go:134): the sysfs PCI
+    scanner; ``TFD_MOCK_PCI=1`` substitutes synthesized NVIDIA functions
+    (a test fixture for hosts without GPUs)."""
+    del config  # reserved for future flags, as in the twin
+    pci = MockNvidiaPCI() if env_flag("TFD_MOCK_PCI") else _TolerantPCI()
+    return InterconnectLabeler(pci=pci)
+
+
+class _TolerantPCI:
+    """Sysfs scan that degrades to 'no devices' where there is no
+    /sys/bus/pci (development hosts); the reference propagates sysfs
+    errors because it always runs privileged on Linux."""
+
+    def __init__(self):
+        self._scanner = SysfsNvidiaPCI()
+
+    def devices(self):
+        try:
+            return self._scanner.devices()
+        except Exception as e:  # noqa: BLE001
+            log.debug("PCI scan unavailable: %s", e)
+            return []
 
 
 def _check_signal(
@@ -216,6 +256,7 @@ def run(
     sigs: "queue.SimpleQueue[int]",
     supervisor: Optional[Supervisor] = None,
     process_state: Optional[dict] = None,
+    interconnect: Optional[Labeler] = None,
 ) -> bool:
     """One config epoch. Returns True to request a reload (SIGHUP), False
     for a clean exit.
@@ -230,8 +271,13 @@ def run(
 
     ``process_state`` is start()'s cross-epoch memory: once an epoch has
     served a live full cycle, later reload epochs skip the --state-dir
-    restore, which is for process (re)starts."""
+    restore, which is for process (re)starts.
+
+    ``interconnect`` defaults to the epoch's own PCI labeler
+    (``new_interconnect_labeler``)."""
     tfd = config.flags.tfd
+    if interconnect is None:
+        interconnect = new_interconnect_labeler(config)
     output_file = tfd.output_file
     oneshot = tfd.oneshot
     sleep_interval = tfd.sleep_interval
@@ -337,15 +383,17 @@ def run(
                         # Backend down: the non-device facts plus the
                         # degraded marker, never nothing.
                         cycle_mode = "degraded"
-                        labels = engine.generate(
-                            degraded_label_sources(timestamp=timestamp_labeler)
-                        )
+                        labels = engine.generate(degraded_label_sources(
+                            config, timestamp=timestamp_labeler,
+                            interconnect=interconnect,
+                        ))
                         labels[DEGRADED_LABEL] = "true"
                     else:
                         # init() runs inside new_label_sources; its errors
                         # propagate before shutdown is owed.
                         sources = new_label_sources(
-                            current, config, timestamp=timestamp_labeler
+                            current, config, timestamp=timestamp_labeler,
+                            interconnect=interconnect,
                         )
                         try:
                             labels = engine.generate(sources)

@@ -3,7 +3,7 @@
 
 Each flag keeps its twin's spelling, its ``TFD_*`` environment alias and
 its default. Only the flags of the burn-in cycle, the supervised daemon
-loop and the probe sandbox are here.
+loop, the probe sandbox and the host facts are here.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from gpu_feature_discovery_tpu_torch.config.spec import (
     PROBE_ISOLATION_MODES,
     RECONCILE_AUTO,
     RECONCILE_MODES,
+    TOPOLOGY_STRATEGIES,
+    TOPOLOGY_STRATEGY_NONE,
     Config,
     ConfigError,
     parse_bool as _parse_bool,
@@ -30,6 +32,7 @@ from gpu_feature_discovery_tpu_torch.config.spec import (
 )
 
 DEFAULT_OUTPUT_FILE = "/etc/kubernetes/node-feature-discovery/features.d/tfd"
+DEFAULT_MACHINE_TYPE_FILE = "/sys/class/dmi/id/product_name"
 DEFAULT_SLEEP_INTERVAL = 60.0
 # Supervisor defaults (cmd/supervisor.py): 5 init attempts with backoff
 # capped at 30 s ride out a boot race before fail-fast; 5 contained cycle
@@ -123,11 +126,28 @@ class FlagDef:
     parse: Callable[[Any], Any]
     default: Any
     help: str
-    attr: str  # field of TfdFlags
+    attr: str  # field of TfdFlags, or of Flags when ``on_flags``
     aliases: Sequence[str] = ()
+    on_flags: bool = False  # the twin keeps it on Flags, not Flags.tfd
 
 
 FLAG_DEFS: List[FlagDef] = [
+    FlagDef("tpu-topology-strategy",
+            ("TFD_TPU_TOPOLOGY_STRATEGY", "TPU_TOPOLOGY_STRATEGY"), str,
+            TOPOLOGY_STRATEGY_NONE,
+            "how MIG partitions are published: 'none' (full GPUs only), "
+            "'single' (nvidia.com/gpu.* carries the node's one MIG profile) "
+            "or 'mixed' (one nvidia.com/mig-<profile> resource per profile)",
+            "tpu_topology_strategy", on_flags=True),
+    FlagDef("native-enumeration", ("TFD_NATIVE_ENUMERATION",), _parse_bool,
+            False,
+            "let the autodetect chain fall back to the NVML-only manager "
+            "(no torch, no CUDA context) when torch or CUDA cannot init",
+            "native_enumeration", on_flags=True),
+    FlagDef("machine-type-file", ("TFD_MACHINE_TYPE_FILE",), str,
+            DEFAULT_MACHINE_TYPE_FILE,
+            "path to a file containing the DMI (SMBIOS) machine type of the "
+            "node", "machine_type_file"),
     FlagDef("oneshot", ("TFD_ONESHOT",), _parse_bool, False,
             "label once and exit", "oneshot"),
     FlagDef("no-timestamp", ("TFD_NO_TIMESTAMP",), _parse_bool, False,
@@ -158,8 +178,11 @@ FLAG_DEFS: List[FlagDef] = [
             "published as nvidia.com/gpu.straggler-chip",
             "straggler_threshold"),
     FlagDef("backends", ("TFD_BACKENDS",), str, "auto",
-            "device backend: 'gpu' (CUDA devices), 'mock-gpu[:<n>]' (n "
-            "static devices), or 'auto' (default, = gpu)", "backends"),
+            "device backend: 'auto' (default: CUDA devices when NVML loads "
+            "or NVIDIA display functions are on the PCI bus, else none), "
+            "'gpu' (CUDA devices), 'native' (NVML only, no CUDA context), "
+            "'null' (no devices), 'mock-gpu[:<n>]' (n static devices) or "
+            "'mock-nvml:<layout>' (a recorded H100 inventory)", "backends"),
     FlagDef("probe-timeout", ("TFD_PROBE_TIMEOUT",), parse_duration,
             DEFAULT_PROBE_TIMEOUT,
             "hard wall-clock budget (Go duration, e.g. 30s) of a probe "
@@ -191,7 +214,9 @@ FLAG_DEFS: List[FlagDef] = [
     FlagDef("fail-on-init-error", ("TFD_FAIL_ON_INIT_ERROR", "FAIL_ON_INIT_ERROR"),
             _parse_bool, True,
             "daemon mode: exit once --init-retries backend-init attempts "
-            "failed in a row; false stays degraded and keeps retrying",
+            "failed in a row; false stays degraded and keeps retrying. "
+            "Oneshot: exit 1 when the backend will not init; false writes "
+            "no device labels and exits 0",
             "fail_on_init_error"),
     FlagDef("init-retries", ("TFD_INIT_RETRIES",), _parse_positive_int,
             DEFAULT_INIT_RETRIES,
@@ -274,6 +299,7 @@ def new_config(
     config = Config()
     tfd = config.flags.tfd
     for fd in FLAG_DEFS:
+        target = config.flags if fd.on_flags else tfd
         if fd.name in cli_values:
             value = fd.parse(cli_values[fd.name])
         else:
@@ -282,7 +308,13 @@ def new_config(
                 None,
             )
             value = fd.parse(env_val) if env_val is not None else fd.default
-        setattr(tfd, fd.attr, value)
+        setattr(target, fd.attr, value)
+    strategy = config.flags.tpu_topology_strategy
+    if strategy not in TOPOLOGY_STRATEGIES:
+        raise ConfigError(
+            f"invalid tpu-topology-strategy: {strategy!r} "
+            f"(want one of {TOPOLOGY_STRATEGIES})"
+        )
     for attr, modes in (
         ("probe_isolation", PROBE_ISOLATION_MODES),
         ("probe_broker", PROBE_BROKER_MODES),

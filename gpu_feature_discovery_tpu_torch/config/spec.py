@@ -1,15 +1,32 @@
 """Configuration spec (twin: ``gpu_feature_discovery_tpu/config/spec.py``).
 
-Trimmed to the flags of the oneshot ``--with-burnin`` cycle and the
-supervised daemon loop. Every field starts as ``None`` ("not set
+Trimmed to the flags of the oneshot ``--with-burnin`` cycle, the
+supervised daemon loop and the host facts, plus the twin's sharing
+section (time-slicing replicas). Every flag starts as ``None`` ("not set
 anywhere yet"); the flag layer (config/flags.py) fills CLI > environment
-> default. The twin's YAML config file is a later slice.
+> default. The twin's YAML config file, which is where a sharing section
+comes from, is a later slice: until then ``sharing`` stays empty unless
+an embedder fills it.
 """
 
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass, field
-from typing import Any, Optional
+from typing import Any, Dict, List, Optional
+
+# MIG exposure strategies, spelled as the twin's topology strategies
+# (reference: internal/lm/mig-strategy.go:29-33): ``none`` publishes
+# full-GPU labels only, ``single`` overloads nvidia.com/gpu.* with the
+# node's one MIG profile, ``mixed`` publishes one nvidia.com/mig-<profile>
+# resource per profile.
+TOPOLOGY_STRATEGY_NONE = "none"
+TOPOLOGY_STRATEGY_SINGLE = "single"
+TOPOLOGY_STRATEGY_MIXED = "mixed"
+TOPOLOGY_STRATEGIES = (
+    TOPOLOGY_STRATEGY_NONE,
+    TOPOLOGY_STRATEGY_SINGLE,
+    TOPOLOGY_STRATEGY_MIXED,
+)
 
 # Probe-isolation and probe-broker modes, spelled and resolved as the
 # twin resolves them (sandbox/probe.py isolation_mode, sandbox/broker.py
@@ -40,6 +57,45 @@ RECONCILE_MODES = (RECONCILE_INTERVAL, RECONCILE_EVENT, RECONCILE_AUTO)
 
 
 @dataclass
+class ReplicatedResource:
+    """One time-sliced resource (replicas.go:37-43); only name, rename and
+    replicas are honoured, as in the twin."""
+
+    name: str = ""
+    rename: str = ""
+    replicas: int = 0
+
+
+@dataclass
+class TimeSlicing:
+    """Sharing settings (replicas.go:29-34)."""
+
+    rename_by_default: bool = False
+    fail_requests_greater_than_one: bool = False
+    resources: List[ReplicatedResource] = field(default_factory=list)
+
+
+@dataclass
+class Sharing:
+    time_slicing: TimeSlicing = field(default_factory=TimeSlicing)
+
+    def replication_info(self, resource_name: str) -> Optional[ReplicatedResource]:
+        """The replication entry for a resource name (lm/resource.go:213-226
+        replicationInfo)."""
+        for r in self.time_slicing.resources:
+            if r.name == resource_name:
+                return r
+        return None
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "Sharing":
+        """Inverse of ``asdict`` on a Sharing."""
+        ts = dict(d.get("time_slicing") or {})
+        ts["resources"] = [ReplicatedResource(**r) for r in ts.get("resources") or []]
+        return Sharing(time_slicing=TimeSlicing(**ts))
+
+
+@dataclass
 class TfdFlags:
     """Daemon flags: the label cycle, the burn-in, and supervision."""
 
@@ -47,6 +103,7 @@ class TfdFlags:
     no_timestamp: Optional[bool] = None
     sleep_interval: Optional[float] = None  # seconds
     output_file: Optional[str] = None
+    machine_type_file: Optional[str] = None
     with_burnin: Optional[bool] = None
     burnin_interval: Optional[int] = None  # probe every Nth cycle
     chip_probes: Optional[bool] = None
@@ -81,12 +138,18 @@ class TfdFlags:
 
 @dataclass
 class Flags:
+    """Flags the twin keeps beside its daemon flags (its device-plugin
+    shared flags): the MIG strategy and the opt-in NVML-only backend."""
+
     tfd: TfdFlags = field(default_factory=TfdFlags)
+    tpu_topology_strategy: Optional[str] = None  # none | single | mixed
+    native_enumeration: Optional[bool] = None  # opt-in: NVML-only manager
 
 
 @dataclass
 class Config:
     flags: Flags = field(default_factory=Flags)
+    sharing: Sharing = field(default_factory=Sharing)
 
 
 class ConfigError(Exception):
@@ -101,7 +164,9 @@ def config_to_dict(config: Config) -> dict:
 
 def config_from_dict(d: dict) -> Config:
     """Inverse of config_to_dict."""
-    return Config(flags=Flags(tfd=TfdFlags(**d["flags"]["tfd"])))
+    flags = dict(d["flags"])
+    flags["tfd"] = TfdFlags(**flags["tfd"])
+    return Config(flags=Flags(**flags), sharing=Sharing.from_dict(d.get("sharing") or {}))
 
 
 def parse_bool(value: Any) -> bool:

@@ -1,16 +1,16 @@
-"""Device-backed label sources (twin: ``gpu_feature_discovery_tpu/lm/tpu.py``
-with ``lm/pjrt_family.py``'s gpu family).
+"""Device-backed label sources (twin: ``gpu_feature_discovery_tpu/lm/tpu.py``).
 
-On this port the accelerator family is gpu, so the health source (which
-the twin hangs off its tpu family) joins the gpu family's device source:
-both publish under ``nvidia.com/gpu.``, behind the family's namespace
-guard. The device source is in-memory math against the initialized
-backend and runs inline; the health source does device I/O (acquisition
-and the burn-in probe) only with ``--with-burnin``, and is offloaded to
-the engine's pool then (lm/engine.py). Under the persistent broker the
-health source carries ``cancel=broker.kill_child``: a deadline miss
-SIGKILLs the worker running the probe instead of leaving a thread wedged
-in native code.
+The sources in the twin's merge order: machine-type (the DMI product
+name), device (versions, slice capability and the MIG strategy's
+resources) and health (the burn-in). Device and health publish behind
+the gpu family's namespace guard (lm/pjrt_family.py). Machine-type is one
+read of a static file and device is in-memory math against the
+initialised backend, so both run inline; the health source does device
+I/O (acquisition and the burn-in probe) only with ``--with-burnin``, and
+is offloaded to the engine's pool then (lm/engine.py). Under the
+persistent broker the health source carries ``cancel=broker.kill_child``:
+a deadline miss SIGKILLs the worker running the probe instead of leaving
+a thread wedged in native code.
 """
 
 from __future__ import annotations
@@ -20,19 +20,39 @@ from typing import List
 from gpu_feature_discovery_tpu_torch.config.spec import Config
 from gpu_feature_discovery_tpu_torch.lm.engine import LabelSource
 from gpu_feature_discovery_tpu_torch.lm.health import new_health_labeler
-from gpu_feature_discovery_tpu_torch.lm.pjrt_family import (
-    _family_device_labels,
-    family_guard,
+from gpu_feature_discovery_tpu_torch.lm.labeler import Merge
+from gpu_feature_discovery_tpu_torch.lm.labels import Labels
+from gpu_feature_discovery_tpu_torch.lm.machine_type import new_machine_type_labeler
+from gpu_feature_discovery_tpu_torch.lm.pjrt_family import family_guard
+from gpu_feature_discovery_tpu_torch.lm.topology_strategy import new_resource_labeler
+from gpu_feature_discovery_tpu_torch.lm.versions import (
+    new_slice_capability_labeler,
+    new_version_labeler,
 )
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
+from gpu_feature_discovery_tpu_torch.utils.timing import timed
+
+
+def _device_labels(manager: Manager, config: Config) -> Labels:
+    """The manager-backed label families (versions, slice capability,
+    resources) as one source: they share the held backend."""
+    with timed("gpu.versions"):
+        versions = new_version_labeler(manager)
+    with timed("gpu.slice_capability"):
+        slice_capability = new_slice_capability_labeler(manager)
+    with timed("gpu.resources"):
+        resources = new_resource_labeler(manager, config)
+    return Merge(versions, slice_capability, resources).labels()
 
 
 def gpu_label_sources(manager: Manager, config: Config) -> List[LabelSource]:
-    """The device-backed sources in merge order (device, health), gated on
-    devices being present. The caller owns the manager lifecycle: init()
+    """The device-backed sources in merge order (machine-type, device,
+    health), gated on devices being present: a node without GPUs
+    publishes none of them. The caller owns the manager lifecycle: init()
     before, shutdown() after the sources have run."""
     if not manager.get_chips():
         return []
+    machine_type_file = config.flags.tfd.machine_type_file
     broker = getattr(manager, "broker", None)
     health_cancel = (
         broker.kill_child
@@ -41,8 +61,13 @@ def gpu_label_sources(manager: Manager, config: Config) -> List[LabelSource]:
     )
     return [
         LabelSource(
+            "machine-type",
+            lambda: new_machine_type_labeler(machine_type_file),
+            offload=False,
+        ),
+        LabelSource(
             "device",
-            lambda: family_guard("gpu", _family_device_labels(manager, "gpu")),
+            lambda: family_guard("gpu", _device_labels(manager, config)),
             offload=False,
         ),
         LabelSource(

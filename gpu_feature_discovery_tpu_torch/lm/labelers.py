@@ -1,13 +1,13 @@
 """Labeler composition root (twin: ``gpu_feature_discovery_tpu/lm/labelers.py``).
 
-``new_label_sources`` lists every source of one cycle in merge order —
-timestamp, device, health — for the label engine (lm/engine.py).
+``new_label_sources`` lists every source of one cycle in merge order:
+timestamp, the device-backed sources (machine-type, device, health; none
+without GPUs), then the host interconnect, which merges last.
 ``degraded_label_sources`` is its non-device subset, what the daemon can
-still publish while the backend will not init: in this port the
-timestamp alone. The twin's degraded set adds the DMI machine type and
-the host interconnect, which wait for the host-facts slice. Source names
-and merge order match the full list's, so the engine's per-source cache
-carries across degraded and healthy cycles.
+still publish while the backend will not init: timestamp, the DMI
+machine type and the interconnect. Source names and merge order match
+the full list's, so the engine's per-source cache carries across
+degraded and healthy cycles.
 """
 
 from __future__ import annotations
@@ -17,28 +17,59 @@ from typing import List, Optional
 from gpu_feature_discovery_tpu_torch.config.spec import Config
 from gpu_feature_discovery_tpu_torch.lm.engine import LabelSource
 from gpu_feature_discovery_tpu_torch.lm.gpu import gpu_label_sources
-from gpu_feature_discovery_tpu_torch.lm.labeler import Labeler
+from gpu_feature_discovery_tpu_torch.lm.labeler import Empty, Labeler
+from gpu_feature_discovery_tpu_torch.lm.machine_type import new_machine_type_labeler
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
 from gpu_feature_discovery_tpu_torch.utils.timing import timed
 
 
 def new_label_sources(
-    manager: Manager, config: Config, timestamp: Optional[Labeler] = None
+    manager: Manager,
+    config: Config,
+    timestamp: Optional[Labeler] = None,
+    interconnect: Optional[Labeler] = None,
 ) -> List[LabelSource]:
     """Calls ``manager.init()`` (errors propagate); the caller owns
     ``manager.shutdown()`` after the sources have run."""
-    sources = degraded_label_sources(timestamp=timestamp)
+    sources = _timestamp_sources(timestamp)
     with timed("gpu.init"):
         manager.init()
     sources.extend(gpu_label_sources(manager, config))
+    sources.append(_interconnect_source(interconnect))
     return sources
 
 
-def degraded_label_sources(timestamp: Optional[Labeler] = None) -> List[LabelSource]:
-    """The non-device sources; no manager is touched."""
-    sources: List[LabelSource] = []
-    if timestamp is not None:
-        ts = timestamp
-        # A clock read: nothing to block on, so inline.
-        sources.append(LabelSource("timestamp", lambda: ts, offload=False))
+def degraded_label_sources(
+    config: Config,
+    timestamp: Optional[Labeler] = None,
+    interconnect: Optional[Labeler] = None,
+) -> List[LabelSource]:
+    """The non-device sources; no manager is touched. The machine type
+    rides in the device-gated sources of a healthy cycle; a backend that
+    will not init says nothing about the DMI file, so it is lifted out
+    here."""
+    machine_type_file = config.flags.tfd.machine_type_file
+    sources = _timestamp_sources(timestamp)
+    sources.append(
+        LabelSource(
+            "machine-type",
+            lambda: new_machine_type_labeler(machine_type_file),
+            offload=False,
+        )
+    )
+    sources.append(_interconnect_source(interconnect))
     return sources
+
+
+def _timestamp_sources(timestamp: Optional[Labeler]) -> List[LabelSource]:
+    if timestamp is None:
+        return []
+    ts = timestamp
+    # A clock read: nothing to block on, so inline.
+    return [LabelSource("timestamp", lambda: ts, offload=False)]
+
+
+def _interconnect_source(interconnect: Optional[Labeler]) -> LabelSource:
+    ic = interconnect if interconnect is not None else Empty()
+    # A sysfs scan: offloaded, like the twin's.
+    return LabelSource("interconnect", lambda: ic)

@@ -1,9 +1,11 @@
-"""The gpu family's device labels and namespace guard (twin:
+"""The gpu family's namespace guard (twin:
 ``gpu_feature_discovery_tpu/lm/pjrt_family.py``).
 
-The gpu family owns the ``nvidia.com/gpu.`` namespace — the one the twin
-grants it. ``family_guard`` drops (with a once-per-key warning) every
-label a source emits outside it.
+The gpu family owns the ``nvidia.com/gpu.`` namespace, the one the twin
+grants it, and ``nvidia.com/mig-``, the MIG resources of the mixed
+strategy (the reference's and the NVIDIA device plugin's resource
+names). ``family_guard`` drops (with a once-per-key warning) every label
+a source emits outside them.
 """
 
 from __future__ import annotations
@@ -12,15 +14,13 @@ import logging
 from typing import Dict, Tuple
 
 from gpu_feature_discovery_tpu_torch.lm.labels import Labels
-from gpu_feature_discovery_tpu_torch.lm.resource_labeler import ResourceLabeler
-from gpu_feature_discovery_tpu_torch.lm.versions import version_labels_for
-from gpu_feature_discovery_tpu_torch.resource.types import Manager
 from gpu_feature_discovery_tpu_torch.utils.logging import warn_once
 
 log = logging.getLogger("tfd.lm")
 
-FAMILY_RESOURCES: Dict[str, str] = {"gpu": "nvidia.com/gpu"}
-FAMILY_NAMESPACES: Dict[str, Tuple[str, ...]] = {"gpu": ("nvidia.com/gpu.",)}
+FAMILY_NAMESPACES: Dict[str, Tuple[str, ...]] = {
+    "gpu": ("nvidia.com/gpu.", "nvidia.com/mig-"),
+}
 
 
 def family_guard(family: str, labels: Labels) -> Labels:
@@ -40,23 +40,3 @@ def family_guard(family: str, labels: Labels) -> Labels:
                 key,
             )
     return out
-
-
-def _family_device_labels(manager: Manager, family: str) -> Labels:
-    """Version facts, then product/count/replicas/memory, off the
-    initialized Manager. (The twin also takes the Config for its sharing
-    section, which this port does not have yet.)"""
-    resource = FAMILY_RESOURCES[family]
-    chips = manager.get_chips()
-    if not chips:
-        return Labels()
-    labels = version_labels_for(manager, resource)
-    names = sorted({c.get_name() for c in chips})
-    if len(names) > 1:
-        log.warning("Multiple %s device models detected: %s", family, names)
-    rl = ResourceLabeler(resource)
-    labels.update(rl.base_labels(len(chips), chips[0].get_name()))
-    memory_mb = chips[0].get_total_memory_mb()
-    if memory_mb:
-        labels.update(rl.single("memory", memory_mb))
-    return labels

@@ -9,6 +9,10 @@ lower-cased CUDA device name ("nvidia h100 80gb hbm3" matches "h100").
 H100 SXM data sheet: 989 TFLOP/s dense bf16, 3.35 TB/s HBM3. The PCIe
 and NVL parts have lower compute peaks and at most 3.9 TB/s, inside the
 1.5x plausibility margin of this row, so one row bounds every H100.
+
+``family_for_generation`` names the architecture of a CUDA compute
+capability, as the reference's ``getArchFamily`` does (the twin maps a
+TPU generation through its spec table instead).
 """
 
 from __future__ import annotations
@@ -39,3 +43,21 @@ def spec_for(device_name: str) -> Optional[ChipSpec]:
         if spec.family in key:
             return spec
     return None
+
+
+def family_for_generation(major: int, minor: int) -> str:
+    """Architecture family of compute capability (major, minor): the
+    reference's getArchFamily (internal/lm/resource.go:261-284)."""
+    if major == 7:
+        return "turing" if minor >= 5 else "volta"
+    if major == 8:
+        return "ada-lovelace" if minor >= 9 else "ampere"
+    return {
+        1: "tesla",
+        2: "fermi",
+        3: "kepler",
+        5: "maxwell",
+        6: "pascal",
+        9: "hopper",
+        10: "blackwell",
+    }.get(major, "undefined")

@@ -1,19 +1,36 @@
-"""Backend factory (twin: ``gpu_feature_discovery_tpu/resource/factory.py``
-with the registry tokens of ``resource/registry.py``).
+"""Backend factory and platform autodetect (twin:
+``gpu_feature_discovery_tpu/resource/factory.py`` with the registry tokens
+of ``resource/registry.py``).
 
 ``--backends`` takes one token:
 
-- ``gpu`` (and ``auto``, the twin's default spelling, which resolves to
-  ``gpu`` — the CUDA devices are this port's autodetect) → CudaManager;
-- ``mock-gpu[:<n>]`` → StaticCudaManager with n devices (default 1).
+- ``auto`` (the default): the autodetect chain, the twin's
+  ``autodetect_manager`` (reference: factory.go:54-73). NVML loadable, or
+  NVIDIA display functions on the PCI bus, means a GPU node: the CUDA
+  manager, then (opt-in, ``--native-enumeration``) the NVML-only manager
+  where torch or CUDA cannot init. On a node without GPUs, the Null
+  manager (no device labels). On a GPU node where neither backend inits,
+  the Null manager only for oneshot under ``--fail-on-init-error=false``;
+  everywhere else CUDA's init error surfaces, so the supervised daemon
+  goes degraded and retries;
+- ``gpu`` → CudaManager; ``native`` → NvmlManager (forced, no torch, no
+  CUDA context); ``null`` → NullManager;
+- ``mock-gpu[:<n>]`` → StaticCudaManager with n devices (default 1);
+- ``mock-nvml:<layout>`` → NvmlManager over a FakeNvml with one of
+  ``resource/testing.py:LAYOUTS`` (MIG layouts on the CPU).
 
 Every other token, and any list of tokens, is rejected: the port has one
-device family so far, and the twin's registry grammar stays its to keep.
+device family, and the twin's registry grammar stays its to keep.
 
-``select_manager`` is the token lookup alone; ``new_manager`` adds the
-``pjrt_init`` fault site (utils/faults.py), which fires where the
-acquisition is driven: here in process, in the parent for a probe child
-or a broker spawn (sandbox/), which select in the child.
+``validate_backends`` checks the token alone: the labeling process of a
+brokered daemon validates with it and never loads NVML (an ``nvmlInit``
+against a wedged GPU can hang), while ``select_manager`` (detection, and
+construction) runs where the acquisition runs: in process, or in the
+probe child or broker worker. ``new_manager`` adds the ``pjrt_init``
+fault site and, unless ``wrap_fallback=False`` or
+``--fail-on-init-error``, the fallback-to-null wrapper (the twin's
+factory.go:27-39) and the chain's fall-through to null; oneshot takes
+both, the supervised daemon neither: it gets raw errors.
 
 ``build_manager`` is the supervised daemon's acquisition unit (the
 twin's ``cmd/main.py:_build_manager``): selection and an eager
@@ -25,37 +42,148 @@ when the broker is on), raising the raw error for the supervisor
 
 from __future__ import annotations
 
+import logging
+from typing import Optional, Tuple
+
 from gpu_feature_discovery_tpu_torch.config.spec import Config, ConfigError
+from gpu_feature_discovery_tpu_torch.native import nvml
+from gpu_feature_discovery_tpu_torch.pci.pciutil import PCIError, SysfsNvidiaPCI
 from gpu_feature_discovery_tpu_torch.resource.cuda_backend import (
     CudaManager,
     StaticCudaManager,
 )
+from gpu_feature_discovery_tpu_torch.resource.fallback import FallbackToNullOnInitError
+from gpu_feature_discovery_tpu_torch.resource.null import NullManager
+from gpu_feature_discovery_tpu_torch.resource.nvml_backend import NvmlManager
+from gpu_feature_discovery_tpu_torch.resource.testing import LAYOUTS, fake_nvml
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
 
+log = logging.getLogger("tfd.resource")
 
-def new_manager(config: Config) -> Manager:
-    """The backend the config names, with the ``pjrt_init`` fault site."""
-    from gpu_feature_discovery_tpu_torch.utils.faults import maybe_inject
-
-    maybe_inject("pjrt_init")
-    return select_manager(config)
+FIXED_TOKENS = ("auto", "gpu", "native", "null")
 
 
-def select_manager(config: Config) -> Manager:
-    """Backend selection WITHOUT the fault site: a probe child and the
-    broker worker select here, after the parent fired the site."""
+def validate_backends(config: Config) -> Tuple[str, str]:
+    """(kind, argument) of the ``--backends`` token, or ConfigError. No
+    detection, no library load."""
     token = (config.flags.tfd.backends or "auto").strip().lower()
-    if token in ("auto", "gpu"):
-        return CudaManager()
+    if token in FIXED_TOKENS:
+        return token, ""
     if token == "mock-gpu" or token.startswith("mock-gpu:"):
         arg = token.partition(":")[2] or "1"
         if not arg.isdigit() or int(arg) < 1:
             raise ConfigError(f"backend {token!r}: want mock-gpu[:<n>], n >= 1")
-        return StaticCudaManager.mock_gpu(int(arg))
+        return "mock-gpu", arg
+    if token.startswith("mock-nvml:"):
+        layout = token.partition(":")[2]
+        if layout not in LAYOUTS:
+            raise ConfigError(
+                f"backend {token!r}: want mock-nvml:<layout>, layout one of "
+                f"{sorted(LAYOUTS)}"
+            )
+        return "mock-nvml", layout
     raise ConfigError(
         f"unsupported backend {token!r}: this port labels one device "
-        "family; use 'gpu' or 'mock-gpu[:<n>]'"
+        "family; use 'auto', 'gpu', 'native', 'null', 'mock-gpu[:<n>]' or "
+        "'mock-nvml:<layout>'"
     )
+
+
+def new_manager(config: Config, wrap_fallback: bool = True) -> Manager:
+    """The backend the config names, with the ``pjrt_init`` fault site and
+    the fallback-to-null wrapper (NewManager, factory.go:27-30)."""
+    from gpu_feature_discovery_tpu_torch.utils.faults import maybe_inject
+
+    maybe_inject("pjrt_init")
+    fallback = wrap_fallback and not config.flags.tfd.fail_on_init_error
+    manager = select_manager(config, fallback_to_null=fallback)
+    if not wrap_fallback:
+        return manager
+    return with_config(manager, config)
+
+
+def with_config(manager: Manager, config: Config) -> Manager:
+    """WithConfig (factory.go:33-39)."""
+    if config.flags.tfd.fail_on_init_error:
+        return manager
+    return FallbackToNullOnInitError(manager)
+
+
+def select_manager(config: Config, fallback_to_null: bool = False) -> Manager:
+    """Backend selection WITHOUT the fault site or the wrapper: a probe
+    child and the broker worker select here, after the parent fired the
+    site. ``fallback_to_null``: a GPU node whose backends will not init
+    gets the Null manager instead of the init error (oneshot only)."""
+    kind, arg = validate_backends(config)
+    if kind == "auto":
+        return autodetect_manager(config, fallback_to_null)
+    if kind == "gpu":
+        return CudaManager()
+    if kind == "native":
+        return NvmlManager()
+    if kind == "null":
+        return NullManager()
+    if kind == "mock-gpu":
+        return StaticCudaManager.mock_gpu(int(arg))
+    return NvmlManager(fake_nvml(arg))
+
+
+def autodetect_manager(config: Config, fallback_to_null: bool = False) -> Manager:
+    """CUDA first, NVML-only second (opt-in), null last: the twin's chain
+    (factory.go:54-73) with GPU probes. On a GPU node the chain reaches
+    null only with ``fallback_to_null``; else CUDA's init error stands."""
+    has_gpu, reason = detect_gpu_platform()
+    log.info("Detected %sGPU platform: %s", "" if has_gpu else "non-", reason)
+    if has_gpu:
+        manager = CudaManager()
+        if not (fallback_to_null or config.flags.native_enumeration):
+            # Nothing to fall through to: the CUDA manager stays lazy and
+            # its init error surfaces where the caller inits it.
+            log.info("Using CUDA manager")
+            return manager
+        try:
+            manager.init()
+            log.info("Using CUDA manager")
+            return manager
+        except Exception as e:  # noqa: BLE001 - the chain goes on
+            cuda_error = e
+            log.warning("CUDA backend unavailable: %s", e)
+        manager = _try_nvml_manager(config)
+        if manager is not None:
+            log.info("Using NVML-only manager; CUDA unusable")
+            return manager
+        if not fallback_to_null:
+            raise cuda_error
+        log.warning("GPU detected but no backend usable; using null manager")
+    log.warning("No valid resources detected; using empty manager.")
+    return NullManager()
+
+
+def detect_gpu_platform() -> Tuple[bool, str]:
+    """hasNvml probe (factory.go:54-57): NVML dlopen-able, then NVIDIA
+    display functions on the PCI bus. Loads NVML; calls nothing in it."""
+    if nvml.load_library() is not None:
+        return True, f"NVML loadable ({nvml.NVML_LIBRARY})"
+    try:
+        if SysfsNvidiaPCI().devices():
+            return True, "NVIDIA display functions present on /sys/bus/pci"
+    except PCIError as e:  # no sysfs is a non-GPU signal
+        log.debug("GPU PCI platform probe unavailable: %s", e)
+    return False, "no NVML, no NVIDIA display functions on the PCI bus"
+
+
+def _try_nvml_manager(config: Config) -> Optional[Manager]:
+    """NvmlManager, opt-in (--native-enumeration); verified eagerly so
+    the chain can fall through to null."""
+    if not config.flags.native_enumeration:
+        return None
+    manager = NvmlManager()
+    try:
+        manager.init()
+    except Exception as e:  # noqa: BLE001 - backend optional by design
+        log.warning("NVML backend unavailable: %s", e)
+        return None
+    return manager
 
 
 def build_manager(config: Config) -> Manager:
@@ -79,6 +207,6 @@ def build_manager(config: Config) -> Manager:
             tfd.probe_timeout if tfd.probe_timeout is not None else DEFAULT_PROBE_TIMEOUT
         )
         return sandbox.acquire_snapshot_manager(config, timeout)
-    manager = new_manager(config)
+    manager = new_manager(config, wrap_fallback=False)
     manager.init()
     return manager

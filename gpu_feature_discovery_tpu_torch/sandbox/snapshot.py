@@ -10,9 +10,11 @@ builds a ``SnapshotManager`` over it; every labeler runs unchanged, and
 ``tests/test_torch_sandbox.py`` pins that the labels equal those of the
 live manager.
 
-The twin's ``SliceSnapshot`` (a TPU chip's slice partitions) has no
-counterpart on a single CUDA node: a ``CudaChip`` carries no partitions,
-so a chip snapshot here carries none either.
+MIG partitions cross the pipe too, as the twin's slice partitions do:
+each GPU's ``SliceSnapshot`` list carries a partition's profile name,
+memory and attribute family, so the strategy labels of a brokered
+daemon equal those of the live manager, and the labeling process never
+calls NVML.
 
 JSON rather than pickle: a child killed mid-write leaves a truncated
 document, which fails parsing instead of executing bytes.
@@ -20,7 +22,7 @@ document, which fails parsing instead of executing bytes.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
 from gpu_feature_discovery_tpu_torch.resource.types import Chip, Manager, ResourceError
@@ -29,14 +31,43 @@ SNAPSHOT_VERSION = 1
 
 
 @dataclass
+class SliceSnapshot:
+    """One MIG partition: name (its profile), the attribute family, and
+    the whole-partition memory."""
+
+    name: str
+    memory_mb: int
+    generation: Tuple[int, int]
+    attributes: Dict[str, object] = field(default_factory=dict)
+
+    def to_dict(self) -> Dict[str, object]:
+        return {
+            "name": self.name,
+            "memory_mb": self.memory_mb,
+            "generation": list(self.generation),
+            "attributes": dict(self.attributes),
+        }
+
+    @staticmethod
+    def from_dict(d: Dict[str, object]) -> "SliceSnapshot":
+        return SliceSnapshot(
+            name=str(d["name"]),
+            memory_mb=int(d["memory_mb"]),
+            generation=tuple(d["generation"]),  # type: ignore[arg-type]
+            attributes=dict(d.get("attributes") or {}),
+        )
+
+
+@dataclass
 class ChipSnapshot:
-    """One enumerated device as the labelers see it."""
+    """One enumerated GPU as the labelers see it."""
 
     name: str
     memory_mb: int
     generation: Tuple[int, int]
     slice_capable: bool
     slice_enabled: bool
+    slices: List[SliceSnapshot] = field(default_factory=list)
 
     def to_dict(self) -> Dict[str, object]:
         return {
@@ -45,6 +76,7 @@ class ChipSnapshot:
             "generation": list(self.generation),
             "slice_capable": self.slice_capable,
             "slice_enabled": self.slice_enabled,
+            "slices": [s.to_dict() for s in self.slices],
         }
 
     @staticmethod
@@ -55,6 +87,7 @@ class ChipSnapshot:
             generation=tuple(d["generation"]),  # type: ignore[arg-type]
             slice_capable=bool(d["slice_capable"]),
             slice_enabled=bool(d["slice_enabled"]),
+            slices=[SliceSnapshot.from_dict(s) for s in d.get("slices") or []],
         )
 
 
@@ -64,7 +97,7 @@ class DeviceSnapshot:
 
     driver_version: str
     runtime_version: Tuple[int, int]
-    chips: List[ChipSnapshot]
+    chips: List[ChipSnapshot] = field(default_factory=list)
     version: int = SNAPSHOT_VERSION
 
     def to_dict(self) -> Dict[str, object]:
@@ -96,28 +129,76 @@ class DeviceSnapshot:
         probes, which may need a live device."""
         chips = manager.get_chips()
         if not chips:
-            return DeviceSnapshot(driver_version="", runtime_version=(0, 0), chips=[])
+            return DeviceSnapshot(driver_version="", runtime_version=(0, 0))
         return DeviceSnapshot(
             driver_version=manager.get_driver_version(),
             runtime_version=tuple(manager.get_runtime_version()),
-            chips=[
-                ChipSnapshot(
-                    name=chip.get_name(),
-                    memory_mb=chip.get_total_memory_mb(),
-                    generation=tuple(chip.get_generation()),
-                    slice_capable=chip.is_slice_capable(),
-                    slice_enabled=chip.is_slice_enabled(),
-                )
-                for chip in chips
-            ],
+            chips=[_snapshot_chip(chip) for chip in chips],
         )
 
 
+def _snapshot_chip(chip: Chip) -> ChipSnapshot:
+    slice_enabled = chip.is_slice_enabled()
+    slices: List[SliceSnapshot] = []
+    if slice_enabled:
+        for sl in chip.get_slices():
+            slices.append(
+                SliceSnapshot(
+                    name=sl.get_name(),
+                    memory_mb=sl.get_total_memory_mb(),
+                    generation=tuple(sl.get_generation()),
+                    attributes=dict(sl.get_attributes()),
+                )
+            )
+    return ChipSnapshot(
+        name=chip.get_name(),
+        memory_mb=chip.get_total_memory_mb(),
+        generation=tuple(chip.get_generation()),
+        slice_capable=chip.is_slice_capable(),
+        slice_enabled=slice_enabled,
+        slices=slices,
+    )
+
+
+class SnapshotSlice(Chip):
+    """A reconstructed MIG partition: pure data, the MigPartition
+    contract (the full-GPU methods raise)."""
+
+    def __init__(self, snap: SliceSnapshot, parent: "SnapshotChip"):
+        self._snap = snap
+        self._parent = parent
+
+    def is_slice_enabled(self) -> bool:
+        raise ResourceError("is_slice_enabled not supported for slice partitions")
+
+    def is_slice_capable(self) -> bool:
+        raise ResourceError("is_slice_capable not supported for slice partitions")
+
+    def get_slices(self) -> List[Chip]:
+        raise ResourceError("get_slices not supported for slice partitions")
+
+    def get_attributes(self) -> Dict[str, object]:
+        return dict(self._snap.attributes)
+
+    def get_name(self) -> str:
+        return self._snap.name
+
+    def get_total_memory_mb(self) -> int:
+        return self._snap.memory_mb
+
+    def get_parent_chip(self) -> Chip:
+        return self._parent
+
+    def get_generation(self) -> Tuple[int, int]:
+        return tuple(self._snap.generation)
+
+
 class SnapshotChip(Chip):
-    """A reconstructed device: pure data, the CudaChip contract."""
+    """A reconstructed full GPU."""
 
     def __init__(self, snap: ChipSnapshot):
         self._snap = snap
+        self._slices = [SnapshotSlice(s, self) for s in snap.slices]
 
     def is_slice_enabled(self) -> bool:
         return self._snap.slice_enabled
@@ -126,7 +207,7 @@ class SnapshotChip(Chip):
         return self._snap.slice_capable
 
     def get_slices(self) -> List[Chip]:
-        return []
+        return list(self._slices)
 
     def get_attributes(self) -> Dict[str, object]:
         raise ResourceError("get_attributes only supported for slice partitions")

@@ -178,3 +178,24 @@ def test_broker_worker_probes_the_card_with_the_kernel(dev, tmp_path):
     assert phases["hbm_stream_sum_launches"] in (3, 4)
     assert phases["hbm_stream_sum_launches_process"] == 4  # warm-up + 3
     assert hbm.hbm_stream_sum.launches == before
+
+
+def test_cuda_manager_takes_nvmls_gpus_on_card(dev):
+    """On the card NVML loads, the CUDA manager's chips are NVML's (one
+    per CUDA device with MIG off), and the NVML-only manager enumerates
+    the same GPUs with the same memory, capability and versions."""
+    from gpu_feature_discovery_tpu_torch.resource.cuda_backend import CudaManager
+    from gpu_feature_discovery_tpu_torch.resource.nvml_backend import NvmlManager
+
+    cuda, native = CudaManager(), NvmlManager()
+    cuda.init()
+    native.init()
+    assert cuda.nvml_inventory is not None
+    assert len(cuda.get_chips()) == torch.cuda.device_count()
+    facts = lambda m: sorted(  # noqa: E731
+        (c.get_name(), c.get_total_memory_mb(), c.get_generation(),
+         c.is_slice_capable(), c.is_slice_enabled()) for c in m.get_chips())
+    assert facts(cuda) == facts(native)
+    assert cuda.get_driver_version() == native.get_driver_version()
+    assert cuda.get_runtime_version() == native.get_runtime_version()
+    assert cuda.get_chips()[0].get_generation() == torch.cuda.get_device_capability(0)

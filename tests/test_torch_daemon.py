@@ -34,6 +34,7 @@ from gpu_feature_discovery_tpu_torch.cmd.main import run, start
 from gpu_feature_discovery_tpu_torch.cmd.supervisor import DEGRADED_LABEL, Supervisor
 from gpu_feature_discovery_tpu_torch.config import flags
 from gpu_feature_discovery_tpu_torch.config.flags import new_config
+from gpu_feature_discovery_tpu_torch.lm.labeler import Empty
 from gpu_feature_discovery_tpu_torch.resource import factory
 from gpu_feature_discovery_tpu_torch.resource.cuda_backend import StaticCudaManager
 
@@ -46,12 +47,21 @@ def _translated_key(key):
     return key.replace("google.com/tpu.", "nvidia.com/gpu.", 1)
 
 
+# The host facts the port publishes beside the twin's gpu family (the
+# twin's golden file stays as it is).
+HOST_FACTS_GOLDEN = [
+    r"nvidia\.com\/gpu\.machine=[A-Za-z0-9._-]+",
+    r"nvidia\.com\/gpu\.slice\.capable=false",
+]
+HOST_FACT_PREFIXES = ("nvidia.com/gpu.machine=", "nvidia.com/gpu.slice.capable=")
+
+
 def _golden():
     import re
 
     return [re.compile(f"^{g}$") for g in
             (HERE / "expected-output-gpu-mock.txt").read_text().splitlines()
-            if g.strip()]
+            + HOST_FACTS_GOLDEN if g.strip()]
 
 
 def _matches_golden(lines):
@@ -217,7 +227,8 @@ def _port_daemon(tmp_path, tag, make_manager=None, **cli):
     values.update(cli)
     config = new_config(cli_values=values, environ={})
     build = make_manager or (lambda: factory.build_manager(config))
-    return out, lambda sigs: run(build, config, sigs, supervisor=Supervisor(config))
+    return out, lambda sigs: run(build, config, sigs, supervisor=Supervisor(config),
+                                 interconnect=Empty())
 
 
 def _twin_daemon(tmp_path, tag, **cli):
@@ -247,7 +258,10 @@ def test_daemon_publishes_the_golden_and_the_twins_labels(tmp_path, monkeypatch,
     assert _matches_golden(got)
     twin_out, twin_target = _twin_daemon(tmp_path, "twin", reconcile=reconcile)
     want, _ = _drive(twin_target, twin_out, os.path.exists)
-    assert _no_timestamp(got) == sorted(_translated_key(l) for l in _no_timestamp(want))
+    # The twin's gpu family carries no host facts (its tpu family does;
+    # tests/test_torch_host_facts.py holds those against it).
+    device = [l for l in _no_timestamp(got) if not l.startswith(HOST_FACT_PREFIXES)]
+    assert device == sorted(_translated_key(l) for l in _no_timestamp(want))
 
 
 class _CountingManager(StaticCudaManager):
@@ -287,21 +301,45 @@ def test_sighup_returns_restart_and_removes_the_file(tmp_path, reconcile):
 
 
 def test_failing_backend_publishes_degraded_like_the_twin(tmp_path, monkeypatch):
-    from gpu_feature_discovery_tpu.resource import registry as twin_registry
+    """The degraded set is the twin's: the timestamp, the DMI machine type
+    and the interconnect (empty here), with the degraded marker."""
+    from gpu_feature_discovery_tpu.resource import factory as twin_factory
 
-    def broken():
+    def broken(*_args, **_kwargs):
         raise RuntimeError("backend will not init")
 
-    monkeypatch.setattr(twin_registry, "new_backend_manager",
-                        lambda *a, **k: broken())
-    cli = {"fail-on-init-error": "false"}
+    monkeypatch.setattr(twin_factory, "_get_manager", broken)
+    dmi = tmp_path / "product_name"
+    dmi.write_text("HGX H100 8-GPU\n")
+    cli = {"fail-on-init-error": "false", "machine-type-file": str(dmi)}
     out, target = _port_daemon(tmp_path, "port", make_manager=broken, **cli)
     got, _ = _drive(target, out, os.path.exists)
-    twin_out, twin_target = _twin_daemon(tmp_path, "twin", **cli)
+    twin_out, twin_target = _twin_daemon(tmp_path, "twin", backends="auto", **cli)
     want, _ = _drive(twin_target, twin_out, os.path.exists)
-    assert _no_timestamp(got) == [f"{DEGRADED_LABEL}=true"]
-    assert _no_timestamp(got) == [_translated_key(l) for l in _no_timestamp(want)]
+    assert _no_timestamp(got) == ["nvidia.com/gpu.machine=HGX-H100-8-GPU",
+                                  f"{DEGRADED_LABEL}=true"]
+    assert _no_timestamp(got) == sorted(_translated_key(l) for l in _no_timestamp(want))
     assert any(l.startswith(TIMESTAMP) for l in got)
+
+
+def test_auto_on_a_gpu_node_whose_cuda_will_not_init_goes_degraded(tmp_path, monkeypatch):
+    """NVML loads but CUDA will not init: under --backends auto the
+    daemon publishes the degraded set and keeps retrying, never the Null
+    manager's empty device set."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(factory, "detect_gpu_platform", lambda: (True, "test"))
+    dmi = tmp_path / "product_name"
+    dmi.write_text("HGX H100 8-GPU\n")
+    out, target = _port_daemon(tmp_path, "auto", backends="auto",
+                               **{"fail-on-init-error": "false",
+                                  "probe-isolation": "none",
+                                  "machine-type-file": str(dmi)})
+    got, restart = _drive(target, out, os.path.exists)
+    assert restart is False
+    assert _no_timestamp(got) == ["nvidia.com/gpu.machine=HGX-H100-8-GPU",
+                                  f"{DEGRADED_LABEL}=true"]
 
 
 def test_no_cuda_device_goes_degraded_then_exits_at_the_bound(tmp_path, monkeypatch):

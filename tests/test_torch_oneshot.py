@@ -60,11 +60,20 @@ def check_result(output_path, golden):
     assert not unmatched_patterns, f"labels missing for: {unmatched_patterns}"
 
 
+# The host facts the port publishes beside the twin's gpu family: the
+# DMI machine type and MIG capability (mock-gpu has none). Kept here
+# rather than in the twin's golden file, which stays as it is.
+HOST_FACTS_GOLDEN = [
+    r"nvidia\.com\/gpu\.machine=[A-Za-z0-9._-]+",
+    r"nvidia\.com\/gpu\.slice\.capable=false",
+]
+
+
 def _gpu_mock_golden():
     return [
         l for l in (HERE / "expected-output-gpu-mock.txt").read_text().splitlines()
         if l.strip()
-    ]
+    ] + HOST_FACTS_GOLDEN
 
 
 def test_oneshot_mock_gpu_matches_twin_golden(tmp_path):
