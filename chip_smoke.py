@@ -13,25 +13,32 @@ Phases, each printing one JSON line:
 3. ``kernels``  — each hand-written kernel against its plain PyTorch
                   version on the card, at the main path's shapes, timed
                   with CUDA events beside its bound and a library call.
-4. ``main_path``— one oneshot ``--with-burnin`` label cycle through the
+4. ``collectives``— the multi-GPU probes on every card: the timed NCCL
+                  all-reduce (32 MiB per card) with its communicator's
+                  first use apart, the ring sweeps over the chip mesh and
+                  the (data, model) mesh, peer copies per ring edge, the
+                  DP+TP train step against the same step on the CPU, the
+                  dry run, and the node probe's ``ici_*`` keys.
+5. ``main_path``— one oneshot ``--with-burnin`` label cycle through the
                   CLI entry point; checks the label file (host facts
-                  included) and that the cycle launched every kernel
+                  included, and the ``health.ici.*`` labels on several
+                  cards) and that the cycle launched every kernel
                   (launch counts zeroed just before, read just after).
-5. ``host_facts``— NVML (loaded with ctypes) against nvidia-smi field by
+6. ``host_facts``— NVML (loaded with ctypes) against nvidia-smi field by
                   field; a fresh child running the NVML-only manager and
                   the labelers without torch and without a CUDA context;
                   ``--backends native`` against ``--backends gpu``; the
                   three MIG strategies as the card's MIG mode implies;
                   family, generation, slice capability and the PCI count
                   against sysfs; NVML's cost beside ``gpu.acquire``.
-6. ``daemon``   — the supervised daemon loop with the probe in process
+7. ``daemon``   — the supervised daemon loop with the probe in process
                   (``--probe-broker off``): ``cmd.main.run`` on a worker
                   thread with ``--burnin-interval 2 --sleep-interval 1s``
                   (one ``daemon_cycle`` line per cycle), SIGHUP and
                   SIGTERM through its signal queue; then the real CLI as
                   a subprocess at its defaults, so through the broker
                   worker, with real signals (``daemon_cli``).
-7. ``broker``   — ``cmd.main.run`` at the default isolation and broker
+8. ``broker``   — ``cmd.main.run`` at the default isolation and broker
                   settings: the burn-in and the HBM kernel run in the
                   broker worker process (one ``broker_cycle`` line per
                   cycle, launches read from the reports it ships); the
@@ -165,6 +172,11 @@ def phase_kernels() -> dict:
     ms = cuda_ms(lambda: hbm.hbm_stream_sum(pattern))
     plain_ms = cuda_ms(lambda: hbm.hbm_stream_sum_reference(pattern))
     library_ms = cuda_ms(lambda: torch.sum(pattern, dtype=torch.float64))
+    # The same call in f32, the TPU kernel's accumulator type.
+    library_f32_sum = torch.sum(pattern).item()
+    check(library_f32_sum == expected,
+          f"torch.sum in f32 {library_f32_sum} != expected {expected}")
+    library_f32_ms = cuda_ms(lambda: torch.sum(pattern))
     nbytes = pattern.numel() * pattern.element_size() + 4  # read once, write (1,1) f32
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = pattern.numel() / FP32_OPS_PER_S * 1e3
@@ -190,11 +202,160 @@ def phase_kernels() -> dict:
             "random_rel_err": rel_r,
             "aliased_slot_sum": aliased_sum,
             "doubled_chunk_sum": doubled_sum,
+            "library_f32_ms": library_f32_ms,
+            "library_f32_sum": library_f32_sum,
             "comparison_launches": hbm.hbm_stream_sum.launches,
             "gib_per_s": nbytes / (ms / 1e3) / 2**30,
         }],
     )
     return entry
+
+
+def _max_rel(got, want) -> float:
+    import numpy as np
+
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    return float(np.max(np.abs(got - want) / (np.abs(want) + 1e-30)))
+
+
+def _close(got, want, what: str) -> None:
+    import numpy as np
+
+    # rtol 1e-5, atol 1e-6: f32 on both sides (TF32 off on the card), only
+    # the order of the sums differs between cuBLAS and the CPU's BLAS.
+    check(np.allclose(got, want, rtol=1e-5, atol=1e-6),
+          f"{what}: card and CPU differ (max rel {_max_rel(got, want)})")
+
+
+def phase_collectives(count: int) -> None:
+    """The multi-GPU probes on every card of the machine: the timed NCCL
+    all-reduce, both ring sweeps, the DP+TP train step held against the
+    same step on the CPU, the dry run, and the node probe's collective
+    keys. On one card the all-reduce has one rank and the rings one
+    device; their checks hold all the same."""
+    import numpy as np
+    import torch
+
+    from gpu_feature_discovery_tpu_torch import entry
+    from gpu_feature_discovery_tpu_torch.ops import carry, collectives, device_timing, healthcheck
+
+    devices = [torch.device("cuda", i) for i in range(count)]
+    out = {"devices": count}
+
+    # The communicator's first use, apart: no earlier phase used NCCL.
+    small = [torch.ones(1, device=d) for d in devices]
+    t0 = time.perf_counter()
+    collectives.all_reduce(small)
+    for d in devices:
+        torch.cuda.synchronize(d)
+    out["nccl_first_use_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    collectives.all_reduce(small)
+    for d in devices:
+        torch.cuda.synchronize(d)
+    out["nccl_second_use_ms"] = (time.perf_counter() - t0) * 1e3
+
+    probe = healthcheck.ici_allreduce_probe(devices, mib_per_chip=32)
+    check(probe["checksum_ok"], f"all-reduce checksum failed: {probe}")
+    check(probe["bytes"] == 32 << 20, f"all-reduce payload {probe['bytes']}")
+    check(probe["gbps"] == 0.0 if count == 1 else probe["gbps"] > 0,
+          f"all-reduce gbps {probe['gbps']} at n={count}")
+    ones = [torch.ones(probe["bytes"] // 4, device=d) for d in devices]
+    dst = [torch.empty_like(t) for t in ones]
+    windows, gate_held = device_timing.gated_windows(
+        devices, lambda: collectives.all_reduce(ones, out=dst), 5)
+    check(gate_held, "the host queued the all-reduces past the timing gate")
+    # One rank copies its payload out of place: read once, written once.
+    out["allreduce"] = {
+        **probe, "device_ms": probe["seconds"] * 1e3,
+        "gated_windows_ms": [w * 1e3 for w in windows],
+        "back_to_back_ms": cuda_ms(lambda: collectives.all_reduce(ones, out=dst)),
+        "one_rank_bound_ms": 2 * probe["bytes"] / HBM_BYTES_PER_S * 1e3,
+    }
+
+    sweeps = {}
+    for name, mesh in (("chip_mesh", healthcheck.chip_mesh(devices)),
+                       ("build_mesh", healthcheck.build_mesh(count))):
+        t0 = time.perf_counter()
+        sweep = healthcheck.ici_ring_sweep(mesh)
+        sweeps[name] = {**sweep, "shape": list(mesh.devices.shape),
+                        "ms": (time.perf_counter() - t0) * 1e3}
+        check(sweep["links_ok"] and sweep["allreduce_ok"], f"{name} sweep: {sweep}")
+    out["sweeps"] = sweeps
+    edges = []
+    for i in range(count if count > 1 else 0):
+        src, dst_dev = devices[i], devices[(i + 1) % count]
+        buf = ones[i]
+        with torch.cuda.device(dst_dev):
+            ms = cuda_ms(lambda: buf.to(dst_dev))
+        edges.append({"src": i, "dst": dst_dev.index,
+                      "peer_access": torch.cuda.can_device_access_peer(src, dst_dev),
+                      "copy_ms": ms, "bytes": buf.numel() * 4})
+    out["ring_edges"] = edges
+
+    # The train step: weights from a numpy seed, on the card and on the CPU.
+    rng = np.random.default_rng(0)
+    d_model, d_hidden, batch = 128, 256, 32
+    weights = {
+        "w1": (rng.standard_normal((d_model, d_hidden)) / np.sqrt(d_model)).astype(np.float32),
+        "w2": (rng.standard_normal((d_hidden, d_model)) / np.sqrt(d_hidden)).astype(np.float32),
+    }
+    x = rng.standard_normal((batch, d_model)).astype(np.float32)
+    y = rng.standard_normal((batch, d_model)).astype(np.float32)
+    runs = {}
+    for where, mesh in (("card", healthcheck.build_mesh(count)),
+                        ("cpu", healthcheck.build_mesh(count, [torch.device("cpu")] * count))):
+        params = carry.slice_params_from_numpy(weights, mesh)
+        xs, ys = carry.slice_batch_from_numpy(x, y, mesh)
+        step, _ = healthcheck.make_slice_train_step(mesh, params=params, batch_xy=(xs, ys))
+        new, loss = step(params, xs, ys)
+        losses = [float(loss)]
+        p = new
+        for _ in range(5):
+            p, later = step(p, xs, ys)
+            losses.append(float(later))
+        runs[where] = (carry.slice_params_to_numpy(new, mesh), losses, step, params, xs, ys)
+    (card_p, card_l, step, params, xs, ys), (cpu_p, cpu_l, *_) = runs["card"], runs["cpu"]
+    _close(card_l[0], cpu_l[0], "train-step loss")
+    for key in ("w1", "w2"):
+        _close(card_p[key], cpu_p[key], f"train-step {key}")
+    check(card_l[-1] < card_l[0], f"five steps did not lower the loss: {card_l}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_LAUNCHES):
+        step(params, xs, ys)
+    torch.cuda.synchronize()
+    out["train_step"] = {
+        "losses_card": card_l, "losses_cpu": cpu_l,
+        "loss_rel_err": _max_rel(card_l[0], cpu_l[0]),
+        "w1_max_rel_err": _max_rel(card_p["w1"], cpu_p["w1"]),
+        "w2_max_rel_err": _max_rel(card_p["w2"], cpu_p["w2"]),
+        "device_ms": cuda_ms(lambda: step(params, xs, ys)),
+        "wall_ms": (time.perf_counter() - t0) * 1e3 / TIMED_LAUNCHES,
+    }
+
+    entry.dryrun_multichip(count)
+    out["dryrun_multichip"] = "passed"
+
+    report = healthcheck.measure_node_health(devices=devices, per_chip=True)
+    ici_phases = sorted(k for k in report["phases"] if k.startswith("ici_"))
+    if count == 1:
+        check(not ici_phases and report["ici_ok"] is None and report["ici_gbps"] is None,
+              f"one card ran a collective probe: {ici_phases} {report['ici_ok']}")
+        try:
+            healthcheck.measure_node_health(devices=devices, per_chip=True, ici=True)
+        except ValueError as e:
+            out["ici_true_one_device"] = f"ValueError: {e}"
+        else:
+            check(False, "ici=True on one card did not raise ValueError")
+    else:
+        check(report["ici_ok"] is True and (report["ici_gbps"] or 0) > 0,
+              f"multi-GPU node probe: ici_ok {report['ici_ok']} gbps {report['ici_gbps']}")
+    out["node_probe"] = {k: report[k] for k in ("ici_ok", "ici_gbps", "chips_allreduce_ok")}
+    out["node_probe_phases"] = {k: report["phases"][k] for k in ici_phases}
+    # The main path warms its own probe, as a fresh process would.
+    healthcheck.reset_probe_workspaces()
+    emit("collectives", **out)
 
 
 class _PhaseCapture(logging.Handler):
@@ -250,6 +411,12 @@ def phase_main_path(entries: dict, count: int) -> None:
         check(labels.get(key) == value, f"label {key}={labels.get(key)!r}, want {value!r}")
     for key in HOST_FACT_KEYS:
         check(key in labels, f"main path published no {key}")
+    ici = {k: labels.get(k) for k in (ICI_OK, ICI_GBPS)}
+    if count > 1:
+        check(ici[ICI_OK] == "true" and int(ici[ICI_GBPS] or "0") > 0,
+              f"multi-GPU main path: {ici}")
+    else:
+        check(ici == {ICI_OK: None, ICI_GBPS: None}, f"one card published {ici}")
     for key in ("nvidia.com/gpu.health.matmul-tflops", "nvidia.com/gpu.health.hbm-gbps"):
         # Present means inside the plausibility gate (<= 1.5x the spec peak).
         check(int(labels.get(key, "0")) > 0, f"label {key} missing or zero")
@@ -534,6 +701,8 @@ def _wait_for(cond, timeout: float, what: str, poll: float = 0.02):
 
 
 HEALTH_KEYS = ("nvidia.com/gpu.health.matmul-tflops", "nvidia.com/gpu.health.hbm-gbps")
+ICI_OK = "nvidia.com/gpu.health.ici.ok"
+ICI_GBPS = "nvidia.com/gpu.health.ici.allreduce-gbps"
 # Less than the smallest CUDA context on an H100 (about 500 MiB).
 CONTEXT_MIB = 100
 # Labels every GPU node now carries beside its device count.
@@ -1053,6 +1222,7 @@ def main() -> int:
     info = phase_device()
     phase_build()
     entries = {"hbm_stream_sum": phase_kernels()}
+    phase_collectives(info["count"])
     phase_main_path(entries, info["count"])
     facts = phase_host_facts(info["count"])
     first_cycle = phase_daemon(entries, info["count"])

@@ -14,6 +14,9 @@ CUDA device (ops/healthcheck.py ``measure_node_health``) and publishes:
 and, with --chip-probes (the default), per-device fault localisation:
 ``chip.<i>.ok``, ``chip.<i>.tflops``, ``chip.<i>.hbm-gbps``,
 ``chips.healthy``, ``chips.sick`` and a confirmed ``straggler-chip``.
+A multi-GPU node also publishes ``health.ici.ok`` (the ring sweep over
+peer copies and NCCL) and, with --chip-probes, ``health.ici.allreduce-gbps``
+(the timed NCCL all-reduce, GiB/s per device).
 The keys are the twin's ``google.com/tpu.*`` keys under the one allowed
 translation to ``nvidia.com/gpu.``.
 
@@ -78,8 +81,9 @@ CHIP_HBM_FMT = "nvidia.com/gpu.chip.%d.hbm-gbps"
 CHIPS_HEALTHY = "nvidia.com/gpu.chips.healthy"
 CHIPS_SICK = "nvidia.com/gpu.chips.sick"
 STRAGGLER_CHIP = "nvidia.com/gpu.straggler-chip"
-# health.ici.allreduce-gbps publishes with the timed all-reduce probe of
-# the multi-GPU slice; this slice measures no all-reduce rate.
+# The timed NCCL all-reduce of a multi-GPU node (ops/healthcheck.py
+# ici_allreduce_probe), GiB/s per device on the ring model.
+HEALTH_ICI_GBPS = "nvidia.com/gpu.health.ici.allreduce-gbps"
 
 # A straggler must hold its deficit across this many CONSECUTIVE probes
 # before the label publishes.
@@ -477,9 +481,19 @@ def _labels_from_probe(
                 threshold,
                 sched.straggler.confirm,
             )
+        ici_gbps = report.get("ici_gbps")
         if report.get("chips_allreduce_ok") is False:
-            # Already published as health.ici.ok=false (measure_node_health).
-            log.warning("device all-reduce verdict disagreed across devices")
+            # A corrupt reduction's timing is not a bandwidth: suppress
+            # the rate label (ici.ok=false already published the fault,
+            # folded in by measure_node_health).
+            log.warning(
+                "device all-reduce verdict disagreed across devices; "
+                "suppressing %s",
+                HEALTH_ICI_GBPS,
+            )
+            ici_gbps = None
+        if ici_gbps:
+            labels[HEALTH_ICI_GBPS] = str(int(ici_gbps))
     sched.consecutive_failures = 0
     sched.cached = Labels(
         {k: v for k, v in labels.items() if k != HEALTH_PROBE_MS}

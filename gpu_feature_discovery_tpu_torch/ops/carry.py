@@ -12,6 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gpu_feature_discovery_tpu_torch.ops.healthcheck import (
+    gather_slice_params,
+    shard_slice_batch,
+    shard_slice_params,
+)
+
 
 def _tensor_from_numpy(a, device) -> torch.Tensor:
     a = np.ascontiguousarray(a)
@@ -31,3 +37,25 @@ def burnin_inputs_from_numpy(x, ws, device) -> tuple:
 def stream_buffer_from_numpy(buf, device) -> torch.Tensor:
     """A (rows, 128) f32 stream buffer as a contiguous tensor on ``device``."""
     return _tensor_from_numpy(np.asarray(buf, dtype=np.float32), device)
+
+
+def slice_params_from_numpy(params, mesh) -> dict:
+    """The twin's slice-step ``{"w1", "w2"}`` (whole arrays, e.g.
+    ``np.asarray`` of its sharded ones) as this port's per-device shards
+    over ``mesh`` (``healthcheck.shard_slice_params``)."""
+    whole = {k: _tensor_from_numpy(params[k], "cpu") for k in ("w1", "w2")}
+    return shard_slice_params(whole, mesh)
+
+
+def slice_batch_from_numpy(x, y, mesh) -> tuple:
+    """The twin's slice-step batch (whole (batch, d_model) x and y) as
+    per-device row shards over ``mesh``: ``(x_shards, y_shards)``."""
+    return shard_slice_batch(
+        _tensor_from_numpy(x, "cpu"), _tensor_from_numpy(y, "cpu"), mesh
+    )
+
+
+def slice_params_to_numpy(params, mesh) -> dict:
+    """The per-device shards gathered back into whole numpy ``w1`` and
+    ``w2``, for comparison with the twin; replicas that differ raise."""
+    return {k: v.numpy() for k, v in gather_slice_params(params, mesh).items()}

@@ -15,6 +15,7 @@ plane per device, named ``/device:CUDA:<index>``.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
@@ -57,3 +58,51 @@ class DeviceClock:
             )
         self._pending.clear()
         return out
+
+
+# The spin that holds every device's stream before a gated window opens:
+# about 1 ms at the H100's 1.98 GHz boost clock, far longer than the host
+# takes to queue a few collectives on eight devices.
+GATE_CYCLES = 2_000_000
+
+
+def gated_windows(devices, fn: Callable[[], Any], iters: int) -> Tuple[List[float], bool]:
+    """Time ``iters`` back-to-back calls of ``fn`` (a collective that
+    launches on every device of ``devices``) by a chain of CUDA events on
+    each device's current stream.
+
+    An event pair around one multi-device call would also time the host:
+    the first device's window opens while the host still queues the
+    others. So each stream first runs a spin of GATE_CYCLES, which holds
+    the windows shut until the host has queued every call. Returns
+    ``(seconds per call as the slowest device's window, whether the host
+    finished queueing inside the spin)``."""
+    devices = list(dict.fromkeys(devices))
+    streams = [torch.cuda.current_stream(d) for d in devices]
+    marks: List[List[Any]] = [[] for _ in devices]
+
+    def mark():
+        for i, (d, s) in enumerate(zip(devices, streams)):
+            with torch.cuda.device(d):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record(s)
+            marks[i].append(e)
+
+    t0 = time.perf_counter()
+    mark()
+    for d, s in zip(devices, streams):
+        with torch.cuda.device(d), torch.cuda.stream(s):
+            torch.cuda._sleep(GATE_CYCLES)
+    mark()
+    for _ in range(iters):
+        fn()
+        mark()
+    queued_s = time.perf_counter() - t0
+    for row in marks:
+        row[-1].synchronize()
+    gate_s = min(row[0].elapsed_time(row[1]) for row in marks) / 1e3
+    windows = [
+        max(row[k].elapsed_time(row[k + 1]) for row in marks) / 1e3
+        for k in range(1, iters + 1)
+    ]
+    return windows, queued_s < gate_s

@@ -1,5 +1,6 @@
-"""Device health probes: matmul burn-in, HBM probe, per-device verdicts
-(twin: ``gpu_feature_discovery_tpu/ops/healthcheck.py``).
+"""Device health probes: matmul burn-in, HBM probe, per-device verdicts,
+the collective probes and the slice train step (twin:
+``gpu_feature_discovery_tpu/ops/healthcheck.py``).
 
 The probe behind the health labeler (lm/health.py, gated by
 --with-burnin):
@@ -10,9 +11,16 @@ The probe behind the health labeler (lm/health.py, gated by
   (cuBLAS through ``torch.mm``), as the twin left them to XLA.
 - The HBM probe is the hand-written stream-sum kernel (ops/hbm.py).
 - ``sharded_chip_verdicts`` runs a capped burn-in on every local device
-  and all-reduces the healthy count with NCCL
-  (``torch.cuda.nccl.all_reduce``) — the twin's ``psum`` over the chip
-  mesh. On the CPU the count is summed on the host.
+  and all-reduces the healthy count over the chip mesh
+  (ops/collectives.py: NCCL on CUDA, the host sum on the CPU) — the
+  twin's ``psum``.
+- On a multi-GPU node, ``ici_allreduce_probe`` times an NCCL all-reduce
+  of 32 MiB per device (``ici_gbps``), and ``ici_ring_sweep`` walks every
+  ring link of the mesh with peer copies and all-reduces a checksum
+  (``ici_ok``). The twin's names are kept: the links are NVLink or PCIe
+  here, not ICI.
+- ``make_slice_train_step`` is the twin's miniature data+tensor-parallel
+  MLP step, its shards and seams written out by hand.
 
 On CUDA the rates come from CUDA events (ops/device_timing.py) at the
 2048x4 / 256 MiB geometry. The twin times one compiled XLA program, pure
@@ -20,11 +28,12 @@ device time; a pass of eager PyTorch launches about 40 kernels, and an
 event pair around them would wait on the host queueing them. So the
 timed burn-in pass is a CUDA graph, captured once per (device, size,
 depth) during the warm-up and replayed between the event pair: the
-window holds the device's work only. On the CPU (tests,
-``TFD_BURNIN_ALLOW_CPU``) the host clock times a 512x8 burn-in and there
-is no HBM probe, as the twin splits TPU and non-TPU devices. The ICI sweep, the timed all-reduce
-probe and the slice train step are not ported yet: ``ici_ok`` and
-``ici_gbps`` stay None, as on a one-chip TPU.
+window holds the device's work only. The all-reduce is timed behind a
+spin that holds every stream until the host has queued it
+(``device_timing.gated_windows``). On the CPU (tests,
+``TFD_BURNIN_ALLOW_CPU``) the host clock times a 512x8 burn-in, there is
+no HBM probe and ``ici_gbps`` stays None, as the twin splits TPU and
+non-TPU devices.
 
 Every function takes its devices explicitly; none initialises CUDA at
 import.
@@ -40,9 +49,18 @@ import statistics
 import time
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from gpu_feature_discovery_tpu_torch.ops import device_timing
+from gpu_feature_discovery_tpu_torch.ops.collectives import (
+    DataParallelGrad,
+    Mesh,
+    RowParallelSum,
+    all_reduce,
+    axis_groups,
+    ring_shift,
+)
 from gpu_feature_discovery_tpu_torch.ops.hbm import (
     HBM_KERNEL_NAME,
     LANES,
@@ -79,6 +97,16 @@ SLOW_CHIP_FACTOR = 0.02
 # geometry is capped: NaN propagates through any depth >= 1.
 VERDICT_MAX_SIZE = 128
 VERDICT_MAX_DEPTH = 2
+
+# All-reduce probe payload per device: on CUDA large enough that the ring
+# transfers dominate launch latency (the twin's real-device size);
+# elsewhere the number is no device measurement, so the buffer stays
+# small and the probe only proves the reduction sums.
+ICI_ALLREDUCE_MIB_CUDA = 32
+ICI_ALLREDUCE_MIB_DEFAULT = 1
+ICI_ALLREDUCE_ITERS = 3
+
+CHIP_MESH_AXIS = "chips"
 
 # Hermetic-testing override for the probe geometry ("<size>x<depth>",
 # e.g. "128x2"). Never set in production.
@@ -238,11 +266,12 @@ def _burnin_graph(device: torch.device, size: int, depth: int) -> tuple:
 
 def reset_probe_workspaces() -> None:
     """Drop every per-device probe cache: the captured burn-in graphs,
-    the resident burn-in inputs, the HBM stream buffers and the
-    warmed-probe memo."""
+    the resident burn-in inputs, the HBM stream buffers, the all-reduce
+    payloads and the warmed-probe memo."""
     _burnin_graphs.clear()
     stream_workspace.cache_clear()
     _burnin_workspace.cache_clear()
+    _allreduce_workspace.cache_clear()
     _warmed_probe_keys.clear()
 
 
@@ -250,8 +279,11 @@ def _warm_probe_kernels(devices: tuple, size: int, depth: int, per_chip: bool) -
     """Build the HBM kernel, capture the burn-in graph and run every probe
     once outside the timed window; returns the wall ms spent (0.0 when
     already warm). The first call of each probe pays the kernel build,
-    cuBLAS handle creation, the graph capture and the workspace fills;
-    none of that belongs in a measured rate."""
+    cuBLAS handle creation, the graph capture, the NCCL communicator's
+    set-up and the workspace fills; none of that belongs in a measured
+    rate or in ``probe-ms``. On several devices that includes the
+    all-reduce probe at its real payload (under ``per_chip``) and the
+    ring sweep's peer copies, as the probe will run them."""
     key = (devices, size, depth, per_chip)
     if key in _warmed_probe_keys:
         return 0.0
@@ -267,6 +299,10 @@ def _warm_probe_kernels(devices: tuple, size: int, depth: int, per_chip: bool) -
         sharded_chip_verdicts(
             devices, min(size, VERDICT_MAX_SIZE), min(depth, VERDICT_MAX_DEPTH)
         )
+        if len(devices) > 1:
+            ici_allreduce_probe(devices, iters=1)
+    if len(devices) > 1:
+        ici_ring_sweep(chip_mesh(devices))
     _warmed_probe_keys.add(key)
     return (time.perf_counter() - t0) * 1e3
 
@@ -296,11 +332,11 @@ def sharded_chip_verdicts(
     healthy count across them; returns ``(ok_per_chip, allreduce_ok)``.
 
     A chip in ``sick_chips`` has its input NaN-poisoned, so the ordinary
-    finite-verdict detects it. On CUDA the per-device counts are summed
-    with ``torch.cuda.nccl.all_reduce`` (also over a one-device list);
-    ``allreduce_ok`` is True when every device's reduced count equals the
-    host-side sum, so a failed or corrupt reduction shows as a
-    disagreeing count."""
+    finite-verdict detects it. The per-device counts are summed over the
+    chip mesh by ``collectives.all_reduce`` (NCCL on CUDA, also over a
+    one-device list); ``allreduce_ok`` is True when every device's
+    reduced count equals the host-side sum, so a failed or corrupt
+    reduction shows as a disagreeing count."""
     devices = tuple(devices)
     sick = {int(i) for i in sick_chips}
     oks = []
@@ -311,15 +347,285 @@ def sharded_chip_verdicts(
         oks.append((torch.isfinite(cs) & torch.isfinite(rms)).to(torch.int32).reshape(1))
     verdicts = [bool(ok.item()) for ok in oks]
     healthy = sum(verdicts)
-    if all(d.type == "cuda" for d in devices):
-        import torch.cuda.nccl as nccl
-
-        counts = [ok.clone() for ok in oks]
-        nccl.all_reduce(counts)
-        reduced = [int(c.item()) for c in counts]
-    else:
-        reduced = [sum(int(ok.item()) for ok in oks)] * len(devices)
+    reduced = [int(c.item()) for c in all_reduce(oks)]
     return verdicts, all(c == healthy for c in reduced)
+
+
+# ---------------------------------------------------------------------------
+# Collective probes over the chip mesh
+# ---------------------------------------------------------------------------
+
+def chip_mesh(devices) -> Mesh:
+    """The named single-axis mesh over this host's local devices."""
+    return Mesh(list(devices), (CHIP_MESH_AXIS,))
+
+
+@functools.lru_cache(maxsize=None)
+def _allreduce_workspace(devices: tuple, rows_per_chip: int) -> tuple:
+    """Resident all-ones (rows, 128) f32 payloads, one per device, and
+    the buffers the reduction writes (cleared by
+    reset_probe_workspaces)."""
+    ones = [torch.ones((rows_per_chip, LANES), dtype=torch.float32, device=d)
+            for d in devices]
+    return ones, [torch.empty_like(t) for t in ones]
+
+
+def ici_allreduce_probe(
+    devices, mib_per_chip: Optional[int] = None, iters: int = ICI_ALLREDUCE_ITERS
+) -> dict:
+    """Time an all-reduce over the chip mesh and report the sustained
+    bandwidth in GiB/s per device (median of ``iters``; ring cost model —
+    each device moves ``2*(n-1)/n`` of its shard per reduction, so a
+    single device reads 0.0). ``checksum_ok`` verifies that the reduction
+    summed every shard: ones in, n out, on every element of every device.
+
+    On CUDA each reduction is timed on the devices' clocks, as the
+    slowest device's window (``device_timing.gated_windows``); the first
+    reduction outside the windows pays the communicator's set-up. On the
+    CPU the host clock times the host sum, as the twin does off-TPU."""
+    devices = tuple(torch.device(d) for d in devices)
+    n = len(devices)
+    on_cuda = all(d.type == "cuda" for d in devices)
+    if mib_per_chip is None:
+        mib_per_chip = ICI_ALLREDUCE_MIB_CUDA if on_cuda else ICI_ALLREDUCE_MIB_DEFAULT
+    rows = max(1, (mib_per_chip << 20) // (LANES * 4))
+    ones, out = _allreduce_workspace(devices, rows)
+    all_reduce(ones, out=out)  # warm: the communicator, the payload
+    if on_cuda:
+        samples, gate_held = device_timing.gated_windows(
+            devices, lambda: all_reduce(ones, out=out), max(1, iters)
+        )
+        if not gate_held:
+            log.warning("all-reduce probe: the host queued past the timing gate; "
+                        "the windows may include host time")
+    else:
+        samples = []
+        for _ in range(max(1, iters)):
+            t0 = time.perf_counter()
+            all_reduce(ones, out=out)
+            samples.append(time.perf_counter() - t0)
+    sec = statistics.median(samples)
+    checksum_ok = all(bool(torch.all(o == float(n))) for o in out)
+    shard_bytes = rows * LANES * 4
+    gbps = (
+        shard_bytes * (2.0 * (n - 1) / n) / sec / 2**30 if n > 1 and sec > 0 else 0.0
+    )
+    return {
+        "gbps": gbps,
+        "seconds": sec,
+        "bytes": shard_bytes,
+        "checksum_ok": checksum_ok,
+        "devices": n,
+    }
+
+
+def ici_ring_sweep(mesh: Mesh) -> dict:
+    """Walk every ring link of every mesh axis and all-reduce a checksum.
+
+    Every device holds its row-major linear rank from its mesh
+    coordinates. Along each axis a ring shift (``collectives.ring_shift``,
+    peer copies) delivers the left neighbour's rank, which must equal
+    ``rank + (prev_idx - idx) * stride``, the stride being the axis's in
+    row-major order: a dead or misrouted link shows as a wrong value. A
+    final all-reduce over the whole mesh must give n(n-1)/2 everywhere.
+    Returns per-link and reduction pass/fail."""
+    axes = mesh.axis_names
+    sizes = mesh.devices.shape
+    n = mesh.size
+    devices = mesh.flat_devices()
+    strides = [int(np.prod(sizes[k + 1:], dtype=np.int64)) for k in range(len(axes))]
+    coords = [np.unravel_index(i, sizes) for i in range(n)]
+    ranks = [
+        torch.tensor([sum(int(c) * s for c, s in zip(coords[i], strides))],
+                     dtype=torch.int32, device=d)
+        for i, d in enumerate(devices)
+    ]
+    oks = [torch.ones(1, dtype=torch.bool, device=d) for d in devices]
+    for k, ax in enumerate(axes):
+        size = sizes[k]
+        for group in axis_groups(mesh, ax):
+            got = ring_shift([ranks[i] for i in group], [devices[i] for i in group])
+            for idx, i in enumerate(group):
+                prev_idx = size - 1 if idx == 0 else idx - 1
+                expect = ranks[i] + (prev_idx - idx) * strides[k]
+                oks[i] &= got[idx] == expect
+    totals = all_reduce(ranks)
+    expected_total = n * (n - 1) // 2
+    return {
+        "links_ok": all(bool(ok.item()) for ok in oks),
+        "allreduce_ok": all(int(t.item()) == expected_total for t in totals),
+        "devices": n,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Miniature DP+TP train step for slice acceptance
+# ---------------------------------------------------------------------------
+
+SLICE_SEED = 7
+SLICE_LR = 0.01
+
+
+def _slice_layout(mesh: Mesh) -> tuple:
+    """``(data size, model size, [(d, m) of each flat device])`` of a
+    mesh with ``data`` and ``model`` axes."""
+    if sorted(mesh.axis_names) != ["data", "model"]:
+        raise ValueError(f"the slice step needs axes data and model, got {mesh.axis_names}")
+    sizes = mesh.shape
+    di, mi = mesh.axis_names.index("data"), mesh.axis_names.index("model")
+    coords = [np.unravel_index(i, mesh.devices.shape) for i in range(mesh.size)]
+    return sizes["data"], sizes["model"], [(int(c[di]), int(c[mi])) for c in coords]
+
+
+def shard_slice_params(params: dict, mesh: Mesh) -> dict:
+    """Whole ``{"w1": (d_model, d_hidden), "w2": (d_hidden, d_model)}``
+    tensors to per-device shards in mesh order: W1 split by columns and
+    W2 by rows over ``model``, each shard replicated over ``data``."""
+    _, msize, coords = _slice_layout(mesh)
+    w1 = params["w1"].chunk(msize, dim=1)
+    w2 = params["w2"].chunk(msize, dim=0)
+    devices = mesh.flat_devices()
+    return {
+        "w1": [w1[m].contiguous().to(dev) for (_, m), dev in zip(coords, devices)],
+        "w2": [w2[m].contiguous().to(dev) for (_, m), dev in zip(coords, devices)],
+    }
+
+
+def shard_slice_batch(x: torch.Tensor, y: torch.Tensor, mesh: Mesh) -> tuple:
+    """Whole (batch, d_model) x and y to per-device shards in mesh order:
+    rows split over ``data``, replicated over ``model``."""
+    dsize, _, coords = _slice_layout(mesh)
+    devices = mesh.flat_devices()
+    xs, ys = x.chunk(dsize, dim=0), y.chunk(dsize, dim=0)
+    return (
+        [xs[d].contiguous().to(dev) for (d, _), dev in zip(coords, devices)],
+        [ys[d].contiguous().to(dev) for (d, _), dev in zip(coords, devices)],
+    )
+
+
+def gather_slice_params(params: dict, mesh: Mesh) -> dict:
+    """The inverse of ``shard_slice_params``, on the CPU. Every data-axis
+    replica of a shard must be equal to the bit; a replica that drifted
+    raises ValueError."""
+    _, msize, coords = _slice_layout(mesh)
+    whole = {}
+    for key, dim in (("w1", 1), ("w2", 0)):
+        shards = [None] * msize
+        for (_, m), t in zip(coords, params[key]):
+            t = t.detach().cpu()
+            if shards[m] is None:
+                shards[m] = t
+            elif not torch.equal(shards[m], t):
+                raise ValueError(f"{key} shard {m}: data-axis replicas differ")
+        whole[key] = torch.cat(shards, dim=dim)
+    return whole
+
+
+def _per_group(fn, tensors: list, groups: list) -> list:
+    """Apply a seam ``fn`` (one entry per device of a group) to every
+    group, keeping mesh order."""
+    out = [None] * len(tensors)
+    for group in groups:
+        for i, t in zip(group, fn.apply(*[tensors[i] for i in group])):
+            out[i] = t
+    return out
+
+
+def make_slice_train_step(
+    mesh: Mesh,
+    batch: int = 32,
+    d_model: int = 128,
+    d_hidden: int = 256,
+    params: Optional[dict] = None,
+    batch_xy: Optional[tuple] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Build the DP+TP MLP train step over ``mesh`` (axes ``data`` and
+    ``model``), the twin's Megatron split written out by hand:
+
+    - x and y rows sharded over ``data``;
+    - W1 column-sharded and W2 row-sharded over ``model``;
+    - forward ``relu(x_d @ W1_m) @ W2_m``, the partials summed over
+      ``model`` by the row-parallel seam (``RowParallelSum``);
+    - the loss the global ``mean((out - y)^2)``: each data shard's term
+      is its sum of squares over the GLOBAL element count, so the terms
+      add up to the twin's mean;
+    - backward by autograd, the weight gradients all-reduced over
+      ``data`` by ``DataParallelGrad``; SGD at lr 0.01.
+
+    Returns ``(step, (params, x, y))`` with ``step(params, x, y) ->
+    (new_params, loss)``: params ``{"w1": [...], "w2": [...]}`` and x, y
+    as per-device lists in mesh order, loss a 0-d tensor on the mesh's
+    first device. Without carried ``params`` / ``batch_xy`` they come
+    from ``generator`` (a CPU ``torch.Generator`` seeded with 7 by
+    default): standard normals, weights scaled by 1/sqrt(fan_in), drawn
+    in the twin's order w1, w2, x, y. The products are plain
+    ``torch.matmul`` in f32, with TF32 off during the step so the card's
+    f32 is the CPU's."""
+    dsize, msize, _ = _slice_layout(mesh)
+    if batch % dsize or d_hidden % msize:
+        raise ValueError(
+            f"batch {batch} / d_hidden {d_hidden} do not split over a "
+            f"{dsize}x{msize} mesh"
+        )
+    if params is None or batch_xy is None:
+        gen = generator if generator is not None else torch.Generator().manual_seed(SLICE_SEED)
+        w1 = torch.randn((d_model, d_hidden), generator=gen) / math.sqrt(d_model)
+        w2 = torch.randn((d_hidden, d_model), generator=gen) / math.sqrt(d_hidden)
+        x = torch.randn((batch, d_model), generator=gen)
+        y = torch.randn((batch, d_model), generator=gen)
+        if params is None:
+            params = shard_slice_params({"w1": w1, "w2": w2}, mesh)
+        if batch_xy is None:
+            batch_xy = shard_slice_batch(x, y, mesh)
+    data_groups = axis_groups(mesh, "data")
+    model_groups = axis_groups(mesh, "model")
+    scale = 1.0 / (batch * d_model)
+
+    def step(p: dict, xs: list, ys: list):
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            leaves = {k: [t.detach().requires_grad_() for t in p[k]] for k in ("w1", "w2")}
+            w1 = _per_group(DataParallelGrad, leaves["w1"], data_groups)
+            w2 = _per_group(DataParallelGrad, leaves["w2"], data_groups)
+            partial = [torch.matmul(torch.relu(torch.matmul(x, a)), b)
+                       for x, a, b in zip(xs, w1, w2)]
+            out = _per_group(RowParallelSum, partial, model_groups)
+            terms = [torch.sum(torch.square(o - y)) * scale for o, y in zip(out, ys)]
+            torch.autograd.backward(terms)
+            with torch.no_grad():
+                new = {k: [t - SLICE_LR * t.grad for t in leaves[k]] for k in leaves}
+                # The global loss: the data shards' terms of model rank 0.
+                loss = all_reduce([terms[i].detach().reshape(1) for i in data_groups[0]])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        return new, loss[0].reshape(())
+
+    return step, (params, batch_xy[0], batch_xy[1])
+
+
+def build_mesh(
+    n_devices: int, devices: Optional[list] = None, axis_names=("data", "model")
+) -> Mesh:
+    """Factor ``n_devices`` into a 2-D (data, model) mesh: the widest
+    model axis <= sqrt(n) that divides n, so both axes carry real
+    collectives whenever n is composite (8 -> 4x2, 4 -> 2x2, 2 -> 2x1).
+    ``devices`` defaults to every CUDA device; too few raise."""
+    if devices is None:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        devices = [torch.device("cuda", i) for i in range(count)]
+    devices = list(devices)[:n_devices]
+    if len(devices) < n_devices:
+        raise RuntimeError(f"need {n_devices} devices, have {len(devices)}")
+    model = 1
+    for cand in range(int(n_devices**0.5), 0, -1):
+        if n_devices % cand == 0:
+            model = cand
+            break
+    grid = np.empty(n_devices, dtype=object)
+    grid[:] = devices
+    return Mesh(grid.reshape(n_devices // model, model), axis_names)
 
 
 def _probe_geometry_override() -> Optional[Tuple[int, int]]:
@@ -454,6 +760,7 @@ def measure_node_health(
     size: Optional[int] = None,
     depth: Optional[int] = None,
     iters: int = 4,
+    ici: Optional[bool] = None,
     devices: Optional[list] = None,
     per_chip: bool = False,
     sick_chips=frozenset(),
@@ -465,8 +772,12 @@ def measure_node_health(
     ``devices`` defaults to every CUDA device (RuntimeError when there is
     none); pass ``[torch.device("cpu")]`` to probe on the CPU.
     ``per_chip=True`` (the daemon's default via --chip-probes) adds the
-    per-device verdict program and the ``chips_allreduce_ok`` key; the
-    ``sick_chips`` / ``slow_chips`` fault sites require it. ``size`` and
+    per-device verdict program and the ``chips_allreduce_ok`` key, and on
+    a multi-GPU CUDA node the timed all-reduce (``ici_gbps``); the
+    ``sick_chips`` / ``slow_chips`` fault sites require it. ``ici`` (auto:
+    multi-GPU CUDA nodes; True with one device raises ValueError) rings
+    the devices with peer copies to check every link (``ici_ok``). A
+    failed all-reduce check forces ``ici_ok`` False. ``size`` and
     ``depth`` default by platform (2048x4 on CUDA, 512x8 on the CPU)
     unless BURNIN_GEOMETRY_ENV overrides them.
 
@@ -490,6 +801,11 @@ def measure_node_health(
         size = CUDA_PROBE_SIZE if on_cuda else DEFAULT_PROBE_SIZE
     if depth is None:
         depth = CUDA_PROBE_DEPTH if on_cuda else DEFAULT_PROBE_DEPTH
+    if ici is None:
+        ici = on_cuda and len(devices) > 1
+    elif ici and len(devices) < 2:
+        # An explicit request must fail loudly: one device has no ring.
+        raise ValueError("ici sweep requested but only one local device")
     if on_cuda:
         report = _measure_node_health_traced(
             devices, size=size, depth=depth, iters=iters, per_chip=per_chip
@@ -536,11 +852,29 @@ def measure_node_health(
         rates = [e["tflops"] for e in table if e.get("tflops") is not None]
         if rates:
             report["tflops"] = min(rates)
+        # The timed all-reduce rides the same chip mesh, on multi-GPU
+        # CUDA nodes only: elsewhere its number is no device measurement
+        # and the verdicts' reduction already proved the collective sums.
         report["ici_gbps"] = None
+        if on_cuda and len(devices) > 1:
+            t2 = time.perf_counter()
+            allr = ici_allreduce_probe(devices)
+            report["phases"]["ici_allreduce_ms"] = round(
+                (time.perf_counter() - t2) * 1e3, 3
+            )
+            allreduce_ok = allreduce_ok and allr["checksum_ok"]
+            if allr["checksum_ok"]:
+                report["ici_gbps"] = allr["gbps"]
         report["chips_allreduce_ok"] = allreduce_ok
-        if not allreduce_ok:
-            # A corrupt reduction is a collective fault: publish it.
-            report["ici_ok"] = False
+    if ici:
+        t1 = time.perf_counter()
+        sweep = ici_ring_sweep(chip_mesh(devices))
+        report["ici_ok"] = sweep["links_ok"] and sweep["allreduce_ok"]
+        report["phases"]["ici_ms"] = round((time.perf_counter() - t1) * 1e3, 3)
+    if report.get("chips_allreduce_ok") is False:
+        # A corrupt reduction is a collective fault: fold it into the
+        # published verdict even when the sweep passed or did not run.
+        report["ici_ok"] = False
     report["phases"]["total_ms"] = round((time.perf_counter() - t_total) * 1e3, 3)
     report["phases"]["hbm_stream_sum_launches"] = (
         hbm_stream_sum.launches - launches_before

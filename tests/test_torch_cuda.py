@@ -199,3 +199,43 @@ def test_cuda_manager_takes_nvmls_gpus_on_card(dev):
     assert cuda.get_driver_version() == native.get_driver_version()
     assert cuda.get_runtime_version() == native.get_runtime_version()
     assert cuda.get_chips()[0].get_generation() == torch.cuda.get_device_capability(0)
+
+
+def test_slice_train_step_on_card_matches_cpu(dev):
+    """The DP+TP step on a 1x1 mesh on the card against the same step on
+    the CPU, at carried weights; f32 with TF32 off on both sides."""
+    import numpy as np
+
+    from gpu_feature_discovery_tpu_torch.ops import carry
+
+    rng = np.random.default_rng(0)
+    weights = {
+        "w1": (rng.standard_normal((128, 256)) / np.sqrt(128)).astype(np.float32),
+        "w2": (rng.standard_normal((256, 128)) / np.sqrt(256)).astype(np.float32),
+    }
+    x = rng.standard_normal((32, 128)).astype(np.float32)
+    y = rng.standard_normal((32, 128)).astype(np.float32)
+    results = []
+    for device in (dev, torch.device("cpu")):
+        mesh = healthcheck.build_mesh(1, [device])
+        params = carry.slice_params_from_numpy(weights, mesh)
+        xs, ys = carry.slice_batch_from_numpy(x, y, mesh)
+        step, _ = healthcheck.make_slice_train_step(mesh, params=params, batch_xy=(xs, ys))
+        new, loss = step(params, xs, ys)
+        assert loss.device == device
+        results.append((carry.slice_params_to_numpy(new, mesh), float(loss)))
+    (card, card_loss), (cpu, cpu_loss) = results
+    # rtol 1e-5, atol 1e-6: only the order of the f32 sums differs.
+    assert card_loss == pytest.approx(cpu_loss, rel=1e-5, abs=1e-6)
+    for key in ("w1", "w2"):
+        np.testing.assert_allclose(card[key], cpu[key], rtol=1e-5, atol=1e-6)
+
+
+def test_allreduce_probe_and_sweep_on_card(dev):
+    report = healthcheck.ici_allreduce_probe([dev], mib_per_chip=32, iters=3)
+    assert report["checksum_ok"] is True and report["bytes"] == 32 << 20
+    assert report["gbps"] == 0.0 and report["seconds"] > 0  # one rank
+    sweep = healthcheck.ici_ring_sweep(healthcheck.chip_mesh([dev]))
+    assert sweep == {"links_ok": True, "allreduce_ok": True, "devices": 1}
+    with pytest.raises(ValueError, match="only one local device"):
+        healthcheck.measure_node_health(devices=[dev], per_chip=True, ici=True)
