@@ -11,14 +11,18 @@ Phases, each printing one JSON line:
                   the card's name and power limit from nvidia-smi.
 2. ``build``    — compile every kernel from the repo's sources with nvcc.
 3. ``kernels``  — each hand-written kernel against its plain PyTorch
-                  version on the card, at the main path's shapes, timed
-                  with CUDA events beside its bound and a library call.
+                  version on the card, at the main path's shapes, with
+                  its slip twins, bitwise determinism and kernels per
+                  call; timed with CUDA events in turns with a library
+                  call, beside its bound and ptxas's report.
 4. ``collectives``— the multi-GPU probes on every card: the timed NCCL
                   all-reduce (32 MiB per card) with its communicator's
-                  first use apart, the ring sweeps over the chip mesh and
-                  the (data, model) mesh, peer copies per ring edge, the
-                  DP+TP train step against the same step on the CPU, the
-                  dry run, and the node probe's ``ici_*`` keys.
+                  first use apart and its timing gate's spins (device ms
+                  beside the host's queueing ms), the ring sweeps over
+                  the chip mesh and the (data, model) mesh, peer copies
+                  per ring edge, the DP+TP train step against the same
+                  step on the CPU, the dry run, and the node probe's
+                  ``ici_*`` keys.
 5. ``main_path``— one oneshot ``--with-burnin`` label cycle through the
                   CLI entry point; checks the label file (host facts
                   included, and the ``health.ici.*`` labels on several
@@ -118,21 +122,81 @@ def phase_device() -> dict:
     return info
 
 
-def phase_build() -> None:
+def phase_build() -> list:
+    """The port's one kernel source, built with nvcc (a later source gets
+    its own nvcc, all started together); returns ptxas's lines."""
     from gpu_feature_discovery_tpu_torch.ops import hbm
 
     t0 = time.perf_counter()
-    lib_path, log = hbm.build_kernel()
+    path, log = hbm.build_kernel()
+    ptxas = [line for line in log.splitlines() if "ptxas" in line]
     emit(
         "build",
         seconds=time.perf_counter() - t0,
-        libraries=[os.path.relpath(lib_path, REPO)],
-        ptxas=[line for line in log.splitlines() if "ptxas" in line],
+        libraries=[os.path.relpath(path, REPO)],
+        ptxas=ptxas,
     )
+    return ptxas
 
 
-def phase_kernels() -> dict:
-    """hbm_stream_sum at the probe's 256 MiB geometry."""
+def in_turns(fns: dict, rounds: int = 3) -> dict:
+    """Median device ms per call of each of ``fns`` over ``TIMED_LAUNCHES``
+    windows, taken in turns (a, b, b, a, ...) so that clocks and
+    neighbours shift every one alike; the samples beside the medians."""
+    import statistics
+
+    import torch
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    samples = {name: [] for name in fns}
+    order = list(fns)
+    for _ in range(rounds):
+        for name in order + order[::-1]:
+            samples[name].append(cuda_ms(fns[name], warmup=0))
+    return {"median_ms": {n: statistics.median(v) for n, v in samples.items()},
+            "samples_ms": samples}
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host microseconds to queue one call (no wait for the device
+    between calls): above the call's device time, back-to-back windows
+    time the host."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host_s / calls * 1e6
+
+
+def _kernel_launches_in(fn) -> dict:
+    """Device kernels that one call of ``fn`` ran, by name, from
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA and not \
+                event.name.startswith(("Memcpy", "Memset", "cudaEvent")):
+            kernels[event.name] = kernels.get(event.name, 0) + 1
+    return kernels
+
+
+def phase_kernels(ptxas: list) -> dict:
+    """hbm_stream_sum at the probe's 256 MiB geometry: exact on the chunk
+    pattern and on the tile pattern, every slip twin caught, bitwise
+    deterministic, within rel 1e-6 of the plain version on a random
+    buffer, one kernel per call; timed in turns with f32 torch.sum."""
     import torch
 
     from gpu_feature_discovery_tpu_torch.ops import hbm
@@ -149,11 +213,15 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rnd = torch.rand((rows, hbm.LANES), generator=gen, device=dev)
-    got_r = hbm.hbm_stream_sum(rnd).item()
+    got_r = hbm.hbm_stream_sum(rnd)
+    again_r = hbm.hbm_stream_sum(rnd)
+    bitwise = bool(torch.equal(got_r.view(torch.int32), again_r.view(torch.int32)))
+    check(bitwise, f"two launches on one buffer differ: {got_r.item()} {again_r.item()}")
+    got_r = got_r.item()
     plain_r = hbm.hbm_stream_sum_reference(rnd).item()
     rel_r = abs(got_r - plain_r) / abs(plain_r)
-    # Tolerance rel 1e-6: the kernel sums each thread's slice in f32, the
-    # plain version everything in f64.
+    # Tolerance rel 1e-6: the kernel sums each thread's share of a tile in
+    # f32, the plain version everything in f64.
     check(rel_r <= 1e-6, f"random buffer: kernel {got_r} vs plain {plain_r}")
 
     # Slot-misread twins: chunk 0 holding chunk 4's data (a slip of the
@@ -169,17 +237,44 @@ def phase_kernels() -> dict:
     check(doubled_sum != expected, "doubled-chunk twin not detected")
     del aliased, doubled
 
-    ms = cuda_ms(lambda: hbm.hbm_stream_sum(pattern))
-    plain_ms = cuda_ms(lambda: hbm.hbm_stream_sum_reference(pattern))
-    library_ms = cuda_ms(lambda: torch.sum(pattern, dtype=torch.float64))
+    # The same at tile granularity, which the chunk pattern cannot see: tile
+    # 0 holding tile 4's data (a slip of this kernel's 4-stage ring inside
+    # one chunk), and tile 1 a copy of tile 0.
+    tile = hbm.TILE_ROWS
+    tiles = hbm.tile_pattern(rows, dev)
+    tile_expected = hbm.expected_tile_pattern_sum(rows)
+    tile_sum = hbm.hbm_stream_sum(tiles).item()
+    check(tile_sum == tile_expected,
+          f"kernel {tile_sum} != expected {tile_expected} on the tile pattern")
+    slipped = tiles.clone()
+    slipped[:tile] = tiles[4 * tile:5 * tile]
+    doubled = tiles.clone()
+    doubled[tile:2 * tile] = tiles[:tile]
+    tile_slip_sum = hbm.hbm_stream_sum(slipped).item()
+    doubled_tile_sum = hbm.hbm_stream_sum(doubled).item()
+    check(tile_slip_sum != tile_expected, "tile-slip twin not detected")
+    check(doubled_tile_sum != tile_expected, "doubled-tile twin not detected")
+    del tiles, slipped, doubled, rnd
+
+    launched = _kernel_launches_in(lambda: hbm.hbm_stream_sum(pattern))
+    check(sum(launched.values()) == 1, f"one call ran {launched}, want one kernel")
+
     # The same call in f32, the TPU kernel's accumulator type.
     library_f32_sum = torch.sum(pattern).item()
     check(library_f32_sum == expected,
           f"torch.sum in f32 {library_f32_sum} != expected {expected}")
-    library_f32_ms = cuda_ms(lambda: torch.sum(pattern))
+    turns = in_turns({"kernel": lambda: hbm.hbm_stream_sum(pattern),
+                      "library_f32": lambda: torch.sum(pattern)})
+    host_us = {"kernel": host_us_per_call(lambda: hbm.hbm_stream_sum(pattern)),
+               "library_f32": host_us_per_call(lambda: torch.sum(pattern))}
+    ms = turns["median_ms"]["kernel"]
+    library_f32_ms = turns["median_ms"]["library_f32"]
+    plain_ms = cuda_ms(lambda: hbm.hbm_stream_sum_reference(pattern))
+    library_ms = cuda_ms(lambda: torch.sum(pattern, dtype=torch.float64))
     nbytes = pattern.numel() * pattern.element_size() + 4  # read once, write (1,1) f32
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = pattern.numel() / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
     entry = {
         "name": "hbm_stream_sum",
         "route": "cuda",
@@ -188,7 +283,7 @@ def phase_kernels() -> dict:
         "max_abs_err": max(abs(got - plain), abs(got_r - plain_r)),
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
     }
@@ -200,10 +295,21 @@ def phase_kernels() -> dict:
             "pattern_sum": got,
             "expected_sum": expected,
             "random_rel_err": rel_r,
+            "random_bitwise_equal": bitwise,
             "aliased_slot_sum": aliased_sum,
             "doubled_chunk_sum": doubled_sum,
+            "tile_pattern_sum": tile_sum,
+            "tile_expected_sum": tile_expected,
+            "tile_slip_sum": tile_slip_sum,
+            "doubled_tile_sum": doubled_tile_sum,
+            "kernels_per_call": launched,
             "library_f32_ms": library_f32_ms,
             "library_f32_sum": library_f32_sum,
+            "in_turns": turns,
+            "host_us_per_call": host_us,
+            "pct_of_bound": 100 * bound_ms / ms,
+            "library_f32_pct_of_bound": 100 * bound_ms / library_f32_ms,
+            "ptxas": ptxas,
             "comparison_launches": hbm.hbm_stream_sum.launches,
             "gib_per_s": nbytes / (ms / 1e3) / 2**30,
         }],
@@ -255,20 +361,32 @@ def phase_collectives(count: int) -> None:
         torch.cuda.synchronize(d)
     out["nccl_second_use_ms"] = (time.perf_counter() - t0) * 1e3
 
+    # The timing gate: the first spin on these devices runs
+    # GATE_FIRST_CYCLES and calibrates; the probe's (3 calls) and every
+    # later one (5 calls) are sized from the host's queueing time per call
+    # that the last one measured.
+    payload = 32 << 20
+    ones = [torch.ones(payload // 4, device=d) for d in devices]
+    dst = [torch.empty_like(t) for t in ones]
+    collectives.all_reduce(ones, out=dst)  # first use on these buffers, untimed
+    gates = [device_timing.gated_windows(
+        devices, lambda: collectives.all_reduce(ones, out=dst), 5)]
     probe = healthcheck.ici_allreduce_probe(devices, mib_per_chip=32)
     check(probe["checksum_ok"], f"all-reduce checksum failed: {probe}")
-    check(probe["bytes"] == 32 << 20, f"all-reduce payload {probe['bytes']}")
+    check(probe["bytes"] == payload, f"all-reduce payload {probe['bytes']}")
     check(probe["gbps"] == 0.0 if count == 1 else probe["gbps"] > 0,
           f"all-reduce gbps {probe['gbps']} at n={count}")
-    ones = [torch.ones(probe["bytes"] // 4, device=d) for d in devices]
-    dst = [torch.empty_like(t) for t in ones]
-    windows, gate_held = device_timing.gated_windows(
-        devices, lambda: collectives.all_reduce(ones, out=dst), 5)
-    check(gate_held, "the host queued the all-reduces past the timing gate")
+    for _ in range(4):
+        gates.append(device_timing.gated_windows(
+            devices, lambda: collectives.all_reduce(ones, out=dst), 5))
+    out["gates"] = [{"gate_ms": g.gate_s * 1e3, "queued_ms": g.queued_s * 1e3,
+                     "held": g.held} for g in gates]
+    check(all(g.held for g in gates),
+          f"the host queued the all-reduces past the timing gate: {out['gates']}")
     # One rank copies its payload out of place: read once, written once.
     out["allreduce"] = {
         **probe, "device_ms": probe["seconds"] * 1e3,
-        "gated_windows_ms": [w * 1e3 for w in windows],
+        "gated_windows_ms": [w * 1e3 for w in gates[-1].windows],
         "back_to_back_ms": cuda_ms(lambda: collectives.all_reduce(ones, out=dst)),
         "one_rank_bound_ms": 2 * probe["bytes"] / HBM_BYTES_PER_S * 1e3,
     }
@@ -1220,8 +1338,8 @@ def main() -> int:
               "this script; run it from the repo root", file=sys.stderr)
         return 2
     info = phase_device()
-    phase_build()
-    entries = {"hbm_stream_sum": phase_kernels()}
+    ptxas = phase_build()
+    entries = {"hbm_stream_sum": phase_kernels(ptxas)}
     phase_collectives(info["count"])
     phase_main_path(entries, info["count"])
     facts = phase_host_facts(info["count"])

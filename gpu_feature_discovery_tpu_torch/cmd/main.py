@@ -16,7 +16,9 @@ At its defaults it acquires the backend through the persistent broker
 worker (sandbox/broker.py), which holds the CUDA devices and runs the
 burn-in; this process never initialises CUDA then. Each epoch
 pre-spawns the worker, watches it for an uncommanded death, and closes
-it at the end.
+it at the end. Each epoch also exports the resolved
+``--compilation-cache-dir`` (ops/kernel_cache.py) to the worker it
+spawns.
 
 The host-interconnect labeler (a sysfs PCI scan, lm/interconnect.py) is
 built once per epoch here, as the twin builds it; its ``TFD_MOCK_PCI``
@@ -60,6 +62,7 @@ from gpu_feature_discovery_tpu_torch.config.flags import (
     FLAG_DEFS,
     env_flag,
     new_config,
+    resolve_compilation_cache_dir,
 )
 from gpu_feature_discovery_tpu_torch.config.spec import Config, ConfigError
 from gpu_feature_discovery_tpu_torch.lm.engine import STALE_SOURCES_LABEL, new_label_engine
@@ -72,6 +75,7 @@ from gpu_feature_discovery_tpu_torch.lm.labelers import (
 )
 from gpu_feature_discovery_tpu_torch.lm.labels import remove_output_file
 from gpu_feature_discovery_tpu_torch.lm.timestamp import new_timestamp_labeler
+from gpu_feature_discovery_tpu_torch.ops import kernel_cache
 from gpu_feature_discovery_tpu_torch.pci.pciutil import MockNvidiaPCI, SysfsNvidiaPCI
 from gpu_feature_discovery_tpu_torch.resource import factory
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
@@ -276,6 +280,10 @@ def run(
     ``interconnect`` defaults to the epoch's own PCI labeler
     (``new_interconnect_labeler``)."""
     tfd = config.flags.tfd
+    # The kernel cache (--compilation-cache-dir), resolved per config
+    # epoch and exported through the environment, so the broker worker
+    # and this process build into and load from one directory.
+    kernel_cache.configure_kernel_cache(resolve_compilation_cache_dir(config))
     if interconnect is None:
         interconnect = new_interconnect_labeler(config)
     output_file = tfd.output_file

@@ -62,6 +62,9 @@ DEFAULT_BROKER_MAX_REQUESTS = 0
 # The twin reads its YAML config file from --config-file or these; this
 # port refuses both until the config-file slice (cmd/main.py).
 CONFIG_FILE_ENV_VARS = ("TFD_CONFIG_FILE", "CONFIG_FILE")
+# Kernel-build cache (ops/kernel_cache.py): 'auto' follows --state-dir.
+DEFAULT_COMPILATION_CACHE_DIR = "auto"
+KERNEL_CACHE_SUBDIR = "kernel-cache"
 # Straggler detection (lm/health.py): a healthy device whose throughput
 # falls below this fraction of the healthy-device median on two
 # consecutive probes is published as gpu.straggler-chip.
@@ -249,6 +252,16 @@ FLAG_DEFS: List[FlagDef] = [
     FlagDef("timings-file", ("TFD_TIMINGS_FILE",), str, "",
             "path to write a JSON per-labeler timing summary after every "
             "labeling cycle (empty = disabled)", "timings_file"),
+    FlagDef("compilation-cache-dir", ("TFD_COMPILATION_CACHE_DIR",), str,
+            DEFAULT_COMPILATION_CACHE_DIR,
+            "directory of the built CUDA kernel libraries, keyed by target "
+            "and a digest of source and nvcc flags: a library found there "
+            "loads without nvcc (an image without the CUDA toolkit copies "
+            "its prebuilt libraries there), a missing one is built there at "
+            "first use; 'auto' (default) resolves to "
+            f"<state-dir>/{KERNEL_CACHE_SUBDIR} when --state-dir is set; "
+            "unresolved or empty, libraries go to build/torch_kernels/ at "
+            "the repo root", "compilation_cache_dir"),
     FlagDef("state-dir", ("TFD_STATE_DIR",), str, "",
             "directory where the last successful cycle's labels are "
             "persisted; a restart re-serves them with "
@@ -326,3 +339,18 @@ def new_config(
                 f"(want one of {modes})"
             )
     return config
+
+
+def resolve_compilation_cache_dir(config: Config) -> str:
+    """The kernel cache directory for this config: '' = unresolved (the
+    default build directory, ops/kernel_cache.py), else a path. 'auto'
+    (the default) follows ``--state-dir``, as the twin's
+    ``<state-dir>/xla-cache`` does: the cache wants the durability the
+    label state already has."""
+    raw = (config.flags.tfd.compilation_cache_dir or "").strip()
+    if raw != DEFAULT_COMPILATION_CACHE_DIR:
+        return raw
+    state_dir = (config.flags.tfd.state_dir or "").strip()
+    if not state_dir:
+        return ""
+    return os.path.join(state_dir, KERNEL_CACHE_SUBDIR)

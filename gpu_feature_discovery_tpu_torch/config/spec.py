@@ -123,6 +123,8 @@ class TfdFlags:
     init_backoff_max: Optional[float] = None  # seconds
     max_consecutive_failures: Optional[int] = None
     state_dir: Optional[str] = None
+    # Kernel-build cache (ops/kernel_cache.py): 'auto' | '' | a path.
+    compilation_cache_dir: Optional[str] = None
     flap_window: Optional[int] = None
     heartbeat_file: Optional[str] = None
     # Label engine (lm/engine.py) and per-cycle timings.

@@ -360,6 +360,13 @@ def _chip_probe_opts(config: Config) -> tuple:
     return bool(chip), float(threshold)
 
 
+def _mig_enabled(manager) -> bool:
+    """Whether any GPU of the inventory is in MIG mode."""
+    return manager is not None and any(
+        chip.is_slice_enabled() for chip in manager.get_chips()
+    )
+
+
 def _rate_plausible(value, host_clock: bool, peak: float) -> bool:
     """Host-clock rates below 1 are dispatch distortion; rates above the
     spec peak x margin are timing artifacts."""
@@ -454,33 +461,47 @@ def _labels_from_probe(
     chip_probes, threshold = _chip_probe_opts(config)
     table = report.get("per_chip") or []
     if chip_probes and table:
-        healthy_n = sum(1 for e in table if e.get("healthy"))
-        labels[CHIPS_HEALTHY] = str(healthy_n)
-        labels[CHIPS_SICK] = str(len(table) - healthy_n)
-        for i, e in enumerate(table):
-            labels[CHIP_OK_FMT % i] = "true" if e.get("healthy") else "false"
-            chip_tflops = e.get("tflops")
-            if chip_tflops is not None and _rate_plausible(
-                chip_tflops, host_clock, peak_tf
-            ):
-                labels[CHIP_TFLOPS_FMT % i] = str(int(chip_tflops))
-            chip_hbm = e.get("hbm_gbps")
-            if chip_hbm is not None and _rate_plausible(
-                chip_hbm, host_clock, peak_hbm
-            ):
-                labels[CHIP_HBM_FMT % i] = str(int(chip_hbm))
-        if sched.straggler is None or sched.straggler.threshold != threshold:
-            sched.straggler = StragglerDetector(threshold)
-        confirmed = sched.straggler.observe(table)
-        if confirmed is not None:
-            labels[STRAGGLER_CHIP] = str(confirmed)
-            log.warning(
-                "straggler chip %d: throughput below %.2fx the median "
-                "for %d consecutive probes",
-                confirmed,
-                threshold,
-                sched.straggler.confirm,
+        if _mig_enabled(manager):
+            # The probe ran on the devices CUDA lists: under MIG the GPUs
+            # outside MIG plus one MIG device, not the inventory's GPUs,
+            # so a per-device label would contradict gpu.count.
+            warn_once(
+                log,
+                "health:mig-per-device",
+                "MIG is enabled on this node: the probe measures the %d "
+                "device(s) CUDA lists, not the node's GPUs; publishing no "
+                "per-device health labels",
+                len(table),
             )
+            sched.straggler = None
+        else:
+            healthy_n = sum(1 for e in table if e.get("healthy"))
+            labels[CHIPS_HEALTHY] = str(healthy_n)
+            labels[CHIPS_SICK] = str(len(table) - healthy_n)
+            for i, e in enumerate(table):
+                labels[CHIP_OK_FMT % i] = "true" if e.get("healthy") else "false"
+                chip_tflops = e.get("tflops")
+                if chip_tflops is not None and _rate_plausible(
+                    chip_tflops, host_clock, peak_tf
+                ):
+                    labels[CHIP_TFLOPS_FMT % i] = str(int(chip_tflops))
+                chip_hbm = e.get("hbm_gbps")
+                if chip_hbm is not None and _rate_plausible(
+                    chip_hbm, host_clock, peak_hbm
+                ):
+                    labels[CHIP_HBM_FMT % i] = str(int(chip_hbm))
+            if sched.straggler is None or sched.straggler.threshold != threshold:
+                sched.straggler = StragglerDetector(threshold)
+            confirmed = sched.straggler.observe(table)
+            if confirmed is not None:
+                labels[STRAGGLER_CHIP] = str(confirmed)
+                log.warning(
+                    "straggler chip %d: throughput below %.2fx the median "
+                    "for %d consecutive probes",
+                    confirmed,
+                    threshold,
+                    sched.straggler.confirm,
+                )
         ici_gbps = report.get("ici_gbps")
         if report.get("chips_allreduce_ok") is False:
             # A corrupt reduction's timing is not a bandwidth: suppress

@@ -16,7 +16,7 @@ plane per device, named ``/device:CUDA:<index>``.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -60,24 +60,85 @@ class DeviceClock:
         return out
 
 
-# The spin that holds every device's stream before a gated window opens:
-# about 1 ms at the H100's 1.98 GHz boost clock, far longer than the host
-# takes to queue a few collectives on eight devices.
-GATE_CYCLES = 2_000_000
+# The spin that holds every device's stream before a gated window opens
+# is sized from what the last gate measured: three times the host's
+# queueing time per timed call, times the calls to come (the host's
+# queueing per call varies by up to 2x between gates), so a spin the
+# host outran is at least doubled. It is never shorter than GATE_MIN_S,
+# and never longer than the first spin, GATE_FIRST_CYCLES: that spin,
+# the fixed one of old, calibrates the device's cycles per second, about
+# 1-2 ms at the H100's 1-2 GHz SM clock. Where the host needs longer to
+# queue (many devices), the windows open early and the gate reports it
+# (``Gate.held``) rather than spend more device time than the fixed spin.
+GATE_FIRST_CYCLES = 2_000_000
+GATE_QUEUE_MULTIPLE = 3.0
+GATE_MIN_S = 100e-6
 
 
-def gated_windows(devices, fn: Callable[[], Any], iters: int) -> Tuple[List[float], bool]:
+class Gate(NamedTuple):
+    """One gated timing: the per-call windows (seconds, slowest device),
+    whether the host finished queueing inside the spin, the spin's own
+    device time and the host's queueing time (seconds)."""
+
+    windows: List[float]
+    held: bool
+    gate_s: float
+    queued_s: float
+
+
+def next_gate_s(queued_s: float, max_s: float) -> float:
+    """The next spin's length from the host's last queueing time:
+    GATE_QUEUE_MULTIPLE times it, within [GATE_MIN_S, max_s]. A spin the
+    host outran (queued_s >= its length) is so at least doubled, up to
+    ``max_s``."""
+    return min(max_s, max(GATE_MIN_S, GATE_QUEUE_MULTIPLE * queued_s))
+
+
+class GateSize:
+    """The spin of one device set: its cycles per second as the last spin
+    measured them, and the host's last queueing time per timed call, from
+    which the next spin is sized for its own number of calls."""
+
+    def __init__(self):
+        self.cycles_per_s: Optional[float] = None
+        self.queued_per_call_s: Optional[float] = None
+
+    def cycles(self, iters: int) -> int:
+        """Cycles of the next spin, ahead of ``iters`` timed calls:
+        GATE_FIRST_CYCLES until calibrated, and never more."""
+        if self.cycles_per_s is None or self.queued_per_call_s is None:
+            return GATE_FIRST_CYCLES
+        gate_s = next_gate_s(self.queued_per_call_s * iters,
+                             GATE_FIRST_CYCLES / self.cycles_per_s)
+        return max(1, min(GATE_FIRST_CYCLES, round(gate_s * self.cycles_per_s)))
+
+    def record(self, cycles: int, gate_s: float, queued_s: float, iters: int) -> None:
+        """Calibrate from a spin of ``cycles`` that lasted ``gate_s`` on
+        the device, ahead of ``iters`` calls the host queued in
+        ``queued_s``."""
+        if gate_s > 0:
+            self.cycles_per_s = cycles / gate_s
+        self.queued_per_call_s = queued_s / max(1, iters)
+
+
+# One GateSize per device set; healthcheck.reset_probe_workspaces clears it.
+gate_sizes: Dict[tuple, GateSize] = {}
+
+
+def gated_windows(devices, fn: Callable[[], Any], iters: int) -> Gate:
     """Time ``iters`` back-to-back calls of ``fn`` (a collective that
     launches on every device of ``devices``) by a chain of CUDA events on
     each device's current stream.
 
     An event pair around one multi-device call would also time the host:
     the first device's window opens while the host still queues the
-    others. So each stream first runs a spin of GATE_CYCLES, which holds
-    the windows shut until the host has queued every call. Returns
-    ``(seconds per call as the slowest device's window, whether the host
-    finished queueing inside the spin)``."""
+    others. So each stream first spins, which holds the windows shut
+    until the host has queued every call; the spin is sized by
+    ``next_gate_s`` from the last gate on the same devices
+    (``GateSize``)."""
     devices = list(dict.fromkeys(devices))
+    size = gate_sizes.setdefault(tuple(devices), GateSize())
+    cycles = size.cycles(iters)
     streams = [torch.cuda.current_stream(d) for d in devices]
     marks: List[List[Any]] = [[] for _ in devices]
 
@@ -92,7 +153,7 @@ def gated_windows(devices, fn: Callable[[], Any], iters: int) -> Tuple[List[floa
     mark()
     for d, s in zip(devices, streams):
         with torch.cuda.device(d), torch.cuda.stream(s):
-            torch.cuda._sleep(GATE_CYCLES)
+            torch.cuda._sleep(cycles)
     mark()
     for _ in range(iters):
         fn()
@@ -105,4 +166,5 @@ def gated_windows(devices, fn: Callable[[], Any], iters: int) -> Tuple[List[floa
         max(row[k].elapsed_time(row[k + 1]) for row in marks) / 1e3
         for k in range(1, iters + 1)
     ]
-    return windows, queued_s < gate_s
+    size.record(cycles, gate_s, queued_s, iters)
+    return Gate(windows, queued_s < gate_s, gate_s, queued_s)

@@ -9,10 +9,13 @@ even while matmuls still produce finite numbers. The probe sums a
 be elided, and the buffer's per-chunk pattern makes the sum an exact
 checksum.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` into
-``build/torch_kernels/`` (under the repo's ``build/``, which
-``.gitignore`` lists) at first use, and loaded with ``ctypes``. Nothing
-is built or loaded at import.
+The kernel is one launch on a persistent grid: a TMA ring per block over
+its contiguous range of 32 KiB tiles (``tile_ranges``), and the last block
+to finish adds the blocks' partials. It is compiled with ``nvcc`` for
+``sm_90a`` at first use into the kernel cache (``kernel_cache.py``:
+``--compilation-cache-dir``, by default ``build/torch_kernels/`` at the
+repo root, which ``.gitignore`` lists) and loaded with ``ctypes``.
+Nothing is built or loaded at import.
 
 ``hbm_stream_sum`` on a CPU tensor computes the plain version,
 ``hbm_stream_sum_reference``; on a CUDA tensor it launches the kernel or
@@ -23,11 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
 import statistics
-import subprocess
 import threading
 import time
 from pathlib import Path
@@ -35,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from gpu_feature_discovery_tpu_torch.ops import kernel_cache
 from gpu_feature_discovery_tpu_torch.ops.device_timing import DeviceClock, plane_name
 
 LANES = 128        # the buffer is always 128 floats wide
@@ -48,57 +48,31 @@ CHUNK_ROWS = 512   # (512, 128) f32 = 256 KiB per chunk
 # m <= 7*num_chunks (7,168 at 256 MiB), far below the f32 mantissa bound.
 _PATTERN_PERIOD = 7
 
+# One TMA copy of the kernel moves one tile: (64, 128) f32 = 32 KiB, so a
+# chunk holds eight and no tile straddles two chunks.
+TILE_ROWS = 64
+TILES_PER_CHUNK = CHUNK_ROWS // TILE_ROWS
+TILE_BYTES = TILE_ROWS * LANES * 4
+# Blocks per SM of the persistent grid: one block's 128 KiB ring leaves no
+# room for a second.
+BLOCKS_PER_SM = 1
+
 # Name under which the device clock (device_timing.py) files the probe.
 HBM_KERNEL_NAME = "hbm_probe"
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "hbm_stream_sum.cu"
-# build/ at the repo root; .gitignore lists it.
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: need the CUDA toolkit to build "
-                           f"{_CSRC.name}")
-    return found
-
-
 def build_kernel() -> Tuple[Path, str]:
-    """Compile the kernel into the build directory unless this exact
-    source and flag set is already built there. Returns the library path
-    and nvcc's diagnostics (ptxas register/shared-memory report; "" when
-    nothing was built). Raises RuntimeError when nvcc fails."""
-    digest = hashlib.sha256(
-        _CSRC.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"libhbm_stream_sum-{digest}.so"
-    if lib_path.exists():
-        return lib_path, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC)],
-        capture_output=True,
-        text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {_CSRC}:\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)  # atomic against a concurrent builder
-    return lib_path, proc.stderr
+    """The kernel's library, built with nvcc unless this exact source and
+    flag set is already in the kernel cache (ops/kernel_cache.py). Returns
+    the library path and nvcc's diagnostics (ptxas register/shared-memory
+    report; "" when nothing was built). Raises KernelBuildError when the
+    build cannot run or fails."""
+    return kernel_cache.build_library(_CSRC)
 
 
 def _kernel_library() -> ctypes.CDLL:
@@ -108,20 +82,76 @@ def _kernel_library() -> ctypes.CDLL:
         if _lib is None:
             lib_path, _ = build_kernel()
             lib = ctypes.CDLL(str(lib_path))
+            lib.hbm_stream_sum_stage_bytes.restype = ctypes.c_int
+            if lib.hbm_stream_sum_stage_bytes() != TILE_BYTES:
+                raise RuntimeError(
+                    f"{lib_path.name} copies {lib.hbm_stream_sum_stage_bytes()} B "
+                    f"tiles, the wrapper partitions {TILE_BYTES} B ones"
+                )
             fn = lib.hbm_stream_sum_launch
             # Every pointer and the stream as c_void_p: an int would cut a
             # 64-bit address to 32 bits.
             fn.argtypes = [
                 ctypes.c_void_p,   # buf
-                ctypes.c_longlong, # num_chunks
-                ctypes.c_void_p,   # partials
+                ctypes.c_longlong, # tiles_base
+                ctypes.c_int,      # tiles_extra
                 ctypes.c_int,      # num_blocks
+                ctypes.c_void_p,   # partials
+                ctypes.c_void_p,   # counter
                 ctypes.c_void_p,   # out
                 ctypes.c_void_p,   # cudaStream_t
             ]
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def grid_blocks(num_tiles: int, sms: int) -> int:
+    """The persistent grid: BLOCKS_PER_SM blocks per SM, never more
+    blocks than tiles."""
+    return max(1, min(num_tiles, BLOCKS_PER_SM * sms))
+
+
+def tile_ranges(num_tiles: int, num_blocks: int) -> list:
+    """Block b's contiguous tiles, as ``range``s: ``base`` tiles each and
+    one more for the first ``extra`` blocks, ``(base, extra) =
+    divmod(num_tiles, num_blocks)``, so loads differ by at most one tile.
+    The kernel computes the same ranges from ``base`` and ``extra``."""
+    base, extra = divmod(num_tiles, num_blocks)
+    ranges, first = [], 0
+    for b in range(num_blocks):
+        count = base + (1 if b < extra else 0)
+        ranges.append(range(first, first + count))
+        first += count
+    return ranges
+
+
+@functools.lru_cache(maxsize=None)
+def _grid(device: torch.device, num_tiles: int) -> Tuple[int, int, int]:
+    """(blocks, base, extra) of the kernel's launch over ``num_tiles`` on
+    ``device``: the persistent grid and its tile_ranges partition."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = grid_blocks(num_tiles, sms)
+    return (blocks, *divmod(num_tiles, blocks))
+
+
+@functools.lru_cache(maxsize=16)
+def launch_scratch(device: torch.device, stream: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's scratch for one (device, stream handle): a partial per
+    block and the ticket counter, zeroed once here, taken by every block
+    of a launch and set back to 0 by its last block. Launches that share
+    them are ordered by their stream, so no two overlap: a handle names
+    one CUDA stream at a time, and torch's pooled streams that share a
+    handle are that one stream. The cache keeps the last 16 (the probe
+    uses one stream per device): an evicted entry's memory returns to
+    the caching allocator, which hands it out again only on the stream
+    it was made on (the current one here), behind any launch in flight.
+    healthcheck.reset_probe_workspaces drops them all."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return (
+        torch.empty(BLOCKS_PER_SM * sms, dtype=torch.float64, device=device),
+        torch.zeros(1, dtype=torch.int32, device=device),
+    )
 
 
 def hbm_stream_sum_reference(buf: torch.Tensor) -> torch.Tensor:
@@ -132,8 +162,8 @@ def hbm_stream_sum_reference(buf: torch.Tensor) -> torch.Tensor:
 def hbm_stream_sum(buf: torch.Tensor) -> torch.Tensor:
     """Sum ``buf`` ((k*CHUNK_ROWS, LANES) contiguous f32, k >= 1) into a
     (1, 1) f32 tensor on the buffer's device. A CUDA buffer runs the
-    kernel (and counts one launch in ``hbm_stream_sum.launches``); a CPU
-    buffer runs the plain version."""
+    kernel in one launch (and counts it in ``hbm_stream_sum.launches``); a
+    CPU buffer runs the plain version."""
     if (
         buf.ndim != 2
         or buf.shape[1] != LANES
@@ -152,21 +182,23 @@ def hbm_stream_sum(buf: torch.Tensor) -> torch.Tensor:
     if buf.device.type != "cuda":
         raise ValueError(f"buffer must be on a CUDA device or the CPU, not {buf.device}")
     if buf.data_ptr() % 16:
-        raise ValueError("buffer must be 16-byte aligned (float4 loads)")
+        raise ValueError("buffer must be 16-byte aligned (TMA bulk copies)")
     lib = _kernel_library()
-    num_chunks = buf.shape[0] // CHUNK_ROWS
-    with torch.cuda.device(buf.device):
-        sms = torch.cuda.get_device_properties(buf.device).multi_processor_count
-        num_blocks = min(num_chunks, 4 * sms)
-        partials = torch.empty(num_blocks, dtype=torch.float64, device=buf.device)
-        out = torch.empty((1, 1), dtype=torch.float32, device=buf.device)
+    device = buf.device
+    blocks, base, extra = _grid(device, buf.shape[0] // TILE_ROWS)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        partials, counter = launch_scratch(device, stream)
+        out = torch.empty((1, 1), dtype=torch.float32, device=device)
         rc = lib.hbm_stream_sum_launch(
             buf.data_ptr(),
-            num_chunks,
+            base,
+            extra,
+            blocks,
             partials.data_ptr(),
-            num_blocks,
+            counter.data_ptr(),
             out.data_ptr(),
-            torch.cuda.current_stream(buf.device).cuda_stream,
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"hbm_stream_sum kernel launch failed: cudaError {rc}")
@@ -195,6 +227,31 @@ def expected_stream_sum(rows: int) -> float:
     )
 
 
+# Tile-granular check pattern: every element of tile t holds
+# ``1 + t % _TILE_PATTERN_PERIOD``. The probe's pattern changes only per
+# chunk, so a ring slip between two tiles of one chunk leaves its sum
+# unchanged; this one catches it. Sums stay exact: a tile sums to
+# k*2^13 with k <= 13, and the total m*2^13 has m <= 13*num_tiles
+# (106,496 at 256 MiB), far below the f32 mantissa bound.
+_TILE_PATTERN_PERIOD = 13
+
+
+def tile_pattern(rows: int, device="cpu") -> torch.Tensor:
+    """The (rows, LANES) buffer whose value changes every TILE_ROWS rows:
+    tile index mod _TILE_PATTERN_PERIOD, plus one."""
+    tile = torch.arange(rows, dtype=torch.int64, device=device) // TILE_ROWS
+    column = (1 + tile % _TILE_PATTERN_PERIOD).to(torch.float32)
+    return column.reshape(rows, 1).expand(rows, LANES).contiguous()
+
+
+def expected_tile_pattern_sum(rows: int) -> float:
+    """Exact f32 sum of tile_pattern(rows), in integer math on the host."""
+    return float(
+        sum(1 + t % _TILE_PATTERN_PERIOD for t in range(rows // TILE_ROWS))
+        * TILE_ROWS * LANES
+    )
+
+
 @functools.lru_cache(maxsize=None)
 def stream_workspace(device: torch.device, rows: int) -> torch.Tensor:
     """Per-device probe buffer, built on the device once per process and
@@ -216,7 +273,7 @@ def measure_hbm_bandwidth(
     sustained read bandwidth in GiB/s (median of ``iters``).
 
     ``device`` defaults to the current CUDA device, timed by CUDA events
-    around both kernel launches (device_timing.py); a CPU device runs the
+    around each call, one kernel launch (device_timing.py); a CPU device runs the
     plain version on the host clock, where ``gbps`` is not a hardware
     measurement (``interpreted`` is then True, as in the twin's
     interpret mode)."""

@@ -66,6 +66,7 @@ from gpu_feature_discovery_tpu_torch.ops.hbm import (
     LANES,
     expected_stream_sum,
     hbm_stream_sum,
+    launch_scratch,
     probe_rows,
     stream_workspace,
 )
@@ -266,13 +267,16 @@ def _burnin_graph(device: torch.device, size: int, depth: int) -> tuple:
 
 def reset_probe_workspaces() -> None:
     """Drop every per-device probe cache: the captured burn-in graphs,
-    the resident burn-in inputs, the HBM stream buffers, the all-reduce
-    payloads and the warmed-probe memo."""
+    the resident burn-in inputs, the HBM stream buffers and the stream
+    kernel's scratch, the all-reduce payloads, the timing gate's sizes
+    and the warmed-probe memo."""
     _burnin_graphs.clear()
     stream_workspace.cache_clear()
+    launch_scratch.cache_clear()
     _burnin_workspace.cache_clear()
     _allreduce_workspace.cache_clear()
     _warmed_probe_keys.clear()
+    device_timing.gate_sizes.clear()
 
 
 def _warm_probe_kernels(devices: tuple, size: int, depth: int, per_chip: bool) -> float:
@@ -392,12 +396,14 @@ def ici_allreduce_probe(
     ones, out = _allreduce_workspace(devices, rows)
     all_reduce(ones, out=out)  # warm: the communicator, the payload
     if on_cuda:
-        samples, gate_held = device_timing.gated_windows(
+        gate = device_timing.gated_windows(
             devices, lambda: all_reduce(ones, out=out), max(1, iters)
         )
-        if not gate_held:
-            log.warning("all-reduce probe: the host queued past the timing gate; "
-                        "the windows may include host time")
+        samples = gate.windows
+        if not gate.held:
+            log.warning("all-reduce probe: the host queued past the timing gate "
+                        "(%.3f ms queued, %.3f ms gate); the windows may include "
+                        "host time", gate.queued_s * 1e3, gate.gate_s * 1e3)
     else:
         samples = []
         for _ in range(max(1, iters)):

@@ -39,6 +39,61 @@ def test_kernel_matches_plain_version(dev, chunks):
     assert got == pytest.approx(want, rel=1e-6)
 
 
+@pytest.mark.parametrize("chunks", [1, 9, 1024])
+def test_kernel_is_exact_on_the_tile_pattern_and_catches_every_slip(dev, chunks):
+    """The chunk pattern's slot twins and the tile pattern's: a slip of
+    the 4-stage ring between two tiles of one chunk leaves the chunk
+    pattern's sum unchanged, so only the tile pattern can catch it."""
+    rows = chunks * hbm.CHUNK_ROWS
+    chunk, tile = hbm.CHUNK_ROWS, hbm.TILE_ROWS
+    for make, want in ((hbm.stream_pattern, hbm.expected_stream_sum(rows)),
+                       (hbm.tile_pattern, hbm.expected_tile_pattern_sum(rows))):
+        buf = make(rows, dev)
+        assert float(hbm.hbm_stream_sum(buf)[0, 0]) == want
+    tiles = hbm.tile_pattern(rows, dev)
+    want = hbm.expected_tile_pattern_sum(rows)
+    slipped = tiles.clone()
+    slipped[:tile] = tiles[4 * tile:5 * tile]
+    doubled = tiles.clone()
+    doubled[tile:2 * tile] = tiles[:tile]
+    for bad in (slipped, doubled):
+        assert float(hbm.hbm_stream_sum(bad)[0, 0]) != want
+    if chunks > 4:
+        pattern = hbm.stream_pattern(rows, dev)
+        aliased = pattern.clone()
+        aliased[:chunk] = pattern[4 * chunk:5 * chunk]
+        assert float(hbm.hbm_stream_sum(aliased)[0, 0]) != hbm.expected_stream_sum(rows)
+
+
+def test_kernel_is_bitwise_deterministic(dev):
+    rows = hbm.probe_rows(256)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rnd = torch.rand((rows, hbm.LANES), generator=gen, device=dev)
+    first = hbm.hbm_stream_sum(rnd)
+    for _ in range(3):
+        assert torch.equal(hbm.hbm_stream_sum(rnd).view(torch.int32),
+                           first.view(torch.int32))
+
+
+def test_kernel_leaves_its_ticket_counter_at_zero_per_stream(dev):
+    """One counter per (device, stream), back at 0 after every launch; a
+    launch on a side stream takes its own."""
+    rows = 9 * hbm.CHUNK_ROWS
+    buf = hbm.stream_pattern(rows, dev)
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        got_side = hbm.hbm_stream_sum(buf)
+    got_main = hbm.hbm_stream_sum(buf)
+    torch.cuda.synchronize(dev)
+    assert float(got_side[0, 0]) == float(got_main[0, 0]) == hbm.expected_stream_sum(rows)
+    counters = [hbm.launch_scratch(dev, s.cuda_stream)[1] for s in (main, side)]
+    assert counters[0].data_ptr() != counters[1].data_ptr()
+    assert [int(c.item()) for c in counters] == [0, 0]
+
+
 def test_kernel_raises_instead_of_falling_back(dev):
     flat = torch.ones(hbm.CHUNK_ROWS * hbm.LANES + 1, device=dev)
     misaligned = flat[1:].view(hbm.CHUNK_ROWS, hbm.LANES)

@@ -103,3 +103,47 @@ def test_measure_hbm_bandwidth_on_cpu_runs_plain_version():
     assert report["checksum_ok"] is True
     assert report["bytes"] == twin_report["bytes"]
 
+
+
+@pytest.mark.parametrize("chunks, sms", [(1, 132), (3, 7), (9, 16), (1024, 132), (1024, 1)])
+def test_tile_partition_covers_every_tile_once_inside_one_chunk(chunks, sms):
+    """The kernel's persistent grid (ops/csrc/hbm_stream_sum.cu computes
+    the same ranges): contiguous ranges, balanced to within one tile,
+    every tile once, and no tile across a chunk boundary."""
+    assert hbm.CHUNK_ROWS % hbm.TILE_ROWS == 0
+    assert hbm.TILE_BYTES * hbm.TILES_PER_CHUNK == hbm.CHUNK_ROWS * hbm.LANES * 4
+    num_tiles = chunks * hbm.CHUNK_ROWS // hbm.TILE_ROWS
+    blocks = hbm.grid_blocks(num_tiles, sms)
+    assert blocks == min(num_tiles, hbm.BLOCKS_PER_SM * sms)
+    ranges = hbm.tile_ranges(num_tiles, blocks)
+    assert len(ranges) == blocks
+    assert [t for r in ranges for t in r] == list(range(num_tiles))
+    sizes = [len(r) for r in ranges]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    for t in range(num_tiles):
+        first, last = t * hbm.TILE_ROWS, (t + 1) * hbm.TILE_ROWS - 1
+        assert first // hbm.CHUNK_ROWS == last // hbm.CHUNK_ROWS
+
+
+@pytest.mark.parametrize("chunks", [1, 4, 9])
+def test_tile_pattern_sum_is_exact_and_catches_tile_slips(chunks):
+    """The card checks' tile-granular pattern: the plain version sums it
+    exactly, and a tile slip inside one chunk (tile 0 read from the slot
+    four tiles on, a 4-deep ring's slip) or a tile read twice changes the
+    sum, where the chunk pattern cannot see either."""
+    rows = chunks * hbm.CHUNK_ROWS
+    tile = hbm.TILE_ROWS
+    buf = hbm.tile_pattern(rows)
+    want = hbm.expected_tile_pattern_sum(rows)
+    assert float(hbm.hbm_stream_sum(buf)[0, 0]) == want
+    assert float(buf.double().sum()) == want
+    slipped = buf.clone()
+    slipped[:tile] = buf[4 * tile:5 * tile]
+    doubled = buf.clone()
+    doubled[tile:2 * tile] = buf[:tile]
+    for bad in (slipped, doubled):
+        assert float(hbm.hbm_stream_sum(bad)[0, 0]) != want
+    chunk_pattern = hbm.stream_pattern(rows)
+    chunk_slipped = chunk_pattern.clone()
+    chunk_slipped[:tile] = chunk_pattern[4 * tile:5 * tile]
+    assert float(hbm.hbm_stream_sum(chunk_slipped)[0, 0]) == hbm.expected_stream_sum(rows)

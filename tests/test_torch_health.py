@@ -176,10 +176,11 @@ class _StubProbe:
 
 
 class _Node:
-    """A one-device manager stand-in (the schedule registry keys on it)."""
+    """A one-device manager stand-in (the schedule registry keys on it);
+    its device is a full GPU outside MIG."""
 
     def get_chips(self):
-        return [object()]
+        return [CudaChip("dev0", 16384)]
 
 
 def _schedule_run(mod, conf, monkeypatch, script, oneshot=False):

@@ -8,6 +8,7 @@ against the twin's version grammar; the NVML path must never import
 torch."""
 
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -35,6 +36,8 @@ from gpu_feature_discovery_tpu_torch.resource.testing import (
     fake_nvml,
 )
 from gpu_feature_discovery_tpu_torch.resource.types import ResourceError
+from gpu_feature_discovery_tpu_torch.sandbox.broker import BrokerManager
+from gpu_feature_discovery_tpu_torch.sandbox.snapshot import DeviceSnapshot
 from gpu_feature_discovery_tpu_torch.utils import logging as tfd_logging
 
 REPO = Path(__file__).parent.parent
@@ -337,3 +340,97 @@ def test_nvml_path_never_imports_torch():
         proc = subprocess.run([sys.executable, "-c", code, f"{tmp}/tfd"], cwd=REPO,
                               capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# Health labels under MIG: the probe measures the devices CUDA lists, the
+# inventory counts NVML's GPUs. No per-device health label may contradict
+# gpu.count, on the in-process path and through the broker.
+# ---------------------------------------------------------------------------
+
+PER_DEVICE_HEALTH = re.compile(r"nvidia\.com/gpu\.(chip\.\d+\.|chips\.|straggler-chip$)")
+
+
+def _cuda_listed_devices():
+    """A CPU device standing in for each device CUDA lists (the
+    TFD_BURNIN_ALLOW_CPU way); the probe runs on them at the
+    TFD_BURNIN_GEOMETRY the test sets."""
+    import torch
+
+    return [torch.device("cpu")] * torch.cuda.device_count()
+
+
+class _FakeBrokerClient:
+    """A broker client whose worker holds ``manager``: snapshots of it,
+    and health requests answered by the probe on CUDA's devices."""
+
+    def __init__(self, manager):
+        self._manager = manager
+
+    def snapshot(self):
+        return DeviceSnapshot.from_manager(self._manager)
+
+    def health(self, per_chip=True, sick_chips=(), slow_chips=()):
+        from gpu_feature_discovery_tpu_torch.ops.healthcheck import measure_node_health
+
+        report = measure_node_health(devices=_cuda_listed_devices(), per_chip=per_chip)
+        return {"status": "ok", "report": report, "probe_ms": 1.0}
+
+    def kill_child(self):
+        pass
+
+
+def _health_cycle(manager, oneshot, monkeypatch):
+    from gpu_feature_discovery_tpu_torch.lm import health
+
+    monkeypatch.setattr(health, "_acquire_devices", _cuda_listed_devices)
+    monkeypatch.setenv("TFD_BURNIN_GEOMETRY", "64x1")
+    health.reset_burnin_schedule()
+    tfd_logging.reset_warn_once()
+    config = new_config(cli_values={"with-burnin": "true", "oneshot": oneshot,
+                                    "machine-type-file": ""}, environ={})
+    try:
+        return dict(LabelEngine(parallel=False).generate(
+            new_label_sources(manager, config)))
+    finally:
+        health.reset_burnin_schedule()
+        tfd_logging.reset_warn_once()
+
+
+@pytest.mark.parametrize("path", ["in-process", "broker"])
+@pytest.mark.parametrize("layout", ["mixed", "half", "none"])
+def test_health_labels_never_contradict_gpu_count_under_mig(
+        layout, path, fake_torch_cuda, monkeypatch, caplog):
+    """``mixed``: CUDA lists one MIG device of two GPUs; ``half``: the GPU
+    outside MIG plus a MIG device of the other. Under MIG the per-device
+    labels are left out with a warning and the node's health labels stay;
+    with MIG off (``none``) every GPU has its chip.<i> labels."""
+    fake = fake_nvml(layout)
+    listed = fake_torch_cuda(fake)
+    cuda = CudaManager(nvml_lib=fake)
+    cuda.init()
+    manager = cuda if path == "in-process" else BrokerManager(_FakeBrokerClient(cuda))
+    with caplog.at_level("WARNING", logger="tfd.lm"):
+        labels = _health_cycle(manager, oneshot=path == "in-process",
+                               monkeypatch=monkeypatch)
+    count = int(labels["nvidia.com/gpu.count"])
+    assert count == len(fake.gpus)
+    assert labels["nvidia.com/gpu.health.ok"] == "true"
+    assert labels["nvidia.com/gpu.health.timing"] == "wall-clock"
+    per_device = sorted(k for k in labels if PER_DEVICE_HEALTH.match(k))
+    warned = [r.getMessage() for r in caplog.records if "MIG is enabled" in r.message]
+    if layout == "none":
+        assert len(listed) == count
+        assert int(labels["nvidia.com/gpu.chips.healthy"]) + int(
+            labels["nvidia.com/gpu.chips.sick"]) == count
+        assert per_device == sorted(
+            ["nvidia.com/gpu.chips.healthy", "nvidia.com/gpu.chips.sick"]
+            + [f"nvidia.com/gpu.chip.{i}.ok" for i in range(count)])
+        assert not warned
+    else:
+        assert not per_device, (
+            f"{len(listed)} device(s) probed, gpu.count {count}: {per_device}")
+        assert warned == [
+            f"MIG is enabled on this node: the probe measures the {len(listed)} "
+            "device(s) CUDA lists, not the node's GPUs; publishing no per-device "
+            "health labels"]
