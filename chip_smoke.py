@@ -38,30 +38,46 @@ Phases, each printing one JSON line:
 7. ``daemon``   — the supervised daemon loop with the probe in process
                   (``--probe-broker off``): ``cmd.main.run`` on a worker
                   thread with ``--burnin-interval 2 --sleep-interval 1s``
-                  (one ``daemon_cycle`` line per cycle), SIGHUP and
-                  SIGTERM through its signal queue; then the real CLI as
-                  a subprocess at its defaults, so through the broker
-                  worker, with real signals (``daemon_cli``).
+                  (one ``daemon_cycle`` line per cycle), its /metrics
+                  scraped (``tfd_broker_up`` 0, ``tfd_chip_*`` from the
+                  in-process probe), SIGHUP and SIGTERM through its signal
+                  queue; then the real CLI as a subprocess at its
+                  defaults, so through the broker worker, with real
+                  signals (``daemon_cli``), its introspection server
+                  scraped over HTTP (promtool_lite, the broker, chip,
+                  first-use, kernel-cache and restart-to-labels series
+                  against the labels and the log, /healthz, /readyz, an
+                  authenticated ``POST /probe`` wake, the same port after
+                  SIGHUP, a refused port after SIGTERM).
 8. ``broker``   — ``cmd.main.run`` at the default isolation and broker
                   settings: the burn-in and the HBM kernel run in the
                   broker worker process (one ``broker_cycle`` line per
                   cycle, launches read from the reports it ships); the
                   first write carries the host facts; a ``broker.hang``
                   and a ``broker.crash`` fault shot are killed and
-                  respawned to fresh health labels.
+                  respawned to fresh health labels, and the registry
+                  counts one kill and two respawns.
 
-Then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and as
-the last line ``{"ok": true, "device": {...}}``. Any failed check raises
-and the script exits non-zero without the last line.
+Then a ``metrics`` line (the cost of a scrape, the exposition's size,
+restart-to-labels, first use, the broker's request histogram and the
+daemon's steady cycle times), a ``{"kernels": [...]}`` summary line, the
+nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
+Any failed check raises and the script exits non-zero without the last
+line.
 """
 
 from __future__ import annotations
 
+import http.client
 import json
 import logging
+import math
 import os
 import re
+import secrets
 import signal
+import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -800,6 +816,56 @@ class _CycleCapture(logging.Handler):
                 self._on_cycle()
 
 
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _http(port: int, method: str, path: str, headers=None):
+    """One request to 127.0.0.1:port: (status, body)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request(method, path, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+_SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)$")
+
+
+def _samples(body: str) -> dict:
+    """{(name, labels): value} of one exposition, ``labels`` as rendered."""
+    out = {}
+    for line in body.splitlines():
+        m = _SAMPLE.match(line)
+        if m and not line.startswith("#"):
+            out[(m.group(1), m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def _validate_exposition(body: str) -> dict:
+    """The repo's promtool grammar check (tests/promtool_lite.py)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    try:
+        from promtool_lite import validate_exposition
+    finally:
+        sys.path.pop(0)
+    return validate_exposition(body)
+
+
+def _scrape(port: int) -> dict:
+    """GET /metrics: it must answer 200 and pass promtool_lite."""
+    code, body = _http(port, "GET", "/metrics")
+    check(code == 200, f"/metrics answered {code}")
+    _validate_exposition(body)
+    return _samples(body)
+
+
 def _read_labels(path: str) -> dict:
     try:
         with open(path) as f:
@@ -838,7 +904,7 @@ def _has_health(labels: dict) -> bool:
 
 def phase_daemon(entries: dict, count: int) -> dict:
     """(a) ``run()`` in process, (b) the CLI as a subprocess; returns the
-    CLI's first-cycle stages."""
+    CLI's figures with the in-process daemon's steady cycle times."""
     import queue
 
     import torch
@@ -847,8 +913,14 @@ def phase_daemon(entries: dict, count: int) -> dict:
     from gpu_feature_discovery_tpu_torch.cmd.supervisor import Supervisor
     from gpu_feature_discovery_tpu_torch.config.flags import new_config
     from gpu_feature_discovery_tpu_torch.lm import health
+    from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
     from gpu_feature_discovery_tpu_torch.ops import hbm, healthcheck
     from gpu_feature_discovery_tpu_torch.resource import factory
+
+    # The oneshot cycle of main_path recorded into the same registry: from
+    # here on, what it holds is this daemon's.
+    obs_metrics.REGISTRY.reset_values()
+    metrics_port = _free_port()
 
     # The daemon's first probe pays its first use (warm-up, graph
     # capture) again, as in a fresh process; CUDA, cuBLAS and NCCL stay
@@ -869,7 +941,8 @@ def phase_daemon(entries: dict, count: int) -> dict:
         config = new_config(
             cli_values={"with-burnin": "true", "backends": "gpu",
                         "burnin-interval": "2", "sleep-interval": "1s",
-                        "probe-broker": "off", "output-file": out},
+                        "probe-broker": "off", "output-file": out,
+                        "metrics-addr": "127.0.0.1", "metrics-port": str(metrics_port)},
             environ=dict(os.environ),
         )
         sigs = queue.SimpleQueue()
@@ -918,6 +991,20 @@ def phase_daemon(entries: dict, count: int) -> dict:
         torch.cuda.synchronize()
         memory = {"reserved": torch.cuda.memory_reserved(),
                   "allocated": torch.cuda.memory_allocated()}
+        # The probe ran in this process: no broker worker, and the chip
+        # series are this probe's, as its labels are.
+        scraped = _scrape(metrics_port)
+        labels = _read_labels(out)
+        check(scraped[("tfd_broker_up", "")] == 0, "tfd_broker_up with the broker off")
+        for i in range(count):
+            ok = scraped.get(("tfd_chip_ok", f'{{chip="{i}"}}'))
+            want = 1.0 if labels.get(f"nvidia.com/gpu.chip.{i}.ok") == "true" else 0.0
+            check(ok == want, f"tfd_chip_ok{{chip={i}}} {ok}, label says {want}")
+            tflops = scraped.get(("tfd_chip_tflops", f'{{chip="{i}"}}'))
+            check(tflops is not None and math.isfinite(tflops) and tflops > 0,
+                  f"tfd_chip_tflops{{chip={i}}} {tflops}")
+        check(scraped[("tfd_first_probe_compile_seconds", "")] > 0,
+              "in-process first probe's compile not recorded")
         sigs.put(signal.SIGHUP)
         worker.join(10)
         check(not worker.is_alive() and result.get("restart") is True,
@@ -975,8 +1062,16 @@ def phase_daemon(entries: dict, count: int) -> dict:
     entries["hbm_stream_sum"]["daemon_launches_per_probing_cycle"] = per_probe
     emit("daemon", first_write_s=first_write_s, probing_cycles=len(probing),
          cached_cycles=len(cached), launches=daemon_launches,
-         launches_per_probing_cycle=per_probe, memory_bytes=memory)
-    return phase_daemon_cli(count)
+         launches_per_probing_cycle=per_probe, memory_bytes=memory,
+         chip_ok=[scraped[("tfd_chip_ok", f'{{chip="{i}"}}')] for i in range(count)],
+         first_probe_compile_s=scraped[("tfd_first_probe_compile_seconds", "")])
+    cli = phase_daemon_cli(count)
+    # Steady cycles: the probing ones after the first (which pays first
+    # use) and the cached ones.
+    cli["daemon_steady_probing_wall_ms"] = [c["wall_ms"] for c in probing[1:]]
+    cli["daemon_cached_wall_ms"] = [c["wall_ms"] for c in cycles
+                                    if c["mode"] == "cached-health"]
+    return cli
 
 
 def _first_cycle_stages(log_path: str):
@@ -1041,14 +1136,48 @@ def _device_used_mib() -> int:
     ).stdout.split()[0])
 
 
+def _chip_series_agree(port: int, out: str) -> dict:
+    """tfd_chip_ok{chip="0"} against health.ok and chip.0.ok, and the raw
+    tfd_chip_tflops{chip="0"} against the chip.0.tflops label (its floor)
+    when the label is published. A probe lands between the label file and
+    the scrape now and then, so the three are read until the file reads the
+    same before and after the scrape; returns that scrape."""
+    for _ in range(20):
+        before = _read_labels(out)
+        scraped = _scrape(port)
+        if _read_labels(out) == before:
+            break
+        time.sleep(0.1)
+    else:
+        raise SystemExit("chip_smoke: check failed: the label file never held "
+                         "still across a scrape")
+    ok = scraped.get(("tfd_chip_ok", '{chip="0"}'))
+    want = 1.0 if before.get("nvidia.com/gpu.chip.0.ok") == "true" else 0.0
+    check(ok == want and (ok == 1.0) == (before.get("nvidia.com/gpu.health.ok") == "true"),
+          f"tfd_chip_ok{{chip=0}} {ok} against chip.0.ok "
+          f"{before.get('nvidia.com/gpu.chip.0.ok')!r} and health.ok "
+          f"{before.get('nvidia.com/gpu.health.ok')!r}")
+    tflops = scraped.get(("tfd_chip_tflops", '{chip="0"}'))
+    check(tflops is not None and math.isfinite(tflops) and tflops > 0,
+          f"tfd_chip_tflops{{chip=0}} {tflops}")
+    label = before.get("nvidia.com/gpu.chip.0.tflops")
+    check(label is None or int(label) == int(tflops),
+          f"tfd_chip_tflops{{chip=0}} {tflops} against the label {label!r}")
+    return scraped
+
+
 def phase_daemon_cli(count: int) -> dict:
     """The CLI in its own process at its defaults, with real signals: it
     acquires through the broker worker, which holds the card and runs the
     burn-in, while the CLI process maps no libcuda.so. The first cycle's
-    health request waits no longer than ``HEALTH_WAIT_S``."""
+    health request waits no longer than ``HEALTH_WAIT_S``. Its
+    introspection server is scraped over HTTP on a free port of
+    127.0.0.1, and ``POST /probe`` is authenticated by a fresh token."""
     from gpu_feature_discovery_tpu_torch.sandbox import broker
 
     build_dir = os.path.join(REPO, "build")
+    port = _free_port()
+    token = secrets.token_hex(16)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         out = os.path.join(tmp, "tfd")
         log_path = os.path.join(tmp, "log")
@@ -1059,7 +1188,9 @@ def phase_daemon_cli(count: int) -> dict:
         with open(log_path, "w") as log:
             proc = subprocess.Popen(
                 [sys.executable, "-m", "gpu_feature_discovery_tpu_torch",
-                 "--with-burnin", "--sleep-interval", "1s", "--output-file", out],
+                 "--with-burnin", "--sleep-interval", "1s", "--output-file", out,
+                 "--metrics-addr", "127.0.0.1", "--metrics-port", str(port),
+                 "--probe-token", token],
                 cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
             )
         workers = []
@@ -1082,6 +1213,60 @@ def phase_daemon_cli(count: int) -> dict:
             check(_maps_libcuda(workers[0]), "the broker worker maps no libcuda.so")
             check(_maps_libcuda(workers[0], "libnvidia-ml.so"),
                   "the broker worker did not load NVML")
+
+            # The scrape, once health labels are on disk.
+            scraped = _chip_series_agree(port, out)
+            cycles = sum(v for (n, _), v in scraped.items() if n == "tfd_cycles_total")
+            check(scraped[("tfd_broker_up", "")] == 1, "tfd_broker_up under the broker")
+            check(scraped[("tfd_broker_requests_total", "")] >= cycles,
+                  f"{scraped[('tfd_broker_requests_total', '')]} broker requests "
+                  f"in {cycles} cycles")
+            first_use_s = scraped[("tfd_first_probe_compile_seconds", "")]
+            check(first_use_s > 0, "tfd_first_probe_compile_seconds is 0")
+            check(scraped[("tfd_compile_cache_enabled", "")] == 1,
+                  "tfd_compile_cache_enabled is 0")
+            restart_s = scraped[("tfd_restart_to_labels_seconds", "")]
+            check(first_cycle["gpu.acquire"] / 1e3 <= restart_s <= first_write_s + 1.0,
+                  f"tfd_restart_to_labels_seconds {restart_s} outside "
+                  f"[gpu.acquire {first_cycle['gpu.acquire'] / 1e3}, "
+                  f"first write {first_write_s} + 1]")
+            for path in ("/healthz", "/readyz"):
+                code, body = _http(port, "GET", path)
+                check(code == 200, f"{path} answered {code}: {body}")
+            # The cycle that first published health labels posted a
+            # health_delta; a wake counts its first event's reason, so the
+            # probe is posted once that wake has passed: two cycles on.
+            full = ("tfd_cycles_total", '{outcome="full"}')
+            settled = _wait_for(lambda: (lambda s: s if s[full] >= scraped[full] + 2
+                                         else None)(_scrape(port)),
+                                10.0, "two cycles after the health labels")
+            wake = ("tfd_reconcile_wakes_total", '{reason="probe_request"}')
+            wakes = settled.get(wake, 0.0)
+            code, _ = _http(port, "POST", "/probe")
+            check(code == 401, f"POST /probe without the token answered {code}")
+            code, _ = _http(port, "POST", "/probe", {"X-TFD-Probe-Token": token})
+            check(code == 202, f"POST /probe with the token answered {code}")
+            woke = _wait_for(lambda: (lambda s: s if s.get(wake, 0.0) == wakes + 1
+                                      else None)(_scrape(port)),
+                             10.0, "a probe_request wake")
+            _wait_for(lambda: _scrape(port)[full] > woke[full], 10.0,
+                      "a full cycle after the probe_request wake")
+            # The cost of a scrape, against the live CLI.
+            scrape_ms = []
+            for _ in range(20):
+                t = time.perf_counter()
+                code, body = _http(port, "GET", "/metrics")
+                scrape_ms.append((time.perf_counter() - t) * 1e3)
+                check(code == 200, f"/metrics answered {code}")
+            exposition = {
+                "bytes": len(body.encode()),
+                "families": len(_validate_exposition(body)),
+                "series": len(_samples(body)),
+            }
+            final = _samples(body)
+            check(not _maps_libcuda(proc.pid), "serving metrics mapped libcuda.so")
+            check(not _maps_libcuda(proc.pid, "libnvidia-ml.so"),
+                  "serving metrics loaded NVML")
             memory = {**_host_memory({"parent": proc.pid, "worker": workers[0]}),
                       "device_used_mib_before": used_before,
                       "device_used_mib_with_worker": _device_used_mib()}
@@ -1099,12 +1284,31 @@ def phase_daemon_cli(count: int) -> dict:
             workers += [w for w in _children(proc.pid) if w not in workers]
             check(len(workers) == 2, f"workers {workers}: SIGHUP must respawn one")
             check(not _maps_libcuda(proc.pid), "the CLI process maps libcuda.so")
+            # The same port, the new epoch's server. A commanded close
+            # retires the epoch's broker client; the new epoch's first
+            # spawn is its client's first, so no respawn is counted (the
+            # twin's rule).
+            with open(log_path) as f:
+                listening = f.read().count(f"Introspection server listening on 127.0.0.1:{port}")
+            check(listening == 2, f"{listening} introspection binds, want one per epoch")
+            reloaded = _chip_series_agree(port, out)
+            check(reloaded[("tfd_broker_up", "")] == 1, "tfd_broker_up after SIGHUP")
+            check(reloaded[("tfd_broker_respawns_total", "")] == 0,
+                  f"{reloaded[('tfd_broker_respawns_total', '')]} respawns counted "
+                  "for a commanded close")
             t_term = time.monotonic()
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=15)
             _wait_for(lambda: all(_gone(w) for w in workers),
                       max(0.0, t_term + broker.GRACEFUL_CLOSE_S + 1.0 - time.monotonic()),
                       f"no broker worker of {workers} alive after SIGTERM")
+            try:
+                socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            except OSError:
+                refused = True
+            else:
+                refused = False
+            check(refused, f"port {port} still answers after SIGTERM")
         finally:
             if proc.poll() is None:
                 proc.kill()
@@ -1127,7 +1331,8 @@ def phase_daemon_cli(count: int) -> dict:
           f"CLI first cycle took {first_cycle}; log:\n{head}")
     spawn_ms = [float(m) for m in re.findall(r"broker worker \d+ ready in (\d+) ms", text)]
     emit("daemon_cli", first_write_s=first_write_s,
-         first_cycle_stages_ms=first_cycle, first_write_health=base_health,
+         first_cycle_stages_ms=first_cycle, restart_to_labels_s=restart_s,
+         first_write_health=base_health,
          health_s=health_s, rc=rc, worker_spawn_ms=spawn_ms, memory=memory,
          probe_ms_first=int(first.get("nvidia.com/gpu.health.probe-ms", -1)),
          probe_ms_after_reload=int(second["nvidia.com/gpu.health.probe-ms"]),
@@ -1135,7 +1340,18 @@ def phase_daemon_cli(count: int) -> dict:
          hbm_gbps=int(second[HEALTH_KEYS[1]]))
     for key in HOST_FACT_KEYS:
         check(key in base, f"CLI first write has no {key}")
-    return first_cycle
+    return {
+        "first_cycle": first_cycle,
+        "restart_to_labels_s": restart_s,
+        "first_probe_compile_s": first_use_s,
+        "scrape_ms": scrape_ms,
+        "exposition": exposition,
+        "broker_request_duration": {
+            "count": final[("tfd_broker_request_duration_seconds_count", "")],
+            "sum_s": final[("tfd_broker_request_duration_seconds_sum", "")],
+        },
+        "chip_tflops": final[("tfd_chip_tflops", '{chip="0"}')],
+    }
 
 
 BROKER_PROBE_TIMEOUT_S = 20.0
@@ -1155,6 +1371,7 @@ def phase_broker(entries: dict, count: int, host_labels: dict) -> None:
     from gpu_feature_discovery_tpu_torch.cmd.supervisor import Supervisor
     from gpu_feature_discovery_tpu_torch.config.flags import new_config
     from gpu_feature_discovery_tpu_torch.lm import health
+    from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
     from gpu_feature_discovery_tpu_torch.ops import hbm, healthcheck
     from gpu_feature_discovery_tpu_torch.resource import factory
     from gpu_feature_discovery_tpu_torch.sandbox import broker
@@ -1181,7 +1398,7 @@ def phase_broker(entries: dict, count: int, host_labels: dict) -> None:
             cli_values={"with-burnin": "true", "backends": "gpu",
                         "burnin-interval": "2", "sleep-interval": "1s",
                         "probe-timeout": f"{BROKER_PROBE_TIMEOUT_S}s",
-                        "output-file": out},
+                        "output-file": out, "metrics-port": "0"},
             environ=dict(os.environ),
         )
         check(sandbox.isolation_mode(config) == "subprocess"
@@ -1242,6 +1459,10 @@ def phase_broker(entries: dict, count: int, host_labels: dict) -> None:
         _wait_for(steady, 15.0, "two probing cycles and a cached one after")
         steady_cycles = list(capture.cycles)
 
+        # The registry of this process, which the epoch records into.
+        counters = {"kills": obs_metrics.PROBE_KILLS, "crashes": obs_metrics.PROBE_CRASHES,
+                    "respawns": obs_metrics.BROKER_RESPAWNS}
+        before = {k: c.value() for k, c in counters.items()}
         recoveries, messages = {}, {}
         for site in ("broker.hang", "broker.crash"):
             old = worker_pid()
@@ -1268,6 +1489,14 @@ def phase_broker(entries: dict, count: int, host_labels: dict) -> None:
               f"broker.hang not killed at --probe-timeout: {messages['broker.hang']}")
         check("SIGSEGV" in messages["broker.crash"],
               f"broker.crash did not surface: {messages['broker.crash']}")
+        rendered = obs_metrics.REGISTRY.render()
+        _validate_exposition(rendered)
+        counted = {k: c.value() - before[k] for k, c in counters.items()}
+        check(counted == {"kills": 1, "crashes": 1, "respawns": 2},
+              f"the registry counted {counted} for one hang and one crash")
+        check(obs_metrics.BROKER_UP.value() == 1, "tfd_broker_up after the respawns")
+        check(obs_metrics.CHIP_OK.value(chip="0") == 1,
+              "tfd_chip_ok{chip=0} after fresh health labels")
         sigs.put(signal.SIGTERM)
         t_term = time.monotonic()
         thread.join(BROKER_PROBE_TIMEOUT_S)
@@ -1321,7 +1550,7 @@ def phase_broker(entries: dict, count: int, host_labels: dict) -> None:
          probing_cycles=len(probes), launches=broker_launches,
          launches_per_probing_cycle=per_probe,
          steady_probe_ms=[c["probe_ms"] for c in steady_probes[1:]],
-         recoveries=recoveries, close_s=close_s)
+         recoveries=recoveries, close_s=close_s, registry_counted=counted)
 
 
 def main() -> int:
@@ -1343,14 +1572,25 @@ def main() -> int:
     phase_collectives(info["count"])
     phase_main_path(entries, info["count"])
     facts = phase_host_facts(info["count"])
-    first_cycle = phase_daemon(entries, info["count"])
+    cli = phase_daemon(entries, info["count"])
     # NVML's cost in a fresh process against the first acquisition of a
-    # fresh CLI (the broker worker's spawn), for the first-write item of
-    # the roadmap.
+    # fresh CLI (the broker worker's spawn) and its first full write, for
+    # the first-write item of the roadmap.
     emit("nvml_vs_acquire", nvml_init_ms=facts["nvml_init_ms"],
          nvml_enumerate_ms=facts["nvml_enumerate_ms"],
-         gpu_acquire_ms=first_cycle["gpu.acquire"])
+         gpu_acquire_ms=cli["first_cycle"]["gpu.acquire"],
+         restart_to_labels_s=cli["restart_to_labels_s"])
     phase_broker(entries, info["count"], facts["labels"])
+    # What serving and recording metrics cost, beside the card.
+    emit("metrics", nvidia_smi=info["nvidia_smi"],
+         scrape_ms_median=statistics.median(cli["scrape_ms"]),
+         scrape_ms_max=max(cli["scrape_ms"]), scrapes=len(cli["scrape_ms"]),
+         exposition=cli["exposition"],
+         restart_to_labels_s=cli["restart_to_labels_s"],
+         first_probe_compile_s=cli["first_probe_compile_s"],
+         broker_request_duration=cli["broker_request_duration"],
+         daemon_steady_probing_wall_ms=cli["daemon_steady_probing_wall_ms"],
+         daemon_cached_wall_ms=cli["daemon_cached_wall_ms"])
     print(json.dumps({"kernels": list(entries.values())}))
     print(info["nvidia_smi"])
     print(json.dumps({

@@ -9,8 +9,9 @@ the daemon loop blocks on ONE event queue instead of sleeping:
   (``WORKER_DIED`` the moment the long-lived worker exits uncommanded,
   sandbox/broker.py; posted by cmd/main.run), and the loop's own
   :class:`DeltaTracker` (``HEALTH_DELTA`` when a health verdict moves
-  between cycles). The twin's config-file and ``POST /probe`` producers
-  belong to later slices of this port.
+  between cycles), and the introspection server's authenticated
+  ``POST /probe`` (``PROBE_REQUEST``, obs/server.py). The twin's
+  config-file and peer producers belong to later slices of this port.
 - **The wait** (:meth:`ReconcileLoop.wait_for_wake`) has a deadline of
   ``--max-staleness`` (default: the sleep interval); the deadline
   expiring IS a wake, so the interval survives as a guarantee.
@@ -43,12 +44,15 @@ from gpu_feature_discovery_tpu_torch.config.spec import (
     RECONCILE_EVENT,
     RECONCILE_INTERVAL,
 )
+from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
 
 log = logging.getLogger("tfd.events")
 
+# Wake reasons: the tfd_reconcile_wakes_total{reason} vocabulary.
 REASON_SIGNAL = "signal"
 REASON_WORKER_DIED = "worker_died"
 REASON_HEALTH_DELTA = "health_delta"
+REASON_PROBE_REQUEST = "probe_request"
 REASON_STALENESS_BOUND = "staleness_bound"
 
 # Token-bucket burst allowance: a short legitimate burst runs its cycles
@@ -269,6 +273,7 @@ class ReconcileLoop:
         """Restart/shutdown for a signal event, None for a wake event
         (cmd/main._check_signal's vocabulary)."""
         if event.reason == REASON_SIGNAL:
+            obs_metrics.RECONCILE_WAKES.labels(reason=REASON_SIGNAL).inc()
             if event.signum == signal.SIGHUP:
                 log.info("Received SIGHUP, restarting.")
                 return "restart"
@@ -283,6 +288,7 @@ class ReconcileLoop:
         deadline = self._clock() + self._max_staleness
         first = self._events.get(deadline - self._clock())
         if first is None:
+            obs_metrics.RECONCILE_WAKES.labels(reason=REASON_STALENESS_BOUND).inc()
             return Wake(None, (REASON_STALENESS_BOUND,), self._clock())
         decision = self._decision_for(first)
         if decision is not None:
@@ -294,6 +300,7 @@ class ReconcileLoop:
         def _absorb(event: Event) -> None:
             nonlocal coalesced
             coalesced += 1
+            obs_metrics.RECONCILE_COALESCED.inc()
             if event.reason not in reasons:
                 reasons.append(event.reason)
 
@@ -327,6 +334,7 @@ class ReconcileLoop:
                     return Wake(decision, tuple(reasons), first.ts, coalesced)
                 _absorb(event)
 
+        obs_metrics.RECONCILE_WAKES.labels(reason=first.reason).inc()
         if coalesced:
             log.debug("reconcile wake %s coalesced %d event(s)", reasons, coalesced)
         return Wake(None, tuple(reasons), first.ts, coalesced)
@@ -346,3 +354,4 @@ class ReconcileLoop:
             decision = self._decision_for(event)
             if decision is not None:
                 return decision
+            obs_metrics.RECONCILE_COALESCED.inc()

@@ -27,10 +27,19 @@ its manager in the fallback-to-null decorator under
 ``--fail-on-init-error=false``; the daemon keeps raw init errors for its
 supervisor.
 
+Each daemon epoch binds the introspection server (obs/server.py:
+``/metrics``, ``/healthz``, ``/readyz``, ``/debug/labels``, ``POST
+/probe``) on ``--metrics-addr``:``--metrics-port``, retries a failed
+bind once per cycle, and closes it at the epoch's end, so a SIGHUP
+reload rebinds the same port; oneshot never opens a socket. The loop
+records the cycle outcomes, the label writes it tells the server about,
+``tfd_restart_to_labels_seconds`` (once per process) and
+``tfd_wake_to_labels_seconds``.
+
 Left for a later slice, and refused with an error that names it rather
 than falling back: ``--config-file`` (the YAML config slice). The
-twin's introspection server, slice coordinator, actuation engine and
-multi-backend registry have no counterpart yet.
+twin's slice coordinator, actuation engine and multi-backend registry
+have no counterpart yet.
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ from gpu_feature_discovery_tpu_torch.lm.labelers import (
 )
 from gpu_feature_discovery_tpu_torch.lm.labels import remove_output_file
 from gpu_feature_discovery_tpu_torch.lm.timestamp import new_timestamp_labeler
+from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
 from gpu_feature_discovery_tpu_torch.ops import kernel_cache
 from gpu_feature_discovery_tpu_torch.pci.pciutil import MockNvidiaPCI, SysfsNvidiaPCI
 from gpu_feature_discovery_tpu_torch.resource import factory
@@ -88,6 +98,21 @@ from gpu_feature_discovery_tpu_torch.utils.timing import timed
 log = logging.getLogger("tfd")
 
 WATCHED_SIGNALS = (signal.SIGHUP, signal.SIGINT, signal.SIGTERM, signal.SIGQUIT)
+
+# Cold-start accounting (tfd_restart_to_labels_seconds): this module's
+# import is the closest observable to process start from inside it.
+_PROCESS_START = time.monotonic()
+_restart_to_labels_recorded = False
+
+
+def _record_restart_to_labels() -> None:
+    """Set tfd_restart_to_labels_seconds at the process's FIRST full live
+    label write; a SIGHUP reload's next full cycle is not a restart."""
+    global _restart_to_labels_recorded
+    if _restart_to_labels_recorded:
+        return
+    _restart_to_labels_recorded = True
+    obs_metrics.RESTART_TO_LABELS.set(time.monotonic() - _PROCESS_START)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -197,6 +222,44 @@ def start(argv: Optional[list] = None) -> int:
             signal.signal(s, handler)
 
 
+def start_introspection_server(config: Config, quiet: bool = False, probe_request=None):
+    """Bind the introspection server for a daemon epoch: ``(server,
+    state)``, or ``(None, None)``. Oneshot never serves and
+    ``--metrics-port 0`` disables it. A bind failure degrades to no
+    server with a warning (``quiet`` silences the repeats); the run loop
+    retries the bind each cycle, so a port race at boot heals itself."""
+    tfd = config.flags.tfd
+    if tfd.oneshot or not tfd.metrics_port:
+        return None, None
+    from gpu_feature_discovery_tpu_torch.obs.server import (
+        IntrospectionServer,
+        IntrospectionState,
+    )
+
+    state = IntrospectionState(tfd.sleep_interval)
+    try:
+        server = IntrospectionServer(
+            obs_metrics.REGISTRY,
+            state,
+            addr=tfd.metrics_addr,
+            port=tfd.metrics_port,
+            debug_endpoints=bool(tfd.debug_endpoints),
+            probe_request=probe_request,
+            probe_token=tfd.probe_token or "",
+        )
+    except OSError as e:
+        if not quiet:
+            log.warning(
+                "cannot bind introspection server on %s:%s: %s "
+                "(will keep retrying each cycle)",
+                tfd.metrics_addr, tfd.metrics_port, e,
+            )
+        return None, None
+    server.start()
+    log.info("Introspection server listening on %s:%d", tfd.metrics_addr, server.port)
+    return server, state
+
+
 def new_interconnect_labeler(config: Config) -> Labeler:
     """vgpu.NewVGPULib(NewNvidiaPCILib()) (main.go:134): the sysfs PCI
     scanner; ``TFD_MOCK_PCI=1`` substitutes synthesized NVIDIA functions
@@ -283,7 +346,10 @@ def run(
     # The kernel cache (--compilation-cache-dir), resolved per config
     # epoch and exported through the environment, so the broker worker
     # and this process build into and load from one directory.
-    kernel_cache.configure_kernel_cache(resolve_compilation_cache_dir(config))
+    cache_usable = kernel_cache.configure_kernel_cache(
+        resolve_compilation_cache_dir(config)
+    )
+    obs_metrics.COMPILE_CACHE_ENABLED.set(1 if cache_usable else 0)
     if interconnect is None:
         interconnect = new_interconnect_labeler(config)
     output_file = tfd.output_file
@@ -319,6 +385,7 @@ def run(
     event_loop = None
     forwarder = None
     delta_tracker = None
+    probe_request = None
     if supervised and (
         reconcile_events.resolve_reconcile_mode(config)
         == reconcile_events.RECONCILE_EVENT
@@ -338,6 +405,10 @@ def run(
         delta_tracker = reconcile_events.DeltaTracker(events_q)
         # The signal watcher becomes one producer among several.
         forwarder = reconcile_events.SignalForwarder(sigs, events_q).start()
+
+        def probe_request():
+            events_q.post(reconcile_events.Event(reconcile_events.REASON_PROBE_REQUEST))
+
     if supervised:
         # Broker-worker death watch (sandbox/broker.py), in both reconcile
         # modes: a dead worker is marked dead at death time, so the next
@@ -361,6 +432,11 @@ def run(
             and not faults.active()
         ):
             sandbox.prespawn_broker(config)
+    # Introspection server: daemon epochs only, rebound per epoch so a
+    # reload picks up new --metrics-* flags.
+    obs_server, obs_state = start_introspection_server(
+        config, probe_request=probe_request
+    )
     # Anti-flap hysteresis: daemon only; oneshot publishes what it measured.
     flap = None
     if supervised:
@@ -372,8 +448,18 @@ def run(
         if restored_served is not None:
             # The restore->live transition is damped like any other.
             flap.observe(restored_served)
+            if obs_state is not None:
+                obs_state.labels_written(restored_served, {}, mode="restored")
+        # The post time of the event that woke the cycle about to run,
+        # for tfd_wake_to_labels_seconds.
+        wake_first_ts: Optional[float] = None
         while True:
             timing.reset_cycle()
+            if obs_server is None:
+                # A bind that failed (a port race) is retried each cycle.
+                obs_server, obs_state = start_introspection_server(
+                    config, quiet=True, probe_request=probe_request
+                )
             cycle_mode = "full"
             try:
                 with timed("labelgen.total"):
@@ -424,9 +510,19 @@ def run(
                 log.info("Writing labels to output file %s", output_file or "<stdout>")
                 labels.write_to_file(output_file)
                 wrote_this_epoch = True
-                if delta_tracker is not None:
+                obs_metrics.CYCLES_TOTAL.labels(outcome=cycle_mode).inc()
+                if event_loop is not None:
+                    if wake_first_ts is not None:
+                        obs_metrics.WAKE_TO_LABELS.observe(
+                            time.monotonic() - wake_first_ts
+                        )
+                        wake_first_ts = None
                     # A moved health verdict wakes a prompt follow-up.
                     delta_tracker.observe_labels(labels)
+                if obs_state is not None:
+                    obs_state.labels_written(
+                        labels, engine.last_provenance, mode=cycle_mode
+                    )
             except (InitRetriesExhausted, TooManyConsecutiveFailures):
                 raise  # supervision verdicts, not containable faults
             except Exception as e:  # noqa: BLE001 - supervision boundary
@@ -453,6 +549,8 @@ def run(
                     log.info("cycle failed before this epoch's first write; "
                              "keeping the existing label file untouched")
                     supervisor.touch_heartbeat()
+                    if obs_state is not None:
+                        obs_state.cycle_completed()
                 else:
                     reserve = supervisor.reserve_labels()
                     try:
@@ -464,6 +562,10 @@ def run(
                         log.info("re-served last-good labels (unhealthy-cycles=%d)",
                                  supervisor.consecutive_failures)
                         supervisor.touch_heartbeat()
+                        obs_metrics.RESERVES_TOTAL.inc()
+                        if obs_state is not None:
+                            obs_state.labels_written(reserve, {}, mode="reserved")
+                            obs_state.cycle_completed()
                 # The backoff replaces the sleep interval for a failed
                 # cycle; a signal during it is serviced at once.
                 log.info("retrying failed cycle in %.3fs", delay)
@@ -475,17 +577,23 @@ def run(
                     return True
                 if decision == "shutdown":
                     return False
+                # The retry is backoff-paced, not event-triggered.
+                wake_first_ts = None
                 continue
             else:
                 if supervised:
                     supervisor.cycle_succeeded(labels, mode=cycle_mode)
                     supervisor.touch_heartbeat()
-                    if (
-                        cycle_mode == "full"
-                        and not supervisor.restored
-                        and process_state is not None
-                    ):
-                        process_state["live_full_served"] = True
+                    if cycle_mode == "full" and not supervisor.restored:
+                        # Live inventory is back: the restart clock stops
+                        # (restored and degraded writes do not count).
+                        _record_restart_to_labels()
+                        if process_state is not None:
+                            process_state["live_full_served"] = True
+                elif cycle_mode == "full":
+                    _record_restart_to_labels()
+                if obs_state is not None:
+                    obs_state.cycle_completed()
 
             if oneshot:
                 return False
@@ -500,6 +608,7 @@ def run(
                 wake = event_loop.wait_for_wake()
                 decision = wake.decision
                 if decision is None:
+                    wake_first_ts = wake.first_ts
                     log.info(
                         "reconcile wake: %s%s",
                         "+".join(wake.reasons),
@@ -522,6 +631,9 @@ def run(
         # child outlives its epoch.
         sandbox.close_broker()
         sandbox.kill_stray_children()
+        if obs_server is not None:
+            # Synchronous: the port is free before a reload rebinds it.
+            obs_server.close()
         # A daemon exit removes the label file so stale labels do not
         # outlive the pod; oneshot leaves it for NFD.
         if not oneshot and output_file:

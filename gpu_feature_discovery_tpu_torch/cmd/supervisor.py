@@ -45,6 +45,7 @@ from gpu_feature_discovery_tpu_torch.config.flags import (
 from gpu_feature_discovery_tpu_torch.config.spec import Config
 from gpu_feature_discovery_tpu_torch.lm.engine import STALE_SOURCES_LABEL
 from gpu_feature_discovery_tpu_torch.lm.labels import Labels
+from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
 from gpu_feature_discovery_tpu_torch.sandbox.flap import FLAPPING_LABEL
 from gpu_feature_discovery_tpu_torch.sandbox.state import LabelStateStore
@@ -117,6 +118,12 @@ class Supervisor:
             LabelStateStore(tfd.state_dir) if tfd.state_dir else None
         )
         self._restored = False
+        # The epoch's gauges read 0 from its first scrape, not "absent".
+        obs_metrics.DEGRADED.set(0)
+        obs_metrics.CONSECUTIVE_CYCLE_FAILURES.set(0)
+        obs_metrics.BACKEND_INIT_BACKOFF.set(0)
+        obs_metrics.RESTORED.set(0)
+        obs_metrics.FLAPPING.set(0)
 
     # -- backend init -----------------------------------------------------
 
@@ -132,6 +139,8 @@ class Supervisor:
             manager = build()
         except Exception as e:  # noqa: BLE001 - supervision boundary
             self._init_failures += 1
+            obs_metrics.BACKEND_INIT_FAILURES.inc()
+            obs_metrics.DEGRADED.set(1)
             log.warning(
                 "backend init attempt %d/%s failed: %s",
                 self._init_failures,
@@ -148,13 +157,17 @@ class Supervisor:
             # capped cadence.
             delay = self._policy.delay(min(self._init_failures - 1, 63))
             self._next_init_attempt = now + delay
+            obs_metrics.BACKEND_INIT_BACKOFF.set(delay)
             log.info("staying degraded; next backend init attempt in %.3fs", delay)
             return None
         if self._init_failures:
+            obs_metrics.BACKEND_INIT_RECOVERIES.inc()
             log.info("backend init recovered after %d failed attempts",
                      self._init_failures)
         self._init_failures = 0
         self._next_init_attempt = 0.0
+        obs_metrics.DEGRADED.set(0)
+        obs_metrics.BACKEND_INIT_BACKOFF.set(0)
         return manager
 
     @property
@@ -179,6 +192,8 @@ class Supervisor:
             return None
         self._last_good = cleaned
         self._restored = True
+        obs_metrics.STATE_RESTORES.inc()
+        obs_metrics.RESTORED.set(1)
         log.info(
             "restored %d last-good labels from %s; serving them with %s=true "
             "until the first live cycle",
@@ -227,6 +242,7 @@ class Supervisor:
         cycles persist nothing, nor does a full cycle with stale sources
         (a deadline-missed source may have served an empty set)."""
         self._consecutive_failures = 0
+        obs_metrics.CONSECUTIVE_CYCLE_FAILURES.set(0)
         stale = STALE_SOURCES_LABEL in labels
         remembered = self._strip_markers(labels)
         self._last_good = remembered
@@ -234,6 +250,7 @@ class Supervisor:
             return
         if self._restored:
             self._restored = False
+            obs_metrics.RESTORED.set(0)
             log.info("first live full cycle completed; %s cleared", RESTORED_LABEL)
         if self._state_store is not None and COUNT_LABEL in remembered:
             # A device-less "full" set must never clobber a persisted
@@ -245,6 +262,8 @@ class Supervisor:
         should wait; TooManyConsecutiveFailures at the bound."""
         self._consecutive_failures += 1
         n = self._consecutive_failures
+        obs_metrics.CYCLES_TOTAL.labels(outcome="failed").inc()
+        obs_metrics.CONSECUTIVE_CYCLE_FAILURES.set(n)
         log.error("labeling cycle failed (%d consecutive, bound %d): %s",
                   n, self._max_failures, error)
         log.debug("cycle failure traceback:", exc_info=True)

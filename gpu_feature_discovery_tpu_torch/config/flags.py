@@ -3,7 +3,8 @@
 
 Each flag keeps its twin's spelling, its ``TFD_*`` environment alias and
 its default. Only the flags of the burn-in cycle, the supervised daemon
-loop, the probe sandbox and the host facts are here.
+loop, the probe sandbox, the host facts and the introspection server are
+here.
 """
 
 from __future__ import annotations
@@ -41,6 +42,11 @@ DEFAULT_SLEEP_INTERVAL = 60.0
 DEFAULT_INIT_RETRIES = 5
 DEFAULT_INIT_BACKOFF_MAX = 30.0
 DEFAULT_MAX_CONSECUTIVE_FAILURES = 5
+# Introspection server (obs/server.py; daemon mode only, oneshot never
+# opens a socket): every interface, since the scraper reaches the pod
+# over the pod network.
+DEFAULT_METRICS_ADDR = "0.0.0.0"
+DEFAULT_METRICS_PORT = 9101
 # Per-labeler deadline (lm/engine.py): generous against every source's
 # worst case (the health labeler's bounded first-probe wait is 2 s), so
 # staleness marks genuine degradation, not routine variance.
@@ -297,6 +303,23 @@ FLAG_DEFS: List[FlagDef] = [
             DEFAULT_MAX_PROBE_RATE,
             "with --reconcile=event, token-bucket cap on event-driven "
             "labeling cycles per second", "max_probe_rate"),
+    FlagDef("metrics-addr", ("TFD_METRICS_ADDR",), str, DEFAULT_METRICS_ADDR,
+            "bind address for the HTTP introspection server (/metrics, "
+            "/healthz, /readyz, /debug/labels)", "metrics_addr"),
+    FlagDef("metrics-port", ("TFD_METRICS_PORT",), _parse_nonneg_int,
+            DEFAULT_METRICS_PORT,
+            "port for the HTTP introspection server; 0 disables it (no "
+            "socket). Served in daemon mode only: oneshot never opens a "
+            "socket", "metrics_port"),
+    FlagDef("debug-endpoints", ("TFD_DEBUG_ENDPOINTS",), _parse_bool, True,
+            "serve /debug/labels (the last written labels with per-source "
+            "provenance, as JSON) on the introspection server",
+            "debug_endpoints"),
+    FlagDef("probe-token", ("TFD_PROBE_TOKEN",), str, "",
+            "with --reconcile=event, shared secret authenticating POST "
+            "/probe on the introspection server (an on-demand labeling "
+            "cycle); empty (default) answers 403: the endpoint never works "
+            "unauthenticated", "probe_token"),
 ]
 
 

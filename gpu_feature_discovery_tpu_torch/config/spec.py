@@ -136,6 +136,11 @@ class TfdFlags:
     max_staleness: Optional[float] = None  # seconds; 0 = --sleep-interval
     reconcile_debounce: Optional[float] = None  # seconds
     max_probe_rate: Optional[float] = None  # event-driven cycles per second
+    # Introspection server (obs/server.py, cmd/main.py).
+    metrics_addr: Optional[str] = None
+    metrics_port: Optional[int] = None  # 0 = disabled
+    debug_endpoints: Optional[bool] = None
+    probe_token: Optional[str] = None  # "" = POST /probe disabled
 
 
 @dataclass

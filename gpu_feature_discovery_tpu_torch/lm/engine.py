@@ -40,6 +40,7 @@ from typing import Callable, Dict, List, Optional, Set, Tuple
 from gpu_feature_discovery_tpu_torch.config.flags import DEFAULT_LABELER_TIMEOUT
 from gpu_feature_discovery_tpu_torch.lm.labeler import Labeler
 from gpu_feature_discovery_tpu_torch.lm.labels import Labels, label_safe_value
+from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
 from gpu_feature_discovery_tpu_torch.utils import timing
 
 log = logging.getLogger("tfd.lm")
@@ -165,6 +166,9 @@ class LabelEngine:
         self._state: Dict[str, _SourceState] = {}
         self._stale_prev: Set[str] = set()
         self._lock = threading.Lock()
+        # Per-source status and duration of the last cycle, for
+        # /debug/labels (obs/server.py).
+        self.last_provenance: Dict[str, Dict[str, object]] = {}
 
     def generate(self, sources: List[LabelSource]) -> Labels:
         from gpu_feature_discovery_tpu_torch.utils.faults import maybe_inject
@@ -198,6 +202,7 @@ class LabelEngine:
         for src in sources:
             with timing.timed(f"labeler.{src.name}"):
                 merged.update(src.run())
+        self.last_provenance = self._provenance(sources, stale=[])
         return merged
 
     def _generate_parallel(self, sources: List[LabelSource]) -> Labels:
@@ -263,9 +268,29 @@ class LabelEngine:
         for src in sources:
             merged.update(results[src.name])
         self._log_stale_transitions(stale)
+        obs_metrics.STALE_SOURCES.set(len(stale))
+        for name in stale:
+            obs_metrics.LABELER_DEADLINE_MISSES.labels(labeler=name).inc()
+        self.last_provenance = self._provenance(sources, stale=stale)
         if stale:
             merged[STALE_SOURCES_LABEL] = label_safe_value(_STALE_JOIN.join(stale))
         return merged
+
+    def _provenance(
+        self, sources: List[LabelSource], stale: List[str]
+    ) -> Dict[str, Dict[str, object]]:
+        """Status and duration per source for /debug/labels. A straggler
+        that has not finished has no span this cycle and reports null."""
+        stages = obs_metrics.cycle_stages()
+        stale_set = set(stale)
+        out: Dict[str, Dict[str, object]] = {}
+        for src in sources:
+            elapsed = stages.get(f"labeler.{src.name}")
+            out[src.name] = {
+                "status": "stale" if src.name in stale_set else "fresh",
+                "duration_ms": round(elapsed * 1e3, 3) if elapsed is not None else None,
+            }
+        return out
 
     def _run_source(self, src: LabelSource) -> Labels:
         t0 = time.perf_counter()
@@ -285,6 +310,7 @@ class LabelEngine:
                      "fresh (%s)", name, fut.exception())
             return
         state.last_good = fut.result()
+        obs_metrics.STRAGGLERS_HARVESTED.labels(labeler=name).inc()
         log.info("labeler %r caught up; straggler result cached", name)
 
     def _log_stale_transitions(self, stale: List[str]) -> None:

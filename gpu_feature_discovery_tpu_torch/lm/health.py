@@ -35,8 +35,16 @@ cuBLAS and NCCL set-up, the burn-in's CUDA-graph capture) runs, and
 later cycles collect it. Oneshot probes synchronously. Scheduling,
 caching and rendering stay here either way. The ``chip.<i>.sick`` /
 ``chip.<i>.slow`` fault shots (utils/faults.py) are consumed here, at
-probe launch, and travel with the probe. The metrics plane is a later
-slice.
+probe launch, and travel with the probe.
+
+Both paths record into this process's registry (obs/metrics.py), the one
+``/metrics`` serves: ``tfd_first_probe_compile_seconds`` from the
+report's ``phases.compile_ms``, or, through the broker, from the
+worker's pre-warm (``prewarm_ms``, shipped with its first report: the
+pre-warm pays first use there, so every probe reports 0),
+``tfd_chip_ok{chip}`` and the raw, ungated
+``tfd_chip_tflops{chip}`` beside the ``chip.<i>.*`` labels (and, like
+them, never under MIG), and ``tfd_straggler_detected_total``.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from gpu_feature_discovery_tpu_torch.config.flags import (
 from gpu_feature_discovery_tpu_torch.config.spec import Config
 from gpu_feature_discovery_tpu_torch.lm.labeler import Empty, Labeler
 from gpu_feature_discovery_tpu_torch.lm.labels import Labels
+from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
 from gpu_feature_discovery_tpu_torch.utils.logging import warn_once
 
@@ -404,6 +413,10 @@ def _labels_from_probe(
         report.get("phases"),
         probe_ms,
     )
+    compile_ms = (report.get("phases") or {}).get("compile_ms")
+    if compile_ms:
+        # Only a probe that paid first use reports a non-zero phase.
+        obs_metrics.FIRST_PROBE_COMPILE.set(float(compile_ms) / 1e3)
     peak_tf, peak_hbm = _spec_peaks(manager)
     labels = Labels(
         {
@@ -479,12 +492,17 @@ def _labels_from_probe(
             labels[CHIPS_HEALTHY] = str(healthy_n)
             labels[CHIPS_SICK] = str(len(table) - healthy_n)
             for i, e in enumerate(table):
-                labels[CHIP_OK_FMT % i] = "true" if e.get("healthy") else "false"
+                ok = bool(e.get("healthy"))
+                labels[CHIP_OK_FMT % i] = "true" if ok else "false"
+                obs_metrics.CHIP_OK.labels(chip=str(i)).set(1.0 if ok else 0.0)
                 chip_tflops = e.get("tflops")
-                if chip_tflops is not None and _rate_plausible(
-                    chip_tflops, host_clock, peak_tf
-                ):
-                    labels[CHIP_TFLOPS_FMT % i] = str(int(chip_tflops))
+                if chip_tflops is not None:
+                    # The metric carries the raw rate; the label is gated.
+                    obs_metrics.CHIP_TFLOPS.labels(chip=str(i)).set(
+                        float(chip_tflops)
+                    )
+                    if _rate_plausible(chip_tflops, host_clock, peak_tf):
+                        labels[CHIP_TFLOPS_FMT % i] = str(int(chip_tflops))
                 chip_hbm = e.get("hbm_gbps")
                 if chip_hbm is not None and _rate_plausible(
                     chip_hbm, host_clock, peak_hbm
@@ -495,6 +513,7 @@ def _labels_from_probe(
             confirmed = sched.straggler.observe(table)
             if confirmed is not None:
                 labels[STRAGGLER_CHIP] = str(confirmed)
+                obs_metrics.STRAGGLER_DETECTED.inc()
                 log.warning(
                     "straggler chip %d: throughput below %.2fx the median "
                     "for %d consecutive probes",
@@ -597,6 +616,9 @@ def _broker_health_labels(manager, broker, config: Config) -> Labeler:
             "base labels without health this cycle"
         )
         return Empty()
+    if outcome.get("prewarm_ms"):
+        # The worker's pre-warm paid first use before its first probe.
+        obs_metrics.FIRST_PROBE_COMPILE.set(float(outcome["prewarm_ms"]) / 1e3)
     probe_ms = float(outcome.get("probe_ms") or 0.0)
     if status == "probe-failed":
         return _labels_from_probe(

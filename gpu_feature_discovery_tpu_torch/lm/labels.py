@@ -18,7 +18,10 @@ import shutil
 import sys
 import tempfile
 import threading
+import time
 from typing import Dict, Optional, TextIO
+
+from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
 
 TMP_SUBDIR = "tfd-tmp"
 TMP_PREFIX = "tfd-"
@@ -71,21 +74,28 @@ class Labels(dict):
         maybe_inject("write")
         if not path:
             self.write_to(sys.stdout)
+            obs_metrics.LABEL_WRITES.inc()
+            obs_metrics.LABELS_PUBLISHED.set(len(self))
             return
         buf = io.StringIO()
         self.write_to(buf)
         contents = buf.getvalue().encode()
         abs_path = os.path.abspath(path)
         if _write_cache_matches(abs_path, contents):
+            obs_metrics.LABEL_WRITE_SKIPS.inc()
             return
         # The signature is taken BEFORE the verifying read: an edit that
         # lands after it moves the file off the cached signature.
         pre_sig = _stat_signature(abs_path)
         if pre_sig is not None and _file_contents_equal(abs_path, contents):
             _write_cache_put(abs_path, contents, pre_sig)
+            obs_metrics.LABEL_WRITE_SKIPS.inc()
             return
         sig = _write_file_atomically(path, contents, OUTPUT_MODE)
         _write_cache_put(abs_path, contents, sig)
+        obs_metrics.LABEL_WRITES.inc()
+        obs_metrics.LABEL_FILE_BYTES.set(len(contents))
+        obs_metrics.LABELS_PUBLISHED.set(len(self))
 
 
 # Last bytes this process wrote (or verified on disk) per absolute path,
@@ -149,7 +159,9 @@ def _write_file_atomically(path: str, contents: bytes, perm: int) -> Optional[tu
         with os.fdopen(fd, "wb") as f:
             f.write(contents)
             f.flush()
+            fsync_start = time.perf_counter()
             os.fsync(f.fileno())
+            obs_metrics.FSYNC_DURATION.observe(time.perf_counter() - fsync_start)
         sig = _stat_signature(tmp_name)
         os.replace(tmp_name, abs_path)
     except BaseException:

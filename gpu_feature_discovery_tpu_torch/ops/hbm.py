@@ -60,7 +60,7 @@ BLOCKS_PER_SM = 1
 # Name under which the device clock (device_timing.py) files the probe.
 HBM_KERNEL_NAME = "hbm_probe"
 
-_CSRC = Path(__file__).resolve().parent / "csrc" / "hbm_stream_sum.cu"
+_CSRC = kernel_cache.HBM_STREAM_SUM_CU
 
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -25,6 +25,10 @@ flag names the directory the libraries live in:
 - A build that cannot run raises ``KernelBuildError`` naming what was
   missing (no ``nvcc``, an unwritable directory, or nvcc's own errors)
   and leaves no partial file behind.
+- ``kernel_cache_usable`` is the value of ``tfd_compile_cache_enabled``
+  (obs/metrics.py), which ``cmd/main.run`` sets once per epoch where the
+  twin sets it: 1 while the directory exists and is writable, or already
+  holds every kernel's library under its key.
 
 This module imports no torch: the labeling process configures the
 directory without loading CUDA.
@@ -46,6 +50,10 @@ RESOLVED_CACHE_DIR_ENV = "TFD_RESOLVED_COMPILATION_CACHE_DIR"
 # build/ at the repo root; .gitignore lists it.
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
+# Every hand-written kernel the probe builds (ops/hbm.py).
+HBM_STREAM_SUM_CU = Path(__file__).resolve().parent / "csrc" / "hbm_stream_sum.cu"
+KERNEL_SOURCES = (HBM_STREAM_SUM_CU,)
+
 TARGET = "sm_90a"
 NVCC_FLAGS = (
     "-gencode", f"arch=compute_90a,code={TARGET}",
@@ -58,14 +66,26 @@ class KernelBuildError(RuntimeError):
     missing."""
 
 
-def configure_kernel_cache(path: str) -> None:
+def configure_kernel_cache(path: str) -> bool:
     """Export the resolved ``--compilation-cache-dir`` to this process
-    and its children; an empty path restores the default directory."""
+    and its children; an empty path restores the default directory.
+    Returns ``kernel_cache_usable()``."""
     path = (path or "").strip()
     if path:
         os.environ[RESOLVED_CACHE_DIR_ENV] = path
     else:
         os.environ.pop(RESOLVED_CACHE_DIR_ENV, None)
+    return kernel_cache_usable()
+
+
+def kernel_cache_usable() -> bool:
+    """True while the directory exists and is writable (a build can land
+    there), or already holds every kernel's library under its key (an
+    image's prebuilt libraries load without a build). Creates nothing."""
+    directory = kernel_cache_dir()
+    if directory.is_dir() and os.access(directory, os.W_OK | os.X_OK):
+        return True
+    return all(library_path(src).exists() for src in KERNEL_SOURCES)
 
 
 def kernel_cache_dir() -> Path:

@@ -91,9 +91,12 @@ def validate_backends(config: Config) -> Tuple[str, str]:
 
 def new_manager(config: Config, wrap_fallback: bool = True) -> Manager:
     """The backend the config names, with the ``pjrt_init`` fault site and
-    the fallback-to-null wrapper (NewManager, factory.go:27-30)."""
+    the fallback-to-null wrapper (NewManager, factory.go:27-30). Every
+    call counts one ``tfd_backend_init_attempts_total``, healthy or not."""
+    from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
     from gpu_feature_discovery_tpu_torch.utils.faults import maybe_inject
 
+    obs_metrics.BACKEND_INIT_ATTEMPTS.inc()
     maybe_inject("pjrt_init")
     fallback = wrap_fallback and not config.flags.tfd.fail_on_init_error
     manager = select_manager(config, fallback_to_null=fallback)

@@ -29,6 +29,20 @@ Fault sites (``TFD_FAULT_SPEC``): a spawn fires ``pjrt_init`` and
 consumes ``probe.timeout``/``probe.hang``/``probe.segv`` (a spawn IS an
 acquisition); requests consume ``broker.hang`` / ``broker.crash``. All
 consumed in the PARENT and enacted in the worker.
+
+Metrics are recorded here, in the labeling process, the one that serves
+``/metrics`` (obs/): ``tfd_backend_init_attempts_total`` and
+``tfd_probe_duration_seconds`` per spawn, ``tfd_broker_requests_total``
+and ``tfd_broker_request_duration_seconds`` per request,
+``tfd_broker_respawns_total`` for every spawn after this client's first
+(after a crash, a kill, an EOF or a recycle; a new epoch's client starts
+from none, so a commanded close at SIGHUP is not followed by a respawn),
+``tfd_broker_up``, and ``tfd_probe_kills_total`` /
+``tfd_probe_crashes_total`` for a worker this process SIGKILLed (spawn or
+request past ``--probe-timeout``, a deadline-escalation cancel) or one
+that died to a signal of its own. The twin counts the last two only
+around its spawn and its death watch; a request killed at its deadline
+is the same containment event, so the port counts it too.
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ import time
 from typing import Optional, Tuple
 
 from gpu_feature_discovery_tpu_torch.config.spec import config_to_dict
+from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
 from gpu_feature_discovery_tpu_torch.resource.types import Manager, ResourceError
 from gpu_feature_discovery_tpu_torch.sandbox import probe
 from gpu_feature_discovery_tpu_torch.sandbox.probe import (
@@ -201,6 +216,9 @@ class _HealthProbe:
         self._chip_lock = chip_lock
         self._thread: Optional[threading.Thread] = None
         self._outcome: Optional[dict] = None
+        # The pre-warm's ms: it paid first use, so the probes after it
+        # report compile_ms 0. Shipped once, with the first ok outcome.
+        self.prewarm_ms: Optional[float] = None
 
     def _run(self, devices, opts: dict) -> None:
         from gpu_feature_discovery_tpu_torch.ops.healthcheck import (
@@ -259,16 +277,19 @@ class _HealthProbe:
             return {"status": "warming"}
         self._thread = None
         outcome, self._outcome = self._outcome, None
+        if outcome and outcome.get("status") == "ok" and self.prewarm_ms is not None:
+            outcome["prewarm_ms"], self.prewarm_ms = self.prewarm_ms, None
         return outcome or {"status": "probe-failed", "error": "probe thread died"}
 
 
-def _child_prewarm(chip_lock: threading.Lock, per_chip: bool = True) -> None:
+def _child_prewarm(health_probe: _HealthProbe, per_chip: bool = True) -> None:
     """Warm-start: build the kernel, capture the burn-in graph and run
     every probe once right after init, OFF the label-serving path (a
     background thread: ``snapshot`` requests serve meanwhile), so the
     first health cycle does not pay first use. It launches
-    ``hbm_stream_sum`` once. Best-effort: on failure the first health
-    request warms up itself."""
+    ``hbm_stream_sum`` once, and its ms ride the first ok health outcome
+    (``prewarm_ms``). Best-effort: on failure the first health request
+    warms up itself."""
     try:
         from gpu_feature_discovery_tpu_torch.lm.health import _acquire_devices
 
@@ -279,8 +300,10 @@ def _child_prewarm(chip_lock: threading.Lock, per_chip: bool = True) -> None:
             warm_probe_kernels_for,
         )
 
-        with chip_lock:
+        with health_probe._chip_lock:
             warm_ms = warm_probe_kernels_for(tuple(devices), per_chip=per_chip)
+            # Under the lock: no probe can finish before it is recorded.
+            health_probe.prewarm_ms = warm_ms
         log.info("broker worker pre-warmed probe kernels in %.0f ms", warm_ms)
     except Exception:  # noqa: BLE001 - warm-start is best-effort
         log.debug("broker kernel pre-warm failed:", exc_info=True)
@@ -320,7 +343,7 @@ def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"") -> None:
             target=_child_prewarm,
             # The parent's resolution: --chip-probes=off must not warm the
             # per-device verdict pass.
-            args=(chip_lock, _chip_probe_opts(config)[0]),
+            args=(health_probe, _chip_probe_opts(config)[0]),
             name="tfd-broker-prewarm",
             daemon=True,
         ).start()
@@ -427,6 +450,8 @@ class BrokerClient:
         self._spawn_failures = 0
         self._next_spawn = 0.0
         self._ever_spawned = False
+        # The pid _kill SIGKILLed: its death is a kill, not a crash.
+        self._cancel_killed: Optional[int] = None
         # Set by close(): a pre-spawn that loses the race against epoch
         # teardown must not start a worker nobody will close.
         self._closed = False
@@ -463,6 +488,7 @@ class BrokerClient:
         # The spawn IS the backend acquisition: the pjrt_init site fires
         # here, once per worker lifetime; a rebuild that reuses the live
         # worker fires nothing.
+        obs_metrics.BACKEND_INIT_ATTEMPTS.inc()
         try:
             faults.maybe_inject("pjrt_init")
             if faults.consume("probe.timeout"):
@@ -504,6 +530,7 @@ class BrokerClient:
             with self._pid_lock:
                 self._spawning = None
         duration = time.monotonic() - start
+        obs_metrics.PROBE_DURATION.observe(duration)
 
         def _fail_cleanup():
             os.close(req_w)
@@ -524,12 +551,14 @@ class BrokerClient:
             if status is not None and os.WIFSIGNALED(status) and (
                 os.WTERMSIG(status) != signal.SIGKILL
             ):
+                obs_metrics.PROBE_CRASHES.inc()
                 signame = signal.Signals(os.WTERMSIG(status)).name
                 raise BrokerCrash(
                     f"broker worker died to {signame} during init after "
                     f"{duration:.2f}s"
                     + (f"; worker stderr tail:\n{tail}" if tail else "")
                 )
+            obs_metrics.PROBE_KILLS.inc()
             raise BrokerTimeout(
                 f"broker worker init exceeded its {self._timeout_s:.1f}s "
                 f"budget and was SIGKILLed after {duration:.1f}s"
@@ -541,6 +570,7 @@ class BrokerClient:
             tail = _stderr_tail(stderr_file.name)
             _fail_cleanup()
             if status is not None and os.WIFSIGNALED(status):
+                self._count_signal_death(pid)
                 signame = signal.Signals(os.WTERMSIG(status)).name
                 raise BrokerCrash(
                     f"broker worker died to {signame} during init after "
@@ -567,6 +597,8 @@ class BrokerClient:
             )
         respawn = self._ever_spawned
         self._ever_spawned = True
+        if respawn:
+            obs_metrics.BROKER_RESPAWNS.inc()
         self._spawn_failures = 0
         self._next_spawn = 0.0
         self._served = 0
@@ -576,6 +608,7 @@ class BrokerClient:
         self._resp_r = resp_r
         self._reader = reader
         self._stderr_path = stderr_file.name
+        obs_metrics.BROKER_UP.set(1)
         log.info(
             "broker worker %d ready in %.0f ms%s",
             pid,
@@ -590,6 +623,13 @@ class BrokerClient:
                 name="tfd-broker-death-watch",
                 daemon=True,
             ).start()
+
+    def _count_signal_death(self, pid: int) -> None:
+        """Count a worker that died to a signal: a kill when this process
+        sent the SIGKILL (kill_child), a crash otherwise."""
+        if pid == self._cancel_killed:
+            return  # counted as a kill where it was sent
+        obs_metrics.PROBE_CRASHES.inc()
 
     def _spawn_failed(self, now: float) -> None:
         self._spawn_failures += 1
@@ -632,6 +672,7 @@ class BrokerClient:
             except OSError:
                 pass
         self._stderr_path = None
+        obs_metrics.BROKER_UP.set(0)
 
     # -- death watch -------------------------------------------------------
 
@@ -659,6 +700,7 @@ class BrokerClient:
             self._mark_dead()
             signame = ""
             if status is not None and os.WIFSIGNALED(status):
+                self._count_signal_death(pid)
                 signame = signal.Signals(os.WTERMSIG(status)).name
         log.warning(
             "broker worker %d died%s between requests; marked dead "
@@ -711,6 +753,7 @@ class BrokerClient:
                     status = self._reap(pid)
                     self._mark_dead()
                     if status is not None and os.WIFSIGNALED(status):
+                        self._count_signal_death(pid)
                         signame = signal.Signals(os.WTERMSIG(status)).name
                         raise BrokerCrash(
                             f"broker worker died to {signame} before the "
@@ -720,11 +763,17 @@ class BrokerClient:
                 try:
                     frame = self._reader.read(start + budget)
                 except BrokerCrash:
+                    obs_metrics.BROKER_REQUEST_DURATION.observe(
+                        time.monotonic() - start
+                    )
                     probe.kill_if_live(pid)
                     self._reap(pid)
                     self._mark_dead()
                     raise
                 duration = time.monotonic() - start
+                # Every outcome that reached the worker lands in the
+                # histogram, the deadline kills included.
+                obs_metrics.BROKER_REQUEST_DURATION.observe(duration)
                 if frame is None:
                     # Deadline: the request wedged. waitpid still decides:
                     # a worker that died to its OWN signal just before the
@@ -736,12 +785,14 @@ class BrokerClient:
                     if status is not None and os.WIFSIGNALED(status) and (
                         os.WTERMSIG(status) != signal.SIGKILL
                     ):
+                        obs_metrics.PROBE_CRASHES.inc()
                         signame = signal.Signals(os.WTERMSIG(status)).name
                         raise BrokerCrash(
                             f"broker worker died to {signame} during "
                             f"{op!r} after {duration:.2f}s"
                             + (f"; worker stderr tail:\n{tail}" if tail else "")
                         )
+                    obs_metrics.PROBE_KILLS.inc()
                     raise BrokerTimeout(
                         f"broker {op!r} request exceeded its {budget:.1f}s "
                         f"budget; worker SIGKILLed after {duration:.1f}s"
@@ -755,6 +806,7 @@ class BrokerClient:
                     tail = _stderr_tail(stderr_path or "")
                     self._mark_dead()
                     if status is not None and os.WIFSIGNALED(status):
+                        self._count_signal_death(pid)
                         signame = signal.Signals(os.WTERMSIG(status)).name
                         raise BrokerCrash(
                             f"broker worker died to {signame} during "
@@ -778,6 +830,7 @@ class BrokerClient:
             finally:
                 with self._pid_lock:
                     self._inflight = False
+            obs_metrics.BROKER_REQUESTS.inc()
             self._served += 1
             if self._max_requests and self._served >= self._max_requests:
                 # Proactive recycle OFF the failure path: close the aged
@@ -828,8 +881,18 @@ class BrokerClient:
                 pid = self._spawning
         if pid is None:
             return
-        if probe.kill_if_live(pid):
+        if self._kill(pid):
             log.warning("SIGKILLed broker worker %d (deadline escalation)", pid)
+
+    def _kill(self, pid: int) -> bool:
+        """SIGKILL a worker on this process's own decision (a cancel, an
+        epoch close mid-spawn) and count it as a kill. The pid is noted
+        first, so the path that reaps it does not also count a crash."""
+        self._cancel_killed = pid
+        if not probe.kill_if_live(pid):
+            return False
+        obs_metrics.PROBE_KILLS.inc()
+        return True
 
     def _close_worker_locked(self) -> None:
         """Graceful worker shutdown; caller holds ``_lock``: the shutdown
@@ -899,7 +962,7 @@ class BrokerClient:
         with self._pid_lock:
             spawning = self._spawning
         if spawning is not None:
-            probe.kill_if_live(spawning)
+            self._kill(spawning)
         with self._lock:
             self._closed = True
             self._close_worker_locked()

@@ -20,6 +20,7 @@ import logging
 from typing import Dict, Optional
 
 from gpu_feature_discovery_tpu_torch.lm.labels import Labels
+from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
 
 log = logging.getLogger("tfd.sandbox")
 
@@ -86,6 +87,8 @@ class FlapDamper:
             self._accept(candidate)
             return labels
 
+        obs_metrics.FLAP_SUPPRESSED.inc()
+        obs_metrics.FLAPPING.set(1)
         log.warning(
             "suppressing label change (%d/%d cycles held); re-serving "
             "previous labels with %s",
@@ -104,3 +107,4 @@ class FlapDamper:
         self._published = dict(candidate)
         self._pending = None
         self._pending_count = 0
+        obs_metrics.FLAPPING.set(0)

@@ -56,6 +56,7 @@ from pathlib import Path
 from typing import Optional, Set, Tuple
 
 from gpu_feature_discovery_tpu_torch.config.spec import config_to_dict
+from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
 from gpu_feature_discovery_tpu_torch.resource.types import Manager, ResourceError
 from gpu_feature_discovery_tpu_torch.sandbox.snapshot import (
     DeviceSnapshot,
@@ -404,9 +405,11 @@ def acquire_snapshot_manager(config, timeout_s: float) -> Manager:
     """The supervised daemon's sandboxed acquisition unit: backend
     selection + init + enumeration inside one child, a SnapshotManager
     over the result in the parent. The ``pjrt_init`` fault site fires
-    here, in the parent, where its countdown lives."""
+    here, in the parent, where its countdown lives, and so does the
+    init-attempt metric, in the registry this process serves."""
     from gpu_feature_discovery_tpu_torch.utils import faults
 
+    obs_metrics.BACKEND_INIT_ATTEMPTS.inc()
     faults.maybe_inject("pjrt_init")
     return SnapshotManager(_run_snapshot_probe("select+snapshot", config, timeout_s))
 
@@ -415,6 +418,7 @@ def _run_snapshot_probe(op: str, config, timeout_s: float) -> DeviceSnapshot:
     from gpu_feature_discovery_tpu_torch.utils import faults
 
     if faults.consume("probe.timeout"):
+        # No child was spawned, so no kill and no duration is recorded.
         raise ProbeTimeout(
             f"injected fault at 'probe.timeout' ({faults.FAULT_SPEC_ENV}): "
             f"probe treated as exceeding its {timeout_s:.1f}s budget"
@@ -425,9 +429,11 @@ def _run_snapshot_probe(op: str, config, timeout_s: float) -> DeviceSnapshot:
     segv = False if hang else faults.consume("probe.segv")
 
     result = run_probe(op, config, timeout_s, hang=hang, segv=segv)
+    obs_metrics.PROBE_DURATION.observe(result.duration_s)
     if result.status == "ok":
         return DeviceSnapshot.from_dict(result.payload or {})
     if result.status == "timeout":
+        obs_metrics.PROBE_KILLS.inc()
         raise ProbeTimeout(
             f"device probe exceeded its {timeout_s:.1f}s budget and was "
             f"SIGKILLed after {result.duration_s:.1f}s"
@@ -435,6 +441,7 @@ def _run_snapshot_probe(op: str, config, timeout_s: float) -> DeviceSnapshot:
                if result.stderr_tail else "")
         )
     if result.status == "crash":
+        obs_metrics.PROBE_CRASHES.inc()
         signame = signal.Signals(result.term_signal).name \
             if result.term_signal is not None else "?"
         raise ProbeCrash(
