@@ -57,6 +57,19 @@ Phases, each printing one JSON line:
                   and a ``broker.crash`` fault shot are killed and
                   respawned to fresh health labels, and the registry
                   counts one kill and two respawns.
+9. ``config_registry`` — the CLI in a fresh process from a config file
+                  (``backends: gpu,cpu``, time-slicing replicas 4) and
+                  one CLI flag the file contradicts: the file's replicas
+                  and -SHARED product, the CLI over the file, one broker
+                  worker per family (only the gpu one maps CUDA and NVML
+                  and launches hbm_stream_sum, counted from its probe
+                  reports), ``tfd_backend_up`` per family on /metrics, a
+                  live reload by atomic rename (replicas 2, the cpu family
+                  and its worker gone, one ``config_changed`` wake, a new
+                  gpu worker whose launch count starts again); then a
+                  second CLI under ``pjrt_init.cpu:fail:<n>`` where the
+                  cpu family alone degrades while the gpu family keeps
+                  fresh health labels, and recovers.
 
 Then a ``metrics`` line (the cost of a scrape, the exposition's size,
 restart-to-labels, first use, the broker's request histogram and the
@@ -1553,6 +1566,281 @@ def phase_broker(entries: dict, count: int, host_labels: dict) -> None:
          recoveries=recoveries, close_s=close_s, registry_counted=counted)
 
 
+# The config-file CLI (phase_config_registry): a fresh process that runs
+# the CLI's own entry point, main(), with the arguments a user passes; it
+# only lowers the tfd.lm logger to debug first, so that the log carries the
+# probe reports the gpu worker ships (their hbm_stream_sum launch counts).
+_CONFIG_CLI = (
+    "import logging, sys\n"
+    "logging.getLogger('tfd.lm').setLevel(logging.DEBUG)\n"
+    "from gpu_feature_discovery_tpu_torch.cmd.main import main\n"
+    "sys.argv = ['gpu-feature-discovery-torch'] + sys.argv[1:]\n"
+    "main()\n"
+)
+
+_CONFIG_FILE = """\
+version: v1
+flags:
+  tfd:
+    withBurnin: true
+    noTimestamp: false
+    sleepInterval: 1s
+    backends: {backends}
+    metricsAddr: 127.0.0.1
+    metricsPort: {port}
+    outputFile: {out}
+sharing:
+  timeSlicing:
+    resources:
+      - name: nvidia.com/gpu
+        replicas: {replicas}
+"""
+
+CPU_DEGRADED = "node.features/cpu.tfd.degraded"
+GPU_DEGRADED = "nvidia.com/gpu.tfd.degraded"
+# Failed cpu-family inits under the fault spec: with the registry's 1, 2, 4,
+# 8 s backoff the family stays down for some 25-40 s, past the gpu worker's
+# spawn and pre-warm, so gpu health labels publish while it is down.
+CPU_FAULT_SHOTS = 5
+
+
+def _spawned(log_path: str) -> dict:
+    """{backend: [(pid, ms), ...]} from the "broker worker ... ready in"
+    lines; the classic path's worker is keyed ''."""
+    out = {}
+    with open(log_path) as f:
+        for m in re.finditer(r"broker worker (\d+) ready in (\d+) ms"
+                             r"(?: for backend (\S+))?", f.read()):
+            out.setdefault(m.group(3) or "", []).append((int(m.group(1)), int(m.group(2))))
+    return out
+
+
+def _probe_reports(log_path: str) -> list:
+    """(launches in the probe, launches in its worker so far) per probe
+    report in the log."""
+    with open(log_path) as f:
+        text = f.read()
+    return [(int(a), int(b)) for a, b in re.findall(
+        r"'hbm_stream_sum_launches': (\d+).*?'hbm_stream_sum_launches_process': (\d+)",
+        text)]
+
+
+def _per_worker_totals(reports: list) -> list:
+    """The last process count of each worker: a report of at most 4 (the
+    warm-up plus one probe) opens a new worker; after it, 3 per probe."""
+    from gpu_feature_discovery_tpu_torch.ops import healthcheck
+
+    iters = healthcheck.PROBE_HBM_ITERS
+    totals = []
+    for per_probe, total in reports:
+        check(per_probe in (iters, iters + 1), f"launches per probe {reports}")
+        if total <= iters + 1:
+            totals.append(0)
+        check(bool(totals) and total == totals[-1] + (
+            iters + 1 if totals[-1] == 0 else iters), f"worker launch counts {reports}")
+        totals[-1] = total
+    return totals
+
+
+def _start_config_cli(tmp: str, name: str, text: str, env=None):
+    path = os.path.join(tmp, "tfd.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    log_path = os.path.join(tmp, f"{name}.log")
+    environ = dict(os.environ)
+    environ.pop("TFD_FAULT_SPEC", None)
+    environ.update(env or {})
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _CONFIG_CLI, "--config-file", path,
+             "--no-timestamp", "true"],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT, env=environ,
+        )
+    return proc, path, log_path
+
+
+def _stop_config_cli(proc, log_path: str, pids: list) -> None:
+    t_term = time.monotonic()
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    from gpu_feature_discovery_tpu_torch.sandbox import broker
+
+    _wait_for(lambda: all(_gone(p) for p in pids),
+              max(0.0, t_term + broker.GRACEFUL_CLOSE_S * len(pids) + 1.0
+                  - time.monotonic()),
+              f"no broker worker of {pids} alive after SIGTERM")
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    check(rc == 0, f"config CLI exited {rc}; log tail:\n{tail}")
+
+
+def phase_config_registry(entries: dict, product: str, smi: str) -> dict:
+    """The CLI started from a config file with ``backends: gpu,cpu`` and
+    one CLI flag the file contradicts (``--no-timestamp``): the file's
+    time-slicing replicas and -SHARED product, the CLI over the file, one
+    broker worker per family (only the gpu one maps CUDA and NVML, runs
+    the burn-in and launches hbm_stream_sum), ``tfd_backend_up`` per
+    family, then a live reload by atomic rename to ``replicas: 2`` and
+    ``backends: gpu``. A second CLI under ``pjrt_init.cpu:fail:<n>``
+    degrades the cpu family alone, and recovers."""
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    port = _free_port()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        out = os.path.join(tmp, "tfd")
+        fields = {"port": port, "out": out}
+        t0 = time.monotonic()
+        proc, path, log_path = _start_config_cli(
+            tmp, "registry", _CONFIG_FILE.format(backends="gpu,cpu", replicas=4, **fields))
+        pids = []
+        try:
+            first = _wait_for(lambda: (lambda l: l if _has_health(l) and
+                                       "node.features/cpu.count" in l else None)(
+                _read_labels(out)), 120.0, "config CLI: both families with health")
+            health_s = time.monotonic() - t0
+            want = {"nvidia.com/gpu.replicas": "4",
+                    "nvidia.com/gpu.product": f"{product}-SHARED",
+                    "node.features/cpu.count": "1", "node.features/cpu.product": "cpu"}
+            got = {k: first.get(k) for k in want}
+            check(got == want, f"the file's settings: {got}, want {want}")
+            check("google.com/tfd.timestamp" not in first,
+                  "--no-timestamp did not beat the file's noTimestamp: false")
+            check(not any(k.endswith(".tfd.degraded") for k in first),
+                  f"degraded markers in a healthy start: {sorted(first)}")
+            spawned = _spawned(log_path)
+            check(sorted(spawned) == ["cpu", "gpu"] and all(
+                len(v) == 1 for v in spawned.values()), f"workers spawned: {spawned}")
+            gpu_pid, cpu_pid = spawned["gpu"][0][0], spawned["cpu"][0][0]
+            pids = [gpu_pid, cpu_pid]
+            check(sorted(_children(proc.pid)) == sorted(pids),
+                  f"CLI children {_children(proc.pid)}, want the workers {pids}")
+            maps = {name: {lib: _maps_libcuda(pid, lib)
+                           for lib in ("libcuda.so", "libnvidia-ml.so")}
+                    for name, pid in (("cli", proc.pid), ("gpu_worker", gpu_pid),
+                                      ("cpu_worker", cpu_pid))}
+            check(maps["gpu_worker"] == {"libcuda.so": True, "libnvidia-ml.so": True}
+                  and not any(maps["cli"].values())
+                  and not any(maps["cpu_worker"].values()),
+                  f"CUDA and NVML mappings: {maps}")
+            check(not _maps_libcuda(cpu_pid, "libtorch"),
+                  "the cpu family's worker imported torch")
+
+            # A scrape's cost is the GET alone, as in daemon_cli.
+            scrape_ms = []
+            for _ in range(20):
+                t = time.perf_counter()
+                code, _ = _http(port, "GET", "/metrics")
+                scrape_ms.append((time.perf_counter() - t) * 1e3)
+                check(code == 200, f"/metrics answered {code}")
+            scraped = _scrape(port)
+            up = {b: scraped.get(("tfd_backend_up", f'{{backend="{b}"}}'))
+                  for b in ("gpu", "cpu")}
+            check(up == {"gpu": 1.0, "cpu": 1.0}, f"tfd_backend_up {up}")
+            # A second probe, so the worker's launch count shows 1 + 3k.
+            _wait_for(lambda: len(_probe_reports(log_path)) >= 2, 60.0,
+                      "two probe reports from the gpu worker")
+            before_reload = _per_worker_totals(_probe_reports(log_path))
+            check(len(before_reload) == 1, f"gpu workers {before_reload}")
+
+            # Live reload: the new file replaces the old by an atomic rename.
+            with open(path + ".new", "w") as f:
+                f.write(_CONFIG_FILE.format(backends="gpu", replicas=2, **fields))
+            n_reports = len(_probe_reports(log_path))
+            t_rename = time.monotonic()
+            os.replace(path + ".new", path)
+            reloaded = _wait_for(lambda: (lambda l: l if l.get(
+                "nvidia.com/gpu.replicas") == "2" else None)(_read_labels(out)),
+                60.0, "replicas 2 after the rename")
+            reload_labels_s = time.monotonic() - t_rename
+            check(not any(k.startswith("node.features/") for k in reloaded),
+                  f"cpu labels after the reload: {sorted(reloaded)}")
+            check(reloaded.get("nvidia.com/gpu.product") == f"{product}-SHARED",
+                  f"product after the reload {reloaded.get('nvidia.com/gpu.product')}")
+            _wait_for(lambda: _has_health(_read_labels(out)), 60.0,
+                      "health labels from the new gpu worker")
+            reload_health_s = time.monotonic() - t_rename
+            check(_gone(cpu_pid) and _gone(gpu_pid), "the first epoch's workers outlived it")
+            respawned = _spawned(log_path)
+            new_pid = respawned.get("", [(None, None)])[0][0]
+            check(new_pid is not None and _children(proc.pid) == [new_pid],
+                  f"workers after the reload {respawned}, children {_children(proc.pid)}")
+            pids.append(new_pid)
+            _wait_for(lambda: len(_probe_reports(log_path)) > n_reports, 60.0,
+                      "a probe report from the new worker")
+            # A report of at most 1 + 3 opens a worker: the count started again.
+            totals = _per_worker_totals(_probe_reports(log_path))
+            check(len(totals) == 2,
+                  f"the new worker's launch count did not start again: {totals}")
+            settled = _scrape(port)
+            wakes = settled.get(("tfd_reconcile_wakes_total", '{reason="config_changed"}'))
+            check(wakes == 1, f"config_changed wakes {wakes}")
+            with open(log_path) as f:
+                check("Config file changed, restarting." in f.read(),
+                      "no config-change restart in the log")
+        finally:
+            _stop_config_cli(proc, log_path, pids)
+        launches = sum(totals)
+
+        # The cpu family alone degrades, and recovers.
+        out2 = os.path.join(tmp, "faulted")
+        proc, _, log2 = _start_config_cli(
+            tmp, "faulted", _CONFIG_FILE.format(
+                backends="gpu,cpu", replicas=4, port=port, out=out2),
+            env={"TFD_FAULT_SPEC": f"pjrt_init.cpu:fail:{CPU_FAULT_SHOTS}"})
+        pids2 = []
+        try:
+            degraded = _wait_for(lambda: (lambda l: l if l.get(CPU_DEGRADED) == "true"
+                                          else None)(_read_labels(out2)),
+                                 120.0, "the cpu family's degraded marker")
+            check("node.features/cpu.count" not in degraded, "a down cpu family's count")
+            # The gpu family publishes fresh health while the cpu one is down.
+            both = _wait_for(lambda: (lambda l: l if _has_health(l) else None)(
+                _read_labels(out2)), 120.0, "gpu health labels beside the down cpu family")
+            scraped = _scrape(port)
+            during = {"cpu_degraded": both.get(CPU_DEGRADED),
+                      "gpu_degraded": both.get(GPU_DEGRADED),
+                      "up_cpu": scraped.get(("tfd_backend_up", '{backend="cpu"}')),
+                      "up_gpu": scraped.get(("tfd_backend_up", '{backend="gpu"}'))}
+            check(during == {"cpu_degraded": "true", "gpu_degraded": None,
+                             "up_cpu": 0.0, "up_gpu": 1.0},
+                  f"while the cpu family is down: {during}")
+            t_spent = time.monotonic()
+            recovered = _wait_for(lambda: (lambda l: l if CPU_DEGRADED not in l and
+                                           l.get("node.features/cpu.count") == "1"
+                                           else None)(_read_labels(out2)),
+                                  90.0, "the cpu family's recovery")
+            recover_s = time.monotonic() - t_spent
+            check(_has_health(recovered) and GPU_DEGRADED not in recovered,
+                  f"after the recovery: {sorted(recovered)}")
+            scraped = _scrape(port)
+            inits = {o: scraped.get(("tfd_backend_inits_total",
+                                     f'{{backend="cpu",outcome="{o}"}}'))
+                     for o in ("error", "ok")}
+            check(inits == {"error": float(CPU_FAULT_SHOTS), "ok": 1.0},
+                  f"tfd_backend_inits_total for cpu {inits}")
+            check(scraped.get(("tfd_backend_up", '{backend="cpu"}')) == 1.0,
+                  "tfd_backend_up cpu after the recovery")
+            pids2 = [pid for v in _spawned(log2).values() for pid, _ in v]
+        finally:
+            _stop_config_cli(proc, log2, pids2)
+    emit("config_registry", nvidia_smi=smi,
+         worker_spawn_ms={b: [ms for _, ms in v] for b, v in spawned.items()},
+         reload_worker_spawn_ms=[ms for _, ms in respawned.get("", [])],
+         first_health_s=health_s, maps=maps,
+         scrape_ms_median=statistics.median(scrape_ms), scrape_ms_max=max(scrape_ms),
+         launches_per_worker=totals, launches_before_reload=before_reload,
+         rename_to_labels_s=reload_labels_s, rename_to_health_s=reload_health_s,
+         faulted_cpu_inits=inits, faulted_recovery_after_gpu_health_s=recover_s)
+    entries["hbm_stream_sum"]["config_registry_launches"] = launches
+    return {"rename_to_labels_s": reload_labels_s}
+
+
 def main() -> int:
     import importlib.util
 
@@ -1581,6 +1869,8 @@ def main() -> int:
          gpu_acquire_ms=cli["first_cycle"]["gpu.acquire"],
          restart_to_labels_s=cli["restart_to_labels_s"])
     phase_broker(entries, info["count"], facts["labels"])
+    phase_config_registry(entries, facts["labels"]["nvidia.com/gpu.product"],
+                          info["nvidia_smi"])
     # What serving and recording metrics cost, beside the card.
     emit("metrics", nvidia_smi=info["nvidia_smi"],
          scrape_ms_median=statistics.median(cli["scrape_ms"]),

@@ -7,20 +7,22 @@ the daemon loop blocks on ONE event queue instead of sleeping:
 - **Producers** post :class:`Event`\\ s: the OS signal watcher through
   :class:`SignalForwarder`, the broker-worker death watch
   (``WORKER_DIED`` the moment the long-lived worker exits uncommanded,
-  sandbox/broker.py; posted by cmd/main.run), and the loop's own
+  sandbox/broker.py; posted by cmd/main.run), the config-file stat
+  watcher (:class:`ConfigFileWatcher` posts ``CONFIG_CHANGED``: a
+  ConfigMap remount reloads the daemon without a SIGHUP), the loop's own
   :class:`DeltaTracker` (``HEALTH_DELTA`` when a health verdict moves
   between cycles), and the introspection server's authenticated
-  ``POST /probe`` (``PROBE_REQUEST``, obs/server.py). The twin's
-  config-file and peer producers belong to later slices of this port.
+  ``POST /probe`` (``PROBE_REQUEST``, obs/server.py). The twin's peer
+  producers belong to a later slice of this port.
 - **The wait** (:meth:`ReconcileLoop.wait_for_wake`) has a deadline of
   ``--max-staleness`` (default: the sleep interval); the deadline
   expiring IS a wake, so the interval survives as a guarantee.
 - **Coalescing**: a debounce window (``--reconcile-debounce``) absorbs
   the rest of a burst, and a token bucket (``--max-probe-rate``) defers
   wakes beyond the rate; the staleness deadline always dominates.
-- **Decisions preempt**: a forwarded SIGHUP/SIGTERM returns
-  restart/shutdown from ANY wait, the failed-cycle backoff included
-  (:meth:`ReconcileLoop.wait_backoff`).
+- **Decisions preempt**: a forwarded SIGHUP/SIGTERM or a
+  ``CONFIG_CHANGED`` returns restart/shutdown from ANY wait, the
+  failed-cycle backoff included (:meth:`ReconcileLoop.wait_backoff`).
 
 ``--reconcile=interval`` constructs none of this.
 """
@@ -28,6 +30,7 @@ the daemon loop blocks on ONE event queue instead of sleeping:
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import signal
 import threading
@@ -51,6 +54,7 @@ log = logging.getLogger("tfd.events")
 # Wake reasons: the tfd_reconcile_wakes_total{reason} vocabulary.
 REASON_SIGNAL = "signal"
 REASON_WORKER_DIED = "worker_died"
+REASON_CONFIG_CHANGED = "config_changed"
 REASON_HEALTH_DELTA = "health_delta"
 REASON_PROBE_REQUEST = "probe_request"
 REASON_STALENESS_BOUND = "staleness_bound"
@@ -58,6 +62,10 @@ REASON_STALENESS_BOUND = "staleness_bound"
 # Token-bucket burst allowance: a short legitimate burst runs its cycles
 # back to back; anything past it drains at --max-probe-rate.
 PROBE_BURST = 3.0
+
+# How often the config-file watcher re-stats the file: reload latency on a
+# human scale for one stat() a second.
+CONFIG_POLL_S = 1.0
 
 
 def resolve_reconcile_mode(config) -> str:
@@ -159,6 +167,49 @@ class SignalForwarder:
                 return
             if event.reason == REASON_SIGNAL:
                 self._sigs.put(event.signum)
+
+
+class ConfigFileWatcher:
+    """Posts ``CONFIG_CHANGED`` when the config file's (mtime, size,
+    inode) signature moves. One event per watcher: the reload rebuilds the
+    epoch and its watcher, so one changed file never storms the queue. A
+    missing file is a signature of its own, so a file that comes back (a
+    ConfigMap remount) is a change; an atomic rename or a symlink swap
+    moves the inode."""
+
+    def __init__(self, path: str, events: EventQueue, poll_s: Optional[float] = None):
+        self._path = path
+        self._events = events
+        self._poll_s = poll_s if poll_s is not None else CONFIG_POLL_S
+        self._stop = threading.Event()
+        self._signature = self._stat()
+        self._thread = threading.Thread(
+            target=self._run, name="tfd-config-watcher", daemon=True
+        )
+
+    def _stat(self):
+        try:
+            st = os.stat(self._path)
+        except OSError:
+            return None
+        return (st.st_mtime_ns, st.st_size, st.st_ino)
+
+    def start(self) -> "ConfigFileWatcher":
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._poll_s):
+            current = self._stat()
+            if current != self._signature:
+                self._signature = current
+                log.info("config file %s changed; requesting reload", self._path)
+                self._events.post(Event(REASON_CONFIG_CHANGED, detail=self._path))
+                return
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
 
 
 # Labels whose movement means the node's HEALTH VERDICT changed. Not the
@@ -270,8 +321,8 @@ class ReconcileLoop:
         self._bucket = TokenBucket(max_probe_rate, burst, clock)
 
     def _decision_for(self, event: Event) -> Optional[str]:
-        """Restart/shutdown for a signal event, None for a wake event
-        (cmd/main._check_signal's vocabulary)."""
+        """Restart/shutdown for a signal or a config change, None for a
+        wake event (cmd/main._check_signal's vocabulary)."""
         if event.reason == REASON_SIGNAL:
             obs_metrics.RECONCILE_WAKES.labels(reason=REASON_SIGNAL).inc()
             if event.signum == signal.SIGHUP:
@@ -279,6 +330,10 @@ class ReconcileLoop:
                 return "restart"
             log.info("Received signal %s, shutting down.", event.signum)
             return "shutdown"
+        if event.reason == REASON_CONFIG_CHANGED:
+            obs_metrics.RECONCILE_WAKES.labels(reason=REASON_CONFIG_CHANGED).inc()
+            log.info("Config file changed, restarting.")
+            return "restart"
         return None
 
     def wait_for_wake(self) -> Wake:
@@ -341,7 +396,8 @@ class ReconcileLoop:
 
     def wait_backoff(self, delay: float) -> Optional[str]:
         """The failed-cycle retry wait: up to ``delay`` seconds, returning
-        a decision IMMEDIATELY on a forwarded signal. Ordinary events are
+        a decision IMMEDIATELY on a forwarded signal or a config change.
+        Ordinary events are
         absorbed: the retry cycle satisfies them."""
         deadline = self._clock() + delay
         while True:

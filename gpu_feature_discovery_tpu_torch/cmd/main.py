@@ -3,10 +3,14 @@
 
 ``start(argv)`` parses the flags (each with its ``TFD_*`` alias), installs
 the OS signal watcher and runs the config-reload loop: every SIGHUP
-starts a new epoch with a fresh config, burn-in schedule, engine and
-supervisor. ``run()`` is one epoch: generate → atomic write → wait, until
-a signal. SIGTERM/SIGINT end the process with exit 0 and remove the
-output file; ``--oneshot`` runs one cycle and leaves the file for NFD.
+starts a new epoch with a fresh config (CLI > env > ``--config-file`` >
+default), burn-in schedule, engine and supervisor. Under
+``--reconcile=event`` (the daemon's default) each epoch also watches the
+config file and reloads when it changes, as a ConfigMap remount changes
+it; under ``--reconcile=interval`` the file is reloaded on SIGHUP only.
+``run()`` is one epoch: generate → atomic write → wait, until a signal.
+SIGTERM/SIGINT end the process with exit 0 and remove the output file;
+``--oneshot`` runs one cycle and leaves the file for NFD.
 
 The daemon is supervised (cmd/supervisor.py): degraded labels while the
 backend will not init, last-good re-serve when a cycle fails, escalation
@@ -36,10 +40,14 @@ records the cycle outcomes, the label writes it tells the server about,
 ``tfd_restart_to_labels_seconds`` (once per process) and
 ``tfd_wake_to_labels_seconds``.
 
-Left for a later slice, and refused with an error that names it rather
-than falling back: ``--config-file`` (the YAML config slice). The
-twin's slice coordinator, actuation engine and multi-backend registry
-have no counterpart yet.
+With a ``--backends`` list that names the cpu family (``gpu,cpu``) the
+cycle runs the multi-backend registry (resource/registry.py): each
+family is acquired, through its own broker worker under the daemon, with
+its own retries, and a family that will not init publishes only its own
+``<family>.tfd.degraded`` marker while the other stays fresh. The twin's
+slice coordinator and actuation engine have no counterpart yet; their
+config-file keys are refused with the slice that brings them
+(config/spec.py).
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ from gpu_feature_discovery_tpu_torch.config.flags import (
     DEFAULT_MAX_PROBE_RATE,
     DEFAULT_RECONCILE_DEBOUNCE,
     FLAG_DEFS,
+    disable_resource_renaming,
     env_flag,
     new_config,
     resolve_compilation_cache_dir,
@@ -80,14 +89,16 @@ from gpu_feature_discovery_tpu_torch.lm.interconnect import InterconnectLabeler
 from gpu_feature_discovery_tpu_torch.lm.labeler import Labeler
 from gpu_feature_discovery_tpu_torch.lm.labelers import (
     degraded_label_sources,
+    multi_backend_label_sources,
     new_label_sources,
 )
 from gpu_feature_discovery_tpu_torch.lm.labels import remove_output_file
+from gpu_feature_discovery_tpu_torch.lm.pjrt_family import FAMILY_DEGRADED_LABELS
 from gpu_feature_discovery_tpu_torch.lm.timestamp import new_timestamp_labeler
 from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
 from gpu_feature_discovery_tpu_torch.ops import kernel_cache
 from gpu_feature_discovery_tpu_torch.pci.pciutil import MockNvidiaPCI, SysfsNvidiaPCI
-from gpu_feature_discovery_tpu_torch.resource import factory
+from gpu_feature_discovery_tpu_torch.resource import factory, registry
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
 from gpu_feature_discovery_tpu_torch.sandbox.flap import FlapDamper
 from gpu_feature_discovery_tpu_torch.utils import faults
@@ -135,7 +146,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
             )
     parser.add_argument(
         "--config-file", dest="config-file", default=None,
-        help="not available in this port yet (the config-file slice)",
+        help="path to a YAML or JSON config file (version v1): flags under "
+        "flags / flags.tfd (camelCase, e.g. withBurnin, sleepInterval, "
+        "backends) and the sharing.timeSlicing section (replicas per GPU); "
+        "CLI flags and TFD_* environment variables win over it. Also "
+        "TFD_CONFIG_FILE or CONFIG_FILE. Under --reconcile=event the daemon "
+        "reloads when the file changes",
     )
     parser.add_argument("--debug", action="store_true", help="enable debug logging")
     return parser
@@ -153,17 +169,14 @@ def new_os_watcher() -> "queue.SimpleQueue[int]":
     return sigs
 
 
-def _check_slice_scope(config: Config, config_file: Optional[str]) -> None:
-    """Refuse what this port does not run yet, naming the slice."""
-    if config_file:
-        raise ConfigError(
-            "--config-file / TFD_CONFIG_FILE is not ported yet (the "
-            "config-file slice of the PyTorch port); pass flags or TFD_* "
-            "environment variables"
-        )
-    # The token alone: under the broker, detection (NVML) runs in the
-    # worker, never in this process.
-    factory.validate_backends(config)
+def load_config(cli_values: dict, config_file: Optional[str]) -> Config:
+    """loadConfig (main.go:96-107): build and validate, then zero the
+    feature-gated sections."""
+    config = new_config(
+        cli_values=cli_values, environ=dict(os.environ), config_file=config_file
+    )
+    disable_resource_renaming(config, log.warning)
+    return config
 
 
 def start(argv: Optional[list] = None) -> int:
@@ -185,8 +198,7 @@ def start(argv: Optional[list] = None) -> int:
         while True:
             log.info("Loading configuration.")
             try:
-                config = new_config(cli_values=cli_values, environ=dict(os.environ))
-                _check_slice_scope(config, config_file)
+                config = load_config(cli_values, config_file)
             except ConfigError as e:
                 log.error("unable to load config: %s", e)
                 return 1
@@ -199,8 +211,13 @@ def start(argv: Optional[list] = None) -> int:
                 if config.flags.tfd.oneshot:
                     # The twin's oneshot: the fallback-to-null wrapper
                     # under --fail-on-init-error=false, else strict
-                    # error-to-exit, so a one-off Job fails loudly.
-                    restart = run(factory.new_manager(config), config, sigs)
+                    # error-to-exit, so a one-off Job fails loudly. A
+                    # registry list acquires inside run(), strictly.
+                    manager = (
+                        None if registry.multi_backend_tokens(config)
+                        else factory.new_manager(config)
+                    )
+                    restart = run(manager, config, sigs)
                 else:
                     restart = run(
                         lambda: factory.build_manager(config),
@@ -208,6 +225,7 @@ def start(argv: Optional[list] = None) -> int:
                         sigs,
                         supervisor=Supervisor(config),
                         process_state=process_state,
+                        config_file=config_file,
                     )
             except Exception as e:  # noqa: BLE001 - error-to-exit, like the twin
                 log.error("Error: %s", e)
@@ -318,12 +336,13 @@ def _wait_for_signal(sigs: "queue.SimpleQueue[int]", duration: float) -> Optiona
 
 
 def run(
-    manager_or_factory: Union[Manager, Callable[[], Manager]],
+    manager_or_factory: Union[Manager, Callable[[], Manager], None],
     config: Config,
     sigs: "queue.SimpleQueue[int]",
     supervisor: Optional[Supervisor] = None,
     process_state: Optional[dict] = None,
     interconnect: Optional[Labeler] = None,
+    config_file: Optional[str] = None,
 ) -> bool:
     """One config epoch. Returns True to request a reload (SIGHUP), False
     for a clean exit.
@@ -341,7 +360,16 @@ def run(
     restore, which is for process (re)starts.
 
     ``interconnect`` defaults to the epoch's own PCI labeler
-    (``new_interconnect_labeler``)."""
+    (``new_interconnect_labeler``).
+
+    With a registry list (``--backends gpu,cpu``) ``manager_or_factory``
+    is ignored (oneshot callers may pass None): each backend is acquired
+    per cycle by its BackendRuntime, and a family that will not init
+    degrades alone.
+
+    ``config_file`` is the path the config was loaded from; under
+    ``--reconcile=event`` a stat watcher on it posts CONFIG_CHANGED, and
+    the epoch ends for a reload as on SIGHUP."""
     tfd = config.flags.tfd
     # The kernel cache (--compilation-cache-dir), resolved per config
     # epoch and exported through the environment, so the broker worker
@@ -360,6 +388,11 @@ def run(
     supervised = not oneshot
     if supervised and supervisor is None:
         supervisor = Supervisor(config)
+    # The registry cycle: every --backends family through one engine pass.
+    backend_tokens = registry.multi_backend_tokens(config)
+    backend_set = (
+        registry.BackendSet(backend_tokens, config) if backend_tokens else None
+    )
     # A failure before this epoch's first write must not clobber a
     # previous epoch's still-valid file; once this epoch owns the file its
     # markers stay current.
@@ -384,6 +417,7 @@ def run(
     engine = new_label_engine(config)
     event_loop = None
     forwarder = None
+    config_watcher = None
     delta_tracker = None
     probe_request = None
     if supervised and (
@@ -405,6 +439,10 @@ def run(
         delta_tracker = reconcile_events.DeltaTracker(events_q)
         # The signal watcher becomes one producer among several.
         forwarder = reconcile_events.SignalForwarder(sigs, events_q).start()
+        if config_file:
+            config_watcher = reconcile_events.ConfigFileWatcher(
+                config_file, events_q
+            ).start()
 
         def probe_request():
             events_q.post(reconcile_events.Event(reconcile_events.REASON_PROBE_REQUEST))
@@ -427,7 +465,8 @@ def run(
         # behind it. Stood down under fault injection: a pre-spawn would
         # consume an injected shot outside the supervisor's accounting.
         if (
-            make_manager is not None
+            backend_set is None
+            and make_manager is not None
             and sandbox.broker_enabled(config)
             and not faults.active()
         ):
@@ -463,37 +502,61 @@ def run(
             cycle_mode = "full"
             try:
                 with timed("labelgen.total"):
-                    if current is None and make_manager is not None:
-                        # The backend's first init pays the import of torch
-                        # and the CUDA runtime's set-up: in this process,
-                        # or in the spawn of the broker worker.
-                        with timed("gpu.acquire"):
-                            current = (
-                                supervisor.acquire_manager(make_manager)
-                                if supervised
-                                else make_manager()
-                            )
-                    if current is None:
-                        # Backend down: the non-device facts plus the
-                        # degraded marker, never nothing.
-                        cycle_mode = "degraded"
-                        labels = engine.generate(degraded_label_sources(
-                            config, timestamp=timestamp_labeler,
-                            interconnect=interconnect,
-                        ))
-                        labels[DEGRADED_LABEL] = "true"
-                    else:
-                        # init() runs inside new_label_sources; its errors
-                        # propagate before shutdown is owed.
-                        sources = new_label_sources(
-                            current, config, timestamp=timestamp_labeler,
-                            interconnect=interconnect,
+                    if backend_set is not None:
+                        # Per-backend acquisition: a backend that will not
+                        # init contributes no source and only its family's
+                        # degraded marker; the others publish fresh.
+                        sources, down_families = multi_backend_label_sources(
+                            backend_set, config, timestamp=timestamp_labeler,
+                            interconnect=interconnect, strict=not supervised,
                         )
+                        if supervised:
+                            # Fail-fast only with nothing left to publish.
+                            backend_set.check_escalation()
                         try:
                             labels = engine.generate(sources)
                         finally:
-                            with timed("gpu.shutdown"):
-                                current.shutdown()
+                            for rt in backend_set.runtimes:
+                                if rt.manager is not None:
+                                    with timed(f"{rt.family}.shutdown"):
+                                        rt.manager.shutdown()
+                        for family in down_families:
+                            labels[FAMILY_DEGRADED_LABELS[family]] = "true"
+                        obs_metrics.DEGRADED.set(1 if down_families else 0)
+                        if down_families:
+                            cycle_mode = "degraded"
+                    else:
+                        if current is None and make_manager is not None:
+                            # The backend's first init pays torch's import
+                            # and CUDA's set-up: in this process, or in the
+                            # spawn of the broker worker.
+                            with timed("gpu.acquire"):
+                                current = (
+                                    supervisor.acquire_manager(make_manager)
+                                    if supervised
+                                    else make_manager()
+                                )
+                        if current is None:
+                            # Backend down: the non-device facts plus
+                            # the degraded marker, never nothing.
+                            cycle_mode = "degraded"
+                            labels = engine.generate(degraded_label_sources(
+                                config, timestamp=timestamp_labeler,
+                                interconnect=interconnect,
+                            ))
+                            labels[DEGRADED_LABEL] = "true"
+                        else:
+                            # init() runs inside new_label_sources; its
+                            # errors propagate before shutdown is owed.
+                            sources = new_label_sources(
+                                current, config, timestamp=timestamp_labeler,
+                                interconnect=interconnect,
+                            )
+                            try:
+                                labels = engine.generate(sources)
+                            finally:
+                                with timed("gpu.shutdown"):
+                                    current.shutdown()
 
                 if len(labels) <= 1:
                     log.warning("no labels generated from any source")
@@ -529,6 +592,9 @@ def run(
                 if not supervised:
                     raise
                 delay = supervisor.cycle_failed(e)  # raises at the bound
+                if backend_set is not None:
+                    # Any enabled backend may be the broken part.
+                    backend_set.release_all()
                 if make_manager is not None:
                     # The backend may be the broken part: release it and go
                     # back through acquisition next cycle.
@@ -623,6 +689,10 @@ def run(
         # next epoch's reader.
         if forwarder is not None:
             forwarder.stop()
+        if config_watcher is not None:
+            config_watcher.stop()
+        if backend_set is not None:
+            backend_set.close()
         sandbox.set_broker_death_watch(False)
         engine.close()
         # The broker worker is epoch-scoped: closed GRACEFULLY (shutdown

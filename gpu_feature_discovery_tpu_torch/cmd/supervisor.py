@@ -61,8 +61,6 @@ DEGRADED_LABEL = "nvidia.com/gpu.tfd.degraded"
 UNHEALTHY_CYCLES_LABEL = "nvidia.com/gpu.tfd.unhealthy-cycles"
 # The published labels are restored state from a previous run.
 RESTORED_LABEL = "nvidia.com/gpu.tfd.restored"
-# The device-carrying key: only sets that hold it are persisted.
-COUNT_LABEL = "nvidia.com/gpu.count"
 
 # Backoff base for init re-attempts and failed-cycle retries; the cap
 # comes from --init-backoff-max.
@@ -224,6 +222,8 @@ class Supervisor:
     def _strip_markers(labels: Labels) -> Labels:
         """Drop every status marker: a remembered copy re-applies only
         what is true at re-serve time."""
+        from gpu_feature_discovery_tpu_torch.lm.pjrt_family import FAMILY_DEGRADED_LABELS
+
         cleaned = Labels(labels)
         for marker in (
             UNHEALTHY_CYCLES_LABEL,
@@ -231,6 +231,8 @@ class Supervisor:
             RESTORED_LABEL,
             STALE_SOURCES_LABEL,
             FLAPPING_LABEL,
+            # The registry cycle's per-family markers: one cycle's truth.
+            *FAMILY_DEGRADED_LABELS.values(),
         ):
             cleaned.pop(marker, None)
         return cleaned
@@ -252,9 +254,13 @@ class Supervisor:
             self._restored = False
             obs_metrics.RESTORED.set(0)
             log.info("first live full cycle completed; %s cleared", RESTORED_LABEL)
-        if self._state_store is not None and COUNT_LABEL in remembered:
-            # A device-less "full" set must never clobber a persisted
-            # inventory.
+        from gpu_feature_discovery_tpu_torch.lm.pjrt_family import FAMILY_COUNT_KEYS
+
+        if self._state_store is not None and any(
+            key in remembered for key in FAMILY_COUNT_KEYS.values()
+        ):
+            # Only a set that inventories a device family is persisted: a
+            # device-less "full" set must never clobber an inventory.
             self._state_store.save(remembered)
 
     def cycle_failed(self, error: BaseException) -> float:

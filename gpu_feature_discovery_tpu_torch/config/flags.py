@@ -1,10 +1,12 @@
-"""Flag table + CLI > env > default precedence (twin:
+"""Flag table + CLI > env > config file > default precedence (twin:
 ``gpu_feature_discovery_tpu/config/flags.py``).
 
 Each flag keeps its twin's spelling, its ``TFD_*`` environment alias and
 its default. Only the flags of the burn-in cycle, the supervised daemon
-loop, the probe sandbox, the host facts and the introspection server are
-here.
+loop, the probe sandbox, the host facts, the introspection server and
+the multi-backend registry are here; the config file
+(``--config-file`` / ``TFD_CONFIG_FILE``, config/spec.py) sets the same
+flags under their camelCase keys.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from gpu_feature_discovery_tpu_torch.config.spec import (
     Config,
     ConfigError,
     parse_bool as _parse_bool,
+    parse_config_file,
     parse_fraction as _parse_fraction,
     parse_nonneg_int as _parse_nonneg_int,
     parse_positive_float as _parse_positive_float,
@@ -65,8 +68,8 @@ DEFAULT_MAX_PROBE_RATE = 1.0
 # cap (0 = never).
 DEFAULT_PROBE_TIMEOUT = 30.0
 DEFAULT_BROKER_MAX_REQUESTS = 0
-# The twin reads its YAML config file from --config-file or these; this
-# port refuses both until the config-file slice (cmd/main.py).
+# --config-file itself (env TFD_CONFIG_FILE / CONFIG_FILE) is resolved by
+# the caller before new_config, as in the twin.
 CONFIG_FILE_ENV_VARS = ("TFD_CONFIG_FILE", "CONFIG_FILE")
 # Kernel-build cache (ops/kernel_cache.py): 'auto' follows --state-dir.
 DEFAULT_COMPILATION_CACHE_DIR = "auto"
@@ -187,11 +190,18 @@ FLAG_DEFS: List[FlagDef] = [
             "published as nvidia.com/gpu.straggler-chip",
             "straggler_threshold"),
     FlagDef("backends", ("TFD_BACKENDS",), str, "auto",
-            "device backend: 'auto' (default: CUDA devices when NVML loads "
-            "or NVIDIA display functions are on the PCI bus, else none), "
-            "'gpu' (CUDA devices), 'native' (NVML only, no CUDA context), "
-            "'null' (no devices), 'mock-gpu[:<n>]' (n static devices) or "
-            "'mock-nvml:<layout>' (a recorded H100 inventory)", "backends"),
+            "comma-separated backend tokens, one per label family "
+            "(resource/registry.py). The gpu family (nvidia.com/gpu.*): "
+            "'auto' (default: CUDA devices when NVML loads or NVIDIA display "
+            "functions are on the PCI bus, else none), 'gpu' (CUDA devices), "
+            "'native' (NVML only, no CUDA context), 'null' (no devices), "
+            "'mock-gpu[:<n>]' (n static devices) or 'mock-nvml:<layout>' (a "
+            "recorded H100 inventory); the cpu family (node.features/cpu.*): "
+            "'cpu' or 'mock-cpu[:<n>]'. One gpu-family token alone is the "
+            "single-backend path; a list with the cpu family runs each family "
+            "with its own init retries, broker worker and degraded marker. "
+            "TFD_BACKEND (singular) forces one gpu-family backend instead",
+            "backends"),
     FlagDef("probe-timeout", ("TFD_PROBE_TIMEOUT",), parse_duration,
             DEFAULT_PROBE_TIMEOUT,
             "hard wall-clock budget (Go duration, e.g. 30s) of a probe "
@@ -326,25 +336,29 @@ FLAG_DEFS: List[FlagDef] = [
 def new_config(
     cli_values: Optional[Dict[str, Any]] = None,
     environ: Optional[Dict[str, str]] = None,
+    config_file: Optional[str] = None,
 ) -> Config:
-    """Build the Config with (1) CLI > (2) env > (3) default precedence.
-    ``cli_values`` holds only flags the user explicitly passed; values
-    arrive pre-parsed or as raw strings."""
+    """Build the Config with (1) CLI > (2) env > (3) config file > (4)
+    default precedence (config.go:40-57 + flags.go:29-40). ``cli_values``
+    holds only flags the user explicitly passed; values arrive pre-parsed
+    or as raw strings."""
     cli_values = cli_values or {}
     environ = environ if environ is not None else {}
-    config = Config()
+    config = parse_config_file(config_file) if config_file else Config()
     tfd = config.flags.tfd
     for fd in FLAG_DEFS:
         target = config.flags if fd.on_flags else tfd
         if fd.name in cli_values:
-            value = fd.parse(cli_values[fd.name])
-        else:
-            env_val = next(
-                (environ[e] for e in fd.env_vars if environ.get(e) not in (None, "")),
-                None,
-            )
-            value = fd.parse(env_val) if env_val is not None else fd.default
-        setattr(target, fd.attr, value)
+            setattr(target, fd.attr, fd.parse(cli_values[fd.name]))
+            continue
+        env_val = next(
+            (environ[e] for e in fd.env_vars if environ.get(e) not in (None, "")),
+            None,
+        )
+        if env_val is not None:
+            setattr(target, fd.attr, fd.parse(env_val))
+        elif getattr(target, fd.attr) is None:
+            setattr(target, fd.attr, fd.default)
     strategy = config.flags.tpu_topology_strategy
     if strategy not in TOPOLOGY_STRATEGIES:
         raise ConfigError(
@@ -361,7 +375,33 @@ def new_config(
                 f"invalid {attr.replace('_', '-')}: {getattr(tfd, attr)!r} "
                 f"(want one of {modes})"
             )
+    # Deferred: the registry (resource/) sits above the config layer.
+    from gpu_feature_discovery_tpu_torch.resource.registry import parse_backends_value
+
+    parse_backends_value(tfd.backends or "auto")
     return config
+
+
+def disable_resource_renaming(config: Config, log: Callable[[str], None]) -> None:
+    """Feature-gate resource renaming, as disableResourceRenamingInConfig
+    (main.go:236-270) does: warn and zero the unsupported fields."""
+    if config.resources:
+        log("Customizing the 'resources' field is not yet supported in the config. Ignoring...")
+        config.resources = {}
+    rename_by_default = config.sharing.time_slicing.rename_by_default
+    sets_non_default_rename = False
+    for r in config.sharing.time_slicing.resources:
+        if not rename_by_default and r.rename:
+            sets_non_default_rename = True
+            r.rename = ""
+        if rename_by_default and r.rename != r.name + ".shared":
+            sets_non_default_rename = True
+            r.rename = r.name + ".shared"
+    if sets_non_default_rename:
+        log(
+            "Setting the 'rename' field in sharing.timeSlicing.resources is not yet "
+            "supported in the config. Ignoring..."
+        )
 
 
 def resolve_compilation_cache_dir(config: Config) -> str:

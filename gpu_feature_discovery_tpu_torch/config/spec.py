@@ -1,18 +1,26 @@
 """Configuration spec (twin: ``gpu_feature_discovery_tpu/config/spec.py``).
 
-Trimmed to the flags of the oneshot ``--with-burnin`` cycle, the
-supervised daemon loop and the host facts, plus the twin's sharing
-section (time-slicing replicas). Every flag starts as ``None`` ("not set
-anywhere yet"); the flag layer (config/flags.py) fills CLI > environment
-> default. The twin's YAML config file, which is where a sharing section
-comes from, is a later slice: until then ``sharing`` stays empty unless
-an embedder fills it.
+The versioned config document ``{version, flags, resources, sharing}``,
+trimmed to the flags this port has. Every flag starts as ``None`` ("not
+set anywhere yet"); the flag layer (config/flags.py) fills CLI >
+environment > config file > default. ``parse_config_file`` reads the
+twin's YAML (or JSON) config file through the port's own parser of the
+YAML subset it uses (config/yaml_subset.py): the ``flags`` and
+``flags.tfd`` keys of every flag here, and the ``sharing.timeSlicing``
+section, the only place a time-slicing contract (replicas per GPU, the
+``-SHARED`` product) can come from.
+
+A flag's key is its name in camelCase (``file_key``); a key the twin
+reads for a flag this port does not have yet is refused with the slice
+that will bring it, never dropped (``UNPORTED_FILE_KEYS``).
 """
 
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
+
+VERSION = "v1"
 
 # MIG exposure strategies, spelled as the twin's topology strategies
 # (reference: internal/lm/mig-strategy.go:29-33): ``none`` publishes
@@ -108,7 +116,8 @@ class TfdFlags:
     burnin_interval: Optional[int] = None  # probe every Nth cycle
     chip_probes: Optional[bool] = None
     straggler_threshold: Optional[float] = None  # fraction of median, (0,1)
-    backends: Optional[str] = None  # "auto" | "gpu" | "mock-gpu[:<n>]"
+    # Backend tokens, one per label family (resource/registry.py).
+    backends: Optional[str] = None  # e.g. "gpu,cpu" | "auto"
     probe_isolation: Optional[str] = None  # none | subprocess | auto
     probe_broker: Optional[str] = None  # on | off | auto
     # Hard wall-clock budget of a probe child, a broker spawn and each
@@ -157,6 +166,10 @@ class Flags:
 class Config:
     flags: Flags = field(default_factory=Flags)
     sharing: Sharing = field(default_factory=Sharing)
+    version: str = VERSION
+    # Feature-gated off, as in the twin: load_config warns and empties it
+    # (config/flags.py disable_resource_renaming).
+    resources: Dict[str, Any] = field(default_factory=dict)
 
 
 class ConfigError(Exception):
@@ -173,7 +186,12 @@ def config_from_dict(d: dict) -> Config:
     """Inverse of config_to_dict."""
     flags = dict(d["flags"])
     flags["tfd"] = TfdFlags(**flags["tfd"])
-    return Config(flags=Flags(**flags), sharing=Sharing.from_dict(d.get("sharing") or {}))
+    return Config(
+        flags=Flags(**flags),
+        sharing=Sharing.from_dict(d.get("sharing") or {}),
+        version=d.get("version") or VERSION,
+        resources=d.get("resources") or {},
+    )
 
 
 def parse_bool(value: Any) -> bool:
@@ -231,3 +249,116 @@ def parse_positive_float(value: Any) -> float:
     if f <= 0.0:
         raise ConfigError(f"value must be > 0: {value!r}")
     return f
+
+
+# -- the config file (twin config/spec.py parse_config_file) -----------------
+
+def file_key(flag_name: str) -> Tuple[str, str]:
+    """(section, key) of a flag in the config file: its name in camelCase
+    (``with-burnin`` → ``withBurnin``) under ``flags.tfd``, or under
+    ``flags`` for the twin's common flags. The twin keeps
+    failOnInitError on Flags; this port keeps it on Flags.tfd."""
+    first, *rest = flag_name.split("-")
+    key = first + "".join(part.capitalize() for part in rest)
+    common = ("tpu-topology-strategy", "native-enumeration", "fail-on-init-error")
+    return ("flags" if flag_name in common else "tfd"), key
+
+
+# Keys the twin reads for flags this port does not have, and where each
+# comes from (ROADMAP.md queue 1).
+_PEERING = "the slice and peer coordination slice (ROADMAP.md queue 1, item 6)"
+_ACTUATION = "the actuation slice (ROADMAP.md queue 1, item 7)"
+_TPU_ONLY = ("no slice: it configures libtpu's PJRT client, which a CUDA node "
+             "does not have")
+UNPORTED_FILE_KEYS: Dict[Tuple[str, str], str] = {
+    ("flags", "libtpuPath"): _TPU_ONLY,
+    ("flags", "pjrtCreateOptions"): _TPU_ONLY,
+    ("tfd", "sliceCoordination"): _PEERING,
+    ("tfd", "peerTimeout"): _PEERING,
+    ("tfd", "peerFanout"): _PEERING,
+    ("tfd", "cohortSize"): _PEERING,
+    ("tfd", "peerToken"): _PEERING,
+    ("tfd", "pushNotify"): _PEERING,
+    ("tfd", "actuation"): _ACTUATION,
+    ("tfd", "actuationWindow"): _ACTUATION,
+    ("tfd", "maxActuatedFraction"): _ACTUATION,
+}
+
+
+def _mapping(value: Any, where: str) -> Dict[Any, Any]:
+    """A section of the file: a mapping, or empty for null (the twin's
+    ``x or {}``)."""
+    if not value:
+        return {}
+    if not isinstance(value, dict):
+        raise ConfigError(f"{where} must be a mapping, got {type(value).__name__}")
+    return value
+
+
+def sharing_from_file(d: Any) -> Sharing:
+    """The file's ``sharing`` section (camelCase keys), read as the
+    twin's ``Sharing.from_dict`` reads it."""
+    ts = _mapping(_mapping(d, "sharing").get("timeSlicing"), "sharing.timeSlicing")
+    resources = []
+    for r in ts.get("resources", []) or []:
+        r = _mapping(r, "sharing.timeSlicing.resources[]")
+        try:
+            replicas = int(r.get("replicas", 0))
+        except (TypeError, ValueError) as e:
+            raise ConfigError(f"invalid replicas: {r.get('replicas')!r}") from e
+        resources.append(ReplicatedResource(
+            name=str(r.get("name", "")), rename=str(r.get("rename", "")),
+            replicas=replicas,
+        ))
+    return Sharing(time_slicing=TimeSlicing(
+        rename_by_default=parse_bool(ts.get("renameByDefault", False)),
+        fail_requests_greater_than_one=parse_bool(
+            ts.get("failRequestsGreaterThanOne", False)),
+        resources=resources,
+    ))
+
+
+def parse_config_file(path: str) -> Config:
+    """The YAML/JSON config file with its version check (config.go:60-99),
+    with the twin's error texts."""
+    from gpu_feature_discovery_tpu_torch.config.yaml_subset import safe_load
+
+    try:
+        with open(path) as f:
+            text = f.read()
+    except OSError as e:
+        raise ConfigError(f"error opening config file: {e}") from e
+    except UnicodeDecodeError as e:
+        raise ConfigError(f"unmarshal error: {e}") from e
+    try:
+        raw = safe_load(text) or {}
+    except ConfigError as e:
+        raise ConfigError(f"unmarshal error: {e}") from e
+    if not isinstance(raw, dict):
+        raise ConfigError(f"config file must contain a mapping, got {type(raw).__name__}")
+    version = raw.get("version") or VERSION
+    if version != VERSION:
+        raise ConfigError(f"unknown version: {version}")
+
+    # Deferred: config/flags.py imports this module.
+    from gpu_feature_discovery_tpu_torch.config.flags import FLAG_DEFS
+
+    config = Config(version=version)
+    sections = {"flags": _mapping(raw.get("flags", {}), "flags")}
+    sections["tfd"] = _mapping(sections["flags"].get("tfd", {}), "flags.tfd")
+    for (section, key), slice_name in UNPORTED_FILE_KEYS.items():
+        if sections[section].get(key) is not None:
+            raise ConfigError(
+                f"config file key {'flags.' if section == 'flags' else 'flags.tfd.'}"
+                f"{key} is not ported yet; it comes with {slice_name}"
+            )
+    # A null value is unset; any other goes through the flag's own parser,
+    # as the twin's reading of the same key does.
+    for fd in FLAG_DEFS:
+        section, key = file_key(fd.name)
+        value = sections[section].get(key)
+        if value is not None:
+            setattr(config.flags if fd.on_flags else config.flags.tfd, fd.attr, fd.parse(value))
+    config.resources = raw.get("resources", {}) or {}
+    config.sharing = sharing_from_file(raw.get("sharing", {}) or {})
+    return config

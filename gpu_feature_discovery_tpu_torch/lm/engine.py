@@ -62,12 +62,16 @@ class LabelSource:
     ``offload`` says whether the source can BLOCK (device probes):
     offloaded sources run on the pool under the deadline; pure-local ones
     (dict math, a clock read) run on the labeling thread. ``cancel`` is
-    the probe-sandbox escalation hook (see the module docstring)."""
+    the probe-sandbox escalation hook (see the module docstring).
+    ``group`` names the backend family of a registry cycle's source; it
+    rides into ``last_provenance`` for /debug/labels and changes nothing
+    else."""
 
     name: str
     produce: Callable[[], Labeler]
     offload: bool = True
     cancel: Optional[Callable[[], None]] = None
+    group: str = ""
 
     def run(self) -> Labels:
         from gpu_feature_discovery_tpu_torch.utils.faults import maybe_inject
@@ -286,10 +290,13 @@ class LabelEngine:
         out: Dict[str, Dict[str, object]] = {}
         for src in sources:
             elapsed = stages.get(f"labeler.{src.name}")
-            out[src.name] = {
+            entry: Dict[str, object] = {
                 "status": "stale" if src.name in stale_set else "fresh",
                 "duration_ms": round(elapsed * 1e3, 3) if elapsed is not None else None,
             }
+            if src.group:
+                entry["backend"] = src.group
+            out[src.name] = entry
         return out
 
     def _run_source(self, src: LabelSource) -> Labels:

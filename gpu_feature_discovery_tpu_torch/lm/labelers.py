@@ -8,11 +8,20 @@ still publish while the backend will not init: timestamp, the DMI
 machine type and the interconnect. Source names and merge order match
 the full list's, so the engine's per-source cache carries across
 degraded and healthy cycles.
+
+``multi_backend_label_sources`` is the registry cycle's list (``--backends
+gpu,cpu``): timestamp, one group per backend in ``--backends`` order, then
+the interconnect. The gpu group is exactly the classic device list, so a
+gpu-family token reproduces the single-backend output byte for byte; the
+cpu group is lm/pjrt_family.py's. The interconnect (and the machine-type
+fallback while the gpu backend is down) publishes only when the gpu
+family is enabled: a ``--backends cpu`` node carries no
+``nvidia.com/gpu.*`` label.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from gpu_feature_discovery_tpu_torch.config.spec import Config
 from gpu_feature_discovery_tpu_torch.lm.engine import LabelSource
@@ -39,6 +48,44 @@ def new_label_sources(
     return sources
 
 
+def multi_backend_label_sources(
+    backend_set,
+    config: Config,
+    timestamp: Optional[Labeler] = None,
+    interconnect: Optional[Labeler] = None,
+    strict: bool = False,
+) -> Tuple[List[LabelSource], List[str]]:
+    """(sources, down families) of one registry cycle over a
+    ``resource.registry.BackendSet``. One concurrent acquisition pass runs
+    first, so a hung family's init overlaps the others'. A backend that
+    will not init contributes no device source and its family lands in
+    the down list, whose degraded markers the caller publishes while the
+    other families stay fresh. ``strict`` (oneshot) raises acquisition
+    errors instead."""
+    from gpu_feature_discovery_tpu_torch.lm.pjrt_family import pjrt_family_sources
+
+    sources = _timestamp_sources(timestamp)
+    down: List[str] = []
+    backend_set.acquire_all(strict=strict)
+    for rt in backend_set.runtimes:
+        manager = rt.manager
+        if manager is None:
+            down.append(rt.family)
+            if rt.family == "gpu":
+                # A backend that will not init says nothing about the DMI
+                # file: the machine type is lifted out, as in degraded mode.
+                sources.append(_machine_type_source(config))
+        elif rt.family == "gpu":
+            with timed("gpu.init"):
+                manager.init()
+            sources.extend(gpu_label_sources(manager, config))
+        else:
+            sources.extend(pjrt_family_sources(manager, rt.family, config))
+    if backend_set.has_family("gpu"):
+        sources.append(_interconnect_source(interconnect))
+    return sources, down
+
+
 def degraded_label_sources(
     config: Config,
     timestamp: Optional[Labeler] = None,
@@ -48,17 +95,19 @@ def degraded_label_sources(
     rides in the device-gated sources of a healthy cycle; a backend that
     will not init says nothing about the DMI file, so it is lifted out
     here."""
-    machine_type_file = config.flags.tfd.machine_type_file
     sources = _timestamp_sources(timestamp)
-    sources.append(
-        LabelSource(
-            "machine-type",
-            lambda: new_machine_type_labeler(machine_type_file),
-            offload=False,
-        )
-    )
+    sources.append(_machine_type_source(config))
     sources.append(_interconnect_source(interconnect))
     return sources
+
+
+def _machine_type_source(config: Config) -> LabelSource:
+    machine_type_file = config.flags.tfd.machine_type_file
+    return LabelSource(
+        "machine-type",
+        lambda: new_machine_type_labeler(machine_type_file),
+        offload=False,
+    )
 
 
 def _timestamp_sources(timestamp: Optional[Labeler]) -> List[LabelSource]:

@@ -5,9 +5,9 @@ Each family keeps its twin's name, type, label names and buckets, so a
 dashboard built on the twin reads the port unchanged; the help text says
 what the series means here where the twin's names PJRT or XLA. Only the
 families of layers the port has are declared: those of the slice peer
-layer, cohorts, actuation, the fleet collector, push notifications, the
-multi-backend registry and the HTTP admission gate land with their
-modules (tests/test_torch_obs.py pins the list of what is left out).
+layer, cohorts, actuation, the fleet collector, push notifications and
+the HTTP admission gate land with their modules (tests/test_torch_obs.py
+pins the list of what is left out).
 
 ``utils/timing.py``'s cycle summary and ``--timings-file`` are views
 over the stage store here (``observe_stage`` / ``cycle_stages``), and
@@ -61,7 +61,8 @@ LAST_CYCLE_COMPLETED = REGISTRY.gauge(
 RECONCILE_WAKES = REGISTRY.counter(
     "tfd_reconcile_wakes_total",
     "Event-loop wakes by reason: signal, worker_died (broker worker "
-    "death), health_delta, probe_request (POST /probe), staleness_bound "
+    "death), config_changed (the --config-file watcher), health_delta, "
+    "probe_request (POST /probe), staleness_bound "
     "(--max-staleness expired with no event). One wake per cycle "
     "decision; the events a wake absorbed beyond the first are in "
     "tfd_reconcile_coalesced_total.",
@@ -103,7 +104,28 @@ BACKEND_INIT_BACKOFF = REGISTRY.gauge(
 DEGRADED = REGISTRY.gauge(
     "tfd_degraded",
     "1 while the device backend is failing init and degraded labels are "
-    "being published (the tfd.degraded marker), else 0.",
+    "being published (the tfd.degraded marker), else 0. In the "
+    "multi-backend registry cycle: 1 while ANY enabled backend family "
+    "is down (tfd_backend_up has the per-family detail).",
+)
+
+# -- multi-backend registry (resource/registry.py, --backends gpu,cpu) -------
+
+BACKEND_UP = REGISTRY.gauge(
+    "tfd_backend_up",
+    "Per enabled backend family in the multi-backend registry cycle: 1 "
+    "while the family's backend is acquired and its labels publish "
+    "fresh, 0 while it is down (only that family's labels degrade). "
+    "Absent entirely on the classic single-backend path.",
+    labelnames=("backend",),
+)
+BACKEND_INITS = REGISTRY.counter(
+    "tfd_backend_inits_total",
+    "Per-backend init attempts in the multi-backend registry cycle, by "
+    "outcome (ok | error). The classic path's un-labeled "
+    "tfd_backend_init_attempts_total/failures_total keep counting in "
+    "both modes.",
+    labelnames=("backend", "outcome"),
 )
 
 # -- probe sandbox, broker and restart/flap resilience (sandbox/) ------------

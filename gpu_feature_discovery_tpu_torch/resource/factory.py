@@ -1,8 +1,12 @@
 """Backend factory and platform autodetect (twin:
-``gpu_feature_discovery_tpu/resource/factory.py`` with the registry tokens
-of ``resource/registry.py``).
+``gpu_feature_discovery_tpu/resource/factory.py``).
 
-``--backends`` takes one token:
+Selection dispatches through the backend registry (resource/registry.py).
+This module is the classic single-manager path, the gpu family's: it
+builds the manager of ``TFD_BACKEND`` when that is set (the twin's forced
+override; an unknown or cpu-family token warns and falls through to
+autodetect, as in the twin), else of the one gpu-family token of
+``--backends``:
 
 - ``auto`` (the default): the autodetect chain, the twin's
   ``autodetect_manager`` (reference: factory.go:54-73). NVML loadable, or
@@ -19,18 +23,19 @@ of ``resource/registry.py``).
 - ``mock-nvml:<layout>`` → NvmlManager over a FakeNvml with one of
   ``resource/testing.py:LAYOUTS`` (MIG layouts on the CPU).
 
-Every other token, and any list of tokens, is rejected: the port has one
-device family, and the twin's registry grammar stays its to keep.
+A list with the cpu family (``--backends gpu,cpu``) runs the registry
+cycle instead, one backend per family (cmd/main.run).
 
-``validate_backends`` checks the token alone: the labeling process of a
-brokered daemon validates with it and never loads NVML (an ``nvmlInit``
-against a wedged GPU can hang), while ``select_manager`` (detection, and
-construction) runs where the acquisition runs: in process, or in the
-probe child or broker worker. ``new_manager`` adds the ``pjrt_init``
-fault site and, unless ``wrap_fallback=False`` or
-``--fail-on-init-error``, the fallback-to-null wrapper (the twin's
-factory.go:27-39) and the chain's fall-through to null; oneshot takes
-both, the supervised daemon neither: it gets raw errors.
+``validate_backends`` checks the whole ``--backends`` list without any
+detection or library load: the labeling process of a brokered daemon
+validates with it and never loads NVML (an ``nvmlInit`` against a wedged
+GPU can hang), while ``select_manager`` (detection, and construction)
+runs where the acquisition runs: in process, or in the probe child or
+broker worker. ``new_manager`` adds the ``pjrt_init`` fault site and,
+unless ``wrap_fallback=False`` or ``--fail-on-init-error``, the
+fallback-to-null wrapper (the twin's factory.go:27-39) and the chain's
+fall-through to null; oneshot takes both, the supervised daemon neither:
+it gets raw errors.
 
 ``build_manager`` is the supervised daemon's acquisition unit (the
 twin's ``cmd/main.py:_build_manager``): selection and an eager
@@ -43,50 +48,68 @@ when the broker is on), raising the raw error for the supervisor
 from __future__ import annotations
 
 import logging
+import os
 from typing import Optional, Tuple
 
 from gpu_feature_discovery_tpu_torch.config.spec import Config, ConfigError
 from gpu_feature_discovery_tpu_torch.native import nvml
 from gpu_feature_discovery_tpu_torch.pci.pciutil import PCIError, SysfsNvidiaPCI
-from gpu_feature_discovery_tpu_torch.resource.cuda_backend import (
-    CudaManager,
-    StaticCudaManager,
-)
+from gpu_feature_discovery_tpu_torch.resource.cuda_backend import CudaManager
 from gpu_feature_discovery_tpu_torch.resource.fallback import FallbackToNullOnInitError
+from gpu_feature_discovery_tpu_torch.resource import registry
 from gpu_feature_discovery_tpu_torch.resource.null import NullManager
 from gpu_feature_discovery_tpu_torch.resource.nvml_backend import NvmlManager
-from gpu_feature_discovery_tpu_torch.resource.testing import LAYOUTS, fake_nvml
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
 
 log = logging.getLogger("tfd.resource")
 
-FIXED_TOKENS = ("auto", "gpu", "native", "null")
+BACKEND_ENV = registry.BACKEND_ENV
+
+
+def _gpu_token(config: Config) -> Optional[str]:
+    for token in registry.parse_backends_value(config.flags.tfd.backends or "auto"):
+        if registry.provider_for(token).family == registry.FAMILY_GPU:
+            return token
+    return None
 
 
 def validate_backends(config: Config) -> Tuple[str, str]:
-    """(kind, argument) of the ``--backends`` token, or ConfigError. No
-    detection, no library load."""
-    token = (config.flags.tfd.backends or "auto").strip().lower()
-    if token in FIXED_TOKENS:
-        return token, ""
-    if token == "mock-gpu" or token.startswith("mock-gpu:"):
-        arg = token.partition(":")[2] or "1"
-        if not arg.isdigit() or int(arg) < 1:
-            raise ConfigError(f"backend {token!r}: want mock-gpu[:<n>], n >= 1")
-        return "mock-gpu", arg
-    if token.startswith("mock-nvml:"):
-        layout = token.partition(":")[2]
-        if layout not in LAYOUTS:
-            raise ConfigError(
-                f"backend {token!r}: want mock-nvml:<layout>, layout one of "
-                f"{sorted(LAYOUTS)}"
+    """Every ``--backends`` token checked (known, valid argument, one per
+    family), with no detection and no library load; returns (kind,
+    argument) of its gpu-family token, ('', '') when it names none."""
+    token = _gpu_token(config)
+    if token is None:
+        return "", ""
+    return registry.provider_for(token).name.rstrip(":"), token.partition(":")[2]
+
+
+def _classic_token(config: Config) -> str:
+    """The gpu-family token the classic path builds: ``TFD_BACKEND`` when
+    set (unknown or another family's token falls through to ``auto``,
+    with a warning), else the one of ``--backends``."""
+    forced = os.environ.get(BACKEND_ENV, "").strip().lower()
+    if forced:
+        provider = registry.provider_for(forced)
+        if provider is None:
+            log.warning("unrecognized %s=%r; falling through to autodetect",
+                        BACKEND_ENV, forced)
+            return "auto"
+        if provider.family != registry.FAMILY_GPU:
+            log.warning(
+                "%s=%r names a %s-family backend; %s forces a single "
+                "gpu-family backend — use TFD_BACKENDS/--backends for the %s "
+                "family. Falling through to autodetect.",
+                BACKEND_ENV, forced, provider.family, BACKEND_ENV, provider.family,
             )
-        return "mock-nvml", layout
-    raise ConfigError(
-        f"unsupported backend {token!r}: this port labels one device "
-        "family; use 'auto', 'gpu', 'native', 'null', 'mock-gpu[:<n>]' or "
-        "'mock-nvml:<layout>'"
-    )
+            return "auto"
+        return forced
+    token = _gpu_token(config)
+    if token is None:
+        raise ConfigError(
+            f"--backends {config.flags.tfd.backends!r} names no gpu-family "
+            "backend; the single-manager path labels the gpu family"
+        )
+    return token
 
 
 def new_manager(config: Config, wrap_fallback: bool = True) -> Manager:
@@ -117,18 +140,10 @@ def select_manager(config: Config, fallback_to_null: bool = False) -> Manager:
     child and the broker worker select here, after the parent fired the
     site. ``fallback_to_null``: a GPU node whose backends will not init
     gets the Null manager instead of the init error (oneshot only)."""
-    kind, arg = validate_backends(config)
-    if kind == "auto":
+    token = _classic_token(config)
+    if token == "auto":
         return autodetect_manager(config, fallback_to_null)
-    if kind == "gpu":
-        return CudaManager()
-    if kind == "native":
-        return NvmlManager()
-    if kind == "null":
-        return NullManager()
-    if kind == "mock-gpu":
-        return StaticCudaManager.mock_gpu(int(arg))
-    return NvmlManager(fake_nvml(arg))
+    return registry.select_backend_manager(config, token)
 
 
 def autodetect_manager(config: Config, fallback_to_null: bool = False) -> Manager:

@@ -22,8 +22,13 @@ twin forks, which a CUDA context does not survive), started with the
 config as its first frame. Its pid is registered in the probe-child
 registry (kills go through ``kill_if_live``) but exempt from
 ``kill_stray_children``'s sweep: ``close_broker`` in ``run()``'s
-teardown retires it gracefully. The twin keys one worker per registry
-backend; this port has one backend token, so one worker per epoch.
+teardown retires it gracefully. The classic path has one worker per
+epoch; the registry cycle (``--backends gpu,cpu``, resource/registry.py)
+has one per backend token, as the twin keys them, so a hang-kill or a
+crash-respawn in one family's worker never touches another's. Only a
+gpu-family worker imports the probe, pre-warms and runs the burn-in and
+``hbm_stream_sum``; the cpu family's never imports torch and never
+creates a CUDA context.
 
 Fault sites (``TFD_FAULT_SPEC``): a spawn fires ``pjrt_init`` and
 consumes ``probe.timeout``/``probe.hang``/``probe.segv`` (a spawn IS an
@@ -55,7 +60,7 @@ import signal
 import tempfile
 import threading
 import time
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 from gpu_feature_discovery_tpu_torch.config.spec import config_to_dict
 from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
@@ -309,17 +314,26 @@ def _child_prewarm(health_probe: _HealthProbe, per_chip: bool = True) -> None:
         log.debug("broker kernel pre-warm failed:", exc_info=True)
 
 
-def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"") -> None:
+def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"",
+                backend: Optional[str] = None) -> None:
     """The worker body: select + init the backend ONCE, report ready,
     then serve requests until EOF or a shutdown request. Never returns;
     every path leaves through os._exit. ``buf`` holds request bytes read
-    past the first (config) frame."""
-    from gpu_feature_discovery_tpu_torch.resource import factory
+    past the first (config) frame. ``backend`` keys the worker to one
+    registry token, whose provider it builds instead of the classic
+    selection; only a gpu-family worker runs the burn-in."""
+    from gpu_feature_discovery_tpu_torch.resource import factory, registry
 
+    gpu_worker = backend is None or (
+        registry.provider_for(backend).family == registry.FAMILY_GPU
+    )
     try:
-        manager = factory.select_manager(config)
+        if backend is None:
+            manager = factory.select_manager(config)
+        else:
+            manager = registry.select_backend_manager(config, backend)
         manager.init()
-        if config.flags.tfd.with_burnin:
+        if config.flags.tfd.with_burnin and gpu_worker:
             # The probe's imports (torch) belong to the spawn, under its
             # budget, not to the first health request's bounded wait.
             import gpu_feature_discovery_tpu_torch.ops.healthcheck  # noqa: F401
@@ -336,7 +350,7 @@ def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"") -> None:
     # Serialises the devices between the pre-warm and health requests.
     chip_lock = threading.Lock()
     health_probe = _HealthProbe(chip_lock)
-    if config.flags.tfd.with_burnin:
+    if config.flags.tfd.with_burnin and gpu_worker:
         from gpu_feature_discovery_tpu_torch.lm.health import _chip_probe_opts
 
         threading.Thread(
@@ -375,7 +389,7 @@ def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"") -> None:
                     "status": "ok",
                     "snapshot": DeviceSnapshot.from_manager(manager).to_dict(),
                 }
-            elif op == "health":
+            elif op == "health" and gpu_worker:
                 resp = health_probe.request(req)
             elif op == "shutdown":
                 try:
@@ -410,7 +424,7 @@ class BrokerClient:
     so a deadline-escalation cancel can fire while a request is blocked
     mid-read."""
 
-    def __init__(self, config):
+    def __init__(self, config, backend: Optional[str] = None):
         from gpu_feature_discovery_tpu_torch.config.flags import (
             DEFAULT_INIT_BACKOFF_MAX,
             DEFAULT_PROBE_TIMEOUT,
@@ -419,6 +433,7 @@ class BrokerClient:
 
         tfd = config.flags.tfd
         self._config = config
+        self._backend = backend
         self._timeout_s = (
             tfd.probe_timeout if tfd.probe_timeout is not None else DEFAULT_PROBE_TIMEOUT
         )
@@ -517,7 +532,8 @@ class BrokerClient:
             self._spawning = pid
         try:
             _write_frame(req_w, {
-                "config": config_to_dict(self._config), "hang": hang, "segv": segv,
+                "config": config_to_dict(self._config), "backend": self._backend,
+                "hang": hang, "segv": segv,
             })
         except OSError:
             pass  # died already: the READY read sees EOF
@@ -610,9 +626,10 @@ class BrokerClient:
         self._stderr_path = stderr_file.name
         obs_metrics.BROKER_UP.set(1)
         log.info(
-            "broker worker %d ready in %.0f ms%s",
+            "broker worker %d ready in %.0f ms%s%s",
             pid,
             duration * 1e3,
+            f" for backend {self._backend}" if self._backend else "",
             " (respawn)" if respawn else "",
         )
         watch_enabled, _ = _death_watch_state()
@@ -1010,35 +1027,46 @@ def broker_enabled(config) -> bool:
 
 
 _active_lock = threading.Lock()
+# The classic path's client, one per config epoch.
 _active: Optional[BrokerClient] = None
+# The registry cycle's clients, one per backend token and epoch.
+_keyed: Dict[str, BrokerClient] = {}
 
 
-def get_broker(config) -> BrokerClient:
-    """The process's active broker client, created on first use; one per
-    config epoch (close_broker retires it)."""
+def get_broker(config, backend: Optional[str] = None) -> BrokerClient:
+    """The process's active broker client for one backend key (None: the
+    classic path's), created on first use; close_broker retires them all
+    at the epoch's end."""
     global _active
     with _active_lock:
-        if _active is None:
-            _active = BrokerClient(config)
-        return _active
+        if backend is None:
+            if _active is None:
+                _active = BrokerClient(config)
+            return _active
+        client = _keyed.get(backend)
+        if client is None:
+            client = _keyed[backend] = BrokerClient(config, backend=backend)
+        return client
 
 
 def close_broker() -> None:
-    """Epoch teardown: gracefully retire the active broker, if any. Runs
+    """Epoch teardown: gracefully retire every active broker, if any. Runs
     BEFORE the stray-child sweep in run()'s teardown."""
     global _active
     with _active_lock:
-        client, _active = _active, None
-    if client is not None:
+        clients = [c for c in (_active, *_keyed.values()) if c is not None]
+        _active = None
+        _keyed.clear()
+    for client in clients:
         client.close()
 
 
-def prespawn_broker(config) -> threading.Thread:
+def prespawn_broker(config, backend: Optional[str] = None) -> threading.Thread:
     """Start the worker's spawn on a background thread (cmd/main.run's
     cold-start overlap). Only while fault injection is inactive: a
     pre-spawn would consume an injected shot outside the supervisor's
     paced accounting."""
-    client = get_broker(config)
+    client = get_broker(config, backend=backend)
     thread = threading.Thread(
         target=client.prespawn, name="tfd-broker-prespawn", daemon=True
     )
@@ -1046,8 +1074,9 @@ def prespawn_broker(config) -> threading.Thread:
     return thread
 
 
-def acquire_broker_manager(config) -> Manager:
-    """The broker-path acquisition unit (resource/factory.build_manager):
-    ensure the worker is up (the spawn is the one backend init) and wrap a
-    fresh snapshot. With a live worker this is one RPC."""
-    return BrokerManager(get_broker(config))
+def acquire_broker_manager(config, backend: Optional[str] = None) -> Manager:
+    """The broker-path acquisition unit (resource/factory.build_manager,
+    and per token resource/registry.BackendRuntime): ensure the keyed
+    worker is up (the spawn is the one backend init) and wrap a fresh
+    snapshot. With a live worker this is one RPC."""
+    return BrokerManager(get_broker(config, backend=backend))

@@ -260,12 +260,14 @@ def run_probe(
     hang: bool = False,
     segv: bool = False,
     pid_box: Optional[list] = None,
+    backend: Optional[str] = None,
 ) -> ProbeResult:
     """Run the named ``op`` (sandbox/worker_main.py PROBE_OPS) in a child
     under a hard deadline; the op returns a JSON-serialisable dict.
     ``hang``/``segv`` are the chaos behaviours (consumed by the caller,
     enacted in the child). ``pid_box``, when given, receives the child pid
-    at spawn so a canceller can SIGKILL it mid-flight."""
+    at spawn so a canceller can SIGKILL it mid-flight. ``backend`` keys
+    the child to one registry token (None: the classic selection)."""
     stderr_file = tempfile.NamedTemporaryFile(prefix="tfd-probe-stderr-", delete=False)
     stderr_file.close()
     start = time.monotonic()
@@ -276,7 +278,7 @@ def run_probe(
     try:
         try:
             _write_frame(req_w, {
-                "op": op, "config": config_to_dict(config),
+                "op": op, "config": config_to_dict(config), "backend": backend,
                 "hang": hang, "segv": segv,
             })
         except OSError:
@@ -393,15 +395,18 @@ def _stderr_tail(path: str) -> str:
 # the snapshot probe: what the supervised daemon acquires its backend with
 # ---------------------------------------------------------------------------
 
-def probe_device_snapshot(config, timeout_s: float) -> DeviceSnapshot:
+def probe_device_snapshot(config, timeout_s: float,
+                          backend: Optional[str] = None) -> DeviceSnapshot:
     """Initialise the backend the config names and walk its inventory
     INSIDE a child; the reconstructed snapshot in the parent. The twin
     passes a live manager; a fresh interpreter receives the config and
-    builds the same manager from its ``--backends`` token."""
-    return _run_snapshot_probe("snapshot", config, timeout_s)
+    builds the same manager from its ``--backends`` token (or from
+    ``backend``, a registry token)."""
+    return _run_snapshot_probe("snapshot", config, timeout_s, backend)
 
 
-def acquire_snapshot_manager(config, timeout_s: float) -> Manager:
+def acquire_snapshot_manager(config, timeout_s: float,
+                             backend: Optional[str] = None) -> Manager:
     """The supervised daemon's sandboxed acquisition unit: backend
     selection + init + enumeration inside one child, a SnapshotManager
     over the result in the parent. The ``pjrt_init`` fault site fires
@@ -411,10 +416,13 @@ def acquire_snapshot_manager(config, timeout_s: float) -> Manager:
 
     obs_metrics.BACKEND_INIT_ATTEMPTS.inc()
     faults.maybe_inject("pjrt_init")
-    return SnapshotManager(_run_snapshot_probe("select+snapshot", config, timeout_s))
+    return SnapshotManager(
+        _run_snapshot_probe("select+snapshot", config, timeout_s, backend)
+    )
 
 
-def _run_snapshot_probe(op: str, config, timeout_s: float) -> DeviceSnapshot:
+def _run_snapshot_probe(op: str, config, timeout_s: float,
+                        backend: Optional[str] = None) -> DeviceSnapshot:
     from gpu_feature_discovery_tpu_torch.utils import faults
 
     if faults.consume("probe.timeout"):
@@ -428,7 +436,7 @@ def _run_snapshot_probe(op: str, config, timeout_s: float) -> DeviceSnapshot:
     hang = faults.consume("probe.hang")
     segv = False if hang else faults.consume("probe.segv")
 
-    result = run_probe(op, config, timeout_s, hang=hang, segv=segv)
+    result = run_probe(op, config, timeout_s, hang=hang, segv=segv, backend=backend)
     obs_metrics.PROBE_DURATION.observe(result.duration_s)
     if result.status == "ok":
         return DeviceSnapshot.from_dict(result.payload or {})

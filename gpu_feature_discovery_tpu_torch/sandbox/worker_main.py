@@ -4,8 +4,9 @@ probe|broker``.
 
 The child is a fresh interpreter: no CUDA context, no lock state and no
 signal handlers of the parent. It reads its first frame on
-CHILD_REQUEST_FD: the config, the parent-consumed chaos behaviours
-(``hang``, ``segv``) and, for a probe child, the named op. Then:
+CHILD_REQUEST_FD: the config, the backend token it is keyed to (None on
+the classic path), the parent-consumed chaos behaviours (``hang``,
+``segv``) and, for a probe child, the named op. Then:
 
 - ``probe``: run the op (PROBE_OPS), answer one frame on
   CHILD_RESPONSE_FD, exit;
@@ -39,14 +40,18 @@ from gpu_feature_discovery_tpu_torch.sandbox.snapshot import DeviceSnapshot
 from gpu_feature_discovery_tpu_torch.utils import logging as tfd_logging
 
 
-def _select_and_snapshot(config) -> dict:
-    """Select the backend the config names, init it, walk its inventory.
-    The port selects by the ``--backends`` token alone, so the twin's two
-    probe callables (init a given manager; select, then init) are one
-    function here under both names."""
-    from gpu_feature_discovery_tpu_torch.resource import factory
+def _select_and_snapshot(config, backend=None) -> dict:
+    """Select the backend the config names (or the registry token the
+    child is keyed to), init it, walk its inventory. A fresh interpreter
+    cannot receive a live manager, so the twin's two probe callables (init
+    a given manager; select, then init) are one function here under both
+    names."""
+    from gpu_feature_discovery_tpu_torch.resource import factory, registry
 
-    manager = factory.select_manager(config)
+    if backend is None:
+        manager = factory.select_manager(config)
+    else:
+        manager = registry.select_backend_manager(config, backend)
     manager.init()
     return DeviceSnapshot.from_manager(manager).to_dict()
 
@@ -57,9 +62,9 @@ PROBE_OPS = {
 }
 
 
-def _probe_main(op: str, config) -> None:
+def _probe_main(op: str, config, backend=None) -> None:
     try:
-        payload = PROBE_OPS[op](config)
+        payload = PROBE_OPS[op](config, backend)
         data = {"status": "ok", "payload": payload}
     except BaseException as e:  # noqa: BLE001 - shipped to the parent
         data = {"status": "error", "error_type": type(e).__name__, "error": str(e)}
@@ -90,9 +95,10 @@ def main() -> None:
             signal.signal(signal.SIGSEGV, signal.SIG_DFL)
             os.kill(os.getpid(), signal.SIGSEGV)
         config = config_from_dict(doc["config"])
+        backend = doc.get("backend")
         if role == "probe":
-            _probe_main(doc["op"], config)
-        _child_main(CHILD_REQUEST_FD, CHILD_RESPONSE_FD, config, buf)
+            _probe_main(doc["op"], config, backend)
+        _child_main(CHILD_REQUEST_FD, CHILD_RESPONSE_FD, config, buf, backend)
     finally:
         os._exit(1)
 

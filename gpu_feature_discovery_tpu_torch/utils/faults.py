@@ -27,6 +27,11 @@ Sites this port wires:
                        (one probe child per acquisition) and the broker
                        worker's spawn (sandbox/broker.py). The name is the
                        twin's, so one spec drives both packages.
+    pjrt_init.<family> one backend family's acquisition in the registry
+                       cycle (--backends gpu,cpu): gpu | cpu. It fails ONLY
+                       that family's acquisition, so its labels degrade
+                       while the other family keeps publishing fresh
+                       (resource/registry.py BackendRuntime.acquire)
     generate           lm.engine.LabelEngine.generate (cycle entry)
     labeler.<name>     lm.engine.LabelSource.run (one named labeler)
     write              lm.labels.Labels.write_to_file

@@ -393,13 +393,16 @@ def test_oneshot_sequential_engine_keeps_the_golden(tmp_path):
 @pytest.mark.parametrize(
     "argv,env,slice_name",
     [
-        (["--config-file", "tfd.yaml"], {}, "config-file slice"),
-        ([], {"TFD_CONFIG_FILE": "tfd.yaml"}, "config-file slice"),
+        # The config file is ported: its refusals are the twin's.
+        (["--config-file", "missing.yaml"], {}, "error opening config file"),
+        ([], {"TFD_CONFIG_FILE": "v2.yaml"}, "unknown version"),
         (["--reconcile", "sometimes"], {}, "reconcile"),
     ],
 )
 def test_unported_options_exit_1_naming_the_slice(tmp_path, monkeypatch, caplog,
                                                   argv, env, slice_name):
+    (tmp_path / "v2.yaml").write_text("version: v2\n")
+    monkeypatch.chdir(tmp_path)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     out = tmp_path / "tfd"

@@ -42,8 +42,6 @@ DOCS = Path(__file__).resolve().parent.parent / "docs" / "observability.md"
 # Twin families whose layers the port does not have yet; each lands with
 # its module (ROADMAP.md queue 1).
 LEFT_OUT = {
-    # the multi-backend registry (resource/registry.py)
-    "tfd_backend_up", "tfd_backend_inits_total",
     # slice and peer coordination (peering/)
     "tfd_peer_polls_total", "tfd_peer_poll_duration_seconds",
     "tfd_peer_fanout_inflight", "tfd_peer_snapshot_not_modified_total",
@@ -187,7 +185,7 @@ def test_every_port_family_is_the_twins_and_is_documented():
         assert name in twin, f"{name} is not a twin family"
         assert _signature(fam) == _signature(twin[name]), name
         assert f"`{name}`" in docs, f"{name} is not in docs/observability.md"
-    assert len(port) == 41
+    assert len(port) == 43
 
 
 def test_the_families_left_out_are_pinned():

@@ -4,8 +4,8 @@
 package's golden for the gpu family (tests/expected-output-gpu-mock.txt),
 the burn-in cycle under the TFD_BURNIN_ALLOW_CPU opt-in, the slice's
 refusals, flag parity with the twin, and the import boundary: nothing
-under gpu_feature_discovery_tpu_torch/ (nor chip_smoke.py) imports JAX
-or the JAX package."""
+under gpu_feature_discovery_tpu_torch/ (nor chip_smoke.py) imports JAX,
+the JAX package or yaml."""
 
 import ast
 import os
@@ -161,7 +161,8 @@ def _imported_top_level_names(path):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    forbidden = {"jax", "jaxlib", "gpu_feature_discovery_tpu"}
+    # yaml too: the card machine has no pyyaml (config/yaml_subset.py).
+    forbidden = {"jax", "jaxlib", "gpu_feature_discovery_tpu", "yaml"}
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     offenders = [
@@ -183,7 +184,7 @@ def test_import_of_every_module_loads_no_jax_and_no_cuda():
         "import importlib, sys, torch\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'gpu_feature_discovery_tpu'))\n"
+        "('jax', 'jaxlib', 'gpu_feature_discovery_tpu', 'yaml'))\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n"
     )
