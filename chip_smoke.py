@@ -70,6 +70,21 @@ Phases, each printing one JSON line:
                   second CLI under ``pjrt_init.cpu:fail:<n>`` where the
                   cpu family alone degrades while the gpu family keeps
                   fresh health labels, and recovers.
+10. ``slice``   — three CLI daemons on the one card form one slice over
+                  127.0.0.1 (``WORKER_HOSTNAMES``/``WORKER_ID``,
+                  ``--slice-coordination auto``, a ``--peer-token``), each
+                  at its defaults through its own broker worker with
+                  ``--backends gpu --with-burnin`` and one shared, fresh
+                  kernel cache: worker 0 leads and followers see it; the
+                  leader's ``slice.sick-chips`` follows worker 2's card
+                  verdict under ``chip.0.sick:fail:1`` from 1 back to 0
+                  (pushed by ``POST /peer/notify``); ``/peer/snapshot`` on
+                  worker 1 answers 403 / 401 / 200 with a strong ETag /
+                  304; the leader's 304s and reused connections; SIGTERM
+                  of the leader promotes worker 1 (healthy-hosts 2,
+                  degraded) with the survivors' node-local labels
+                  unchanged; 1 + 3k launches of ``hbm_stream_sum`` in each
+                  worker, none in a labeling process.
 
 Then a ``metrics`` line (the cost of a scrape, the exposition's size,
 restart-to-labels, first use, the broker's request histogram and the
@@ -1840,6 +1855,297 @@ def phase_config_registry(entries: dict, product: str, smi: str) -> dict:
     entries["hbm_stream_sum"]["config_registry_launches"] = launches
     return {"rename_to_labels_s": reload_labels_s}
 
+SLICE_WORKERS = 3
+SLICE_SLEEP_S = 0.5
+SLICE_PEER_TIMEOUT_S = 2.0
+# Worker 2 probes every 20 cycles: its chip.0.sick shot makes one sick
+# probe, and the next one, some seconds later, recovers. Workers 0 and 1
+# probe once (the first probe of the epoch). The leader is killed just
+# after a probe of worker 2, so no burn-in rate moves in a file across
+# the failover.
+SLICE_SICK_BURNIN_INTERVAL = 20
+SLICE_QUIET_BURNIN_INTERVAL = 100000
+SLICE_PREFIX = "nvidia.com/gpu.slice."
+
+
+def _node_local(labels: dict) -> dict:
+    """A label set less the slice coordination family (lm/slice_labeler.py;
+    the node fact slice.capable is not of it)."""
+    from gpu_feature_discovery_tpu_torch.lm.slice_labeler import (
+        SLICE_COORD_LABELS,
+        is_cohort_label,
+    )
+
+    return {k: v for k, v in labels.items()
+            if k not in SLICE_COORD_LABELS and not is_cohort_label(k)}
+
+
+def _histogram_median(samples: dict, name: str):
+    """histogram_quantile(0.5, ...) over one unlabelled histogram: linear
+    interpolation inside the bucket that holds the median."""
+    buckets = sorted(
+        (float(m.group(1)), v) for (n, lab), v in samples.items()
+        if n == f"{name}_bucket" and (m := re.search(r'le="([^"]+)"', lab)))
+    total = samples.get((f"{name}_count", ""), 0.0)
+    if not total:
+        return None
+    rank, lower, below = total / 2, 0.0, 0.0
+    for bound, count in buckets:
+        if count >= rank:
+            if math.isinf(bound):
+                return lower
+            return lower + (bound - lower) * (rank - below) / max(count - below, 1e-12)
+        lower, below = bound, count
+    return None
+
+
+def _sick_pair(ls: list, want: str) -> bool:
+    """Worker 2's chips.sick and the leader's slice.sick-chips both read
+    ``want`` in one sample of the three label files."""
+    return (ls[2].get("nvidia.com/gpu.chips.sick") == want
+            and ls[0].get(SLICE_PREFIX + "sick-chips") == want)
+
+
+def _timed_get(port: int, headers: dict, rounds: int = 5):
+    """(status, ETag, body, median ms) of ``rounds`` GET /peer/snapshot."""
+    ms, answer = [], None
+    for _ in range(rounds):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+        try:
+            t = time.perf_counter()
+            conn.request("GET", "/peer/snapshot", headers=headers)
+            resp = conn.getresponse()
+            body = resp.read()
+            ms.append((time.perf_counter() - t) * 1e3)
+            answer = (resp.status, resp.getheader("ETag"), body)
+        finally:
+            conn.close()
+    return answer + (statistics.median(ms),)
+
+
+def phase_slice(entries: dict, smi: str) -> dict:
+    """Three CLI daemons on the one card form one slice over 127.0.0.1:
+    each at its defaults through its own broker worker (``--backends gpu
+    --with-burnin``), peers from ``WORKER_HOSTNAMES``/``WORKER_ID``,
+    ``--slice-coordination auto`` and a ``--peer-token`` (so push-notify
+    resolves on). Worker 2 runs under ``chip.0.sick:fail:1``: the leader's
+    ``slice.sick-chips`` follows the card's verdict from 1 back to 0. Then
+    the leader is SIGTERMed and worker 1 takes over."""
+    from gpu_feature_discovery_tpu_torch.peering.coordinator import CONFIRM_POLLS
+    from gpu_feature_discovery_tpu_torch.sandbox import broker
+
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    ports = [_free_port() for _ in range(SLICE_WORKERS)]
+    hostnames = ",".join(f"127.0.0.1:{p}" for p in ports)
+    token = secrets.token_hex(16)
+    procs, pids = [], {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        # One fresh kernel cache for the three: their workers' first use
+        # builds the same library at once (a per-pid temp file, then an
+        # atomic rename).
+        cache = os.path.join(tmp, "kernel-cache")
+        outs = [os.path.join(tmp, f"w{i}.tfd") for i in range(SLICE_WORKERS)]
+        logs = [os.path.join(tmp, f"w{i}.log") for i in range(SLICE_WORKERS)]
+        used_before = _device_used_mib()
+        t0 = time.monotonic()
+        for i in range(SLICE_WORKERS):
+            env = dict(os.environ, WORKER_HOSTNAMES=hostnames, WORKER_ID=str(i))
+            env.pop("TFD_FAULT_SPEC", None)
+            env.pop("TFD_BACKEND", None)
+            if i == 2:
+                env["TFD_FAULT_SPEC"] = "chip.0.sick:fail:1"
+            interval = SLICE_SICK_BURNIN_INTERVAL if i == 2 else SLICE_QUIET_BURNIN_INTERVAL
+            with open(logs[i], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "gpu_feature_discovery_tpu_torch", "--debug",
+                     "--backends", "gpu", "--with-burnin",
+                     "--sleep-interval", f"{SLICE_SLEEP_S}s",
+                     "--burnin-interval", str(interval),
+                     "--output-file", outs[i], "--state-dir", os.path.join(tmp, f"state{i}"),
+                     "--compilation-cache-dir", cache,
+                     "--metrics-addr", "127.0.0.1", "--metrics-port", str(ports[i]),
+                     "--slice-coordination", "auto", "--peer-token", token,
+                     "--peer-timeout", f"{SLICE_PEER_TIMEOUT_S}s"],
+                    cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
+        # The sick window is a few seconds: a sampler records every file
+        # change from the start.
+        timeline, stop_sampling = [], threading.Event()
+
+        def sample():
+            last = None
+            while not stop_sampling.is_set():
+                now = tuple(tuple(sorted(_read_labels(o).items())) for o in outs)
+                if now != last:
+                    timeline.append((time.monotonic(), [dict(x) for x in now]))
+                    last = now
+                time.sleep(0.01)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        try:
+            def converged():
+                ls = [_read_labels(o) for o in outs]
+                w0 = ls[0]
+                ok = (w0.get(SLICE_PREFIX + "role") == "leader"
+                      and w0.get(SLICE_PREFIX + "total-hosts") == "3"
+                      and w0.get(SLICE_PREFIX + "healthy-hosts") == "3"
+                      and w0.get(SLICE_PREFIX + "degraded") == "false"
+                      and all(l.get(SLICE_PREFIX + "role") == "follower"
+                              and l.get(SLICE_PREFIX + "leader-seen") == "true"
+                              for l in ls[1:]))
+                return ls if ok else None
+
+            for i, p in enumerate(procs):
+                check(p.poll() is None, f"slice worker {i} exited early")
+            first = _wait_for(converged, 180.0, "the three daemons forming one slice")
+            first_slice_s = time.monotonic() - t0
+            check(first[0][SLICE_PREFIX + "leader"] == "127.0.0.1",
+                  f"slice.leader {first[0].get(SLICE_PREFIX + 'leader')}")
+
+            # Worker 2's card verdict, carried across the wire: its chips.sick
+            # 1 with the leader's sick-chips 1, then both 0.
+            _wait_for(lambda: any(_sick_pair(ls, "1") for _, ls in list(timeline)), 120.0,
+                      "the leader's sick-chips 1 while worker 2's chips.sick is 1")
+            t_sick = next(t for t, ls in timeline if _sick_pair(ls, "1"))
+            _wait_for(lambda: any(t > t_sick and _sick_pair(ls, "0")
+                                  for t, ls in list(timeline)),
+                      120.0, "the leader's sick-chips back to 0 after worker 2's next probe")
+            all_health = _wait_for(
+                lambda: (lambda ls: ls if all(_has_health(l) for l in ls) else None)(
+                    [_read_labels(o) for o in outs]), 60.0, "health labels on all three")
+            rates = [{k.rsplit(".", 1)[1]: l.get(k) for k in HEALTH_KEYS} for l in all_health]
+            for i, l in enumerate(all_health):
+                check(l.get("nvidia.com/gpu.chips.sick") == "0", f"worker {i} still sick")
+
+            # Each daemon's broker worker: one spawn, CUDA and NVML mapped
+            # there, neither in the labeling process.
+            spawned = [_spawned(log) for log in logs]
+            for i, sp in enumerate(spawned):
+                check(list(sp) == [""] and len(sp[""]) == 1, f"worker {i} spawns {sp}")
+                pids[i] = sp[""][0][0]
+                check(_children(procs[i].pid) == [pids[i]],
+                      f"daemon {i} children {_children(procs[i].pid)}")
+            maps = {f"cli{i}": {lib: _maps_libcuda(procs[i].pid, lib)
+                                for lib in ("libcuda.so", "libnvidia-ml.so")}
+                    for i in range(SLICE_WORKERS)}
+            maps.update({f"worker{i}": {lib: _maps_libcuda(pids[i], lib)
+                                        for lib in ("libcuda.so", "libnvidia-ml.so")}
+                         for i in range(SLICE_WORKERS)})
+            check(all(not any(maps[f"cli{i}"].values()) and all(maps[f"worker{i}"].values())
+                      for i in range(SLICE_WORKERS)), f"CUDA and NVML mappings: {maps}")
+            used_mib = _device_used_mib() - used_before
+            libs = sorted(os.listdir(cache))
+            check(len(libs) == 1 and libs[0].endswith(".so"),
+                  f"the shared kernel cache holds {libs}")
+
+            # By hand on worker 1: the token gate, the ETag, the 304.
+            missing = _timed_get(ports[1], {}, rounds=1)
+            wrong = _timed_get(ports[1], {"X-TFD-Probe-Token": "not-" + token}, rounds=1)
+            check((missing[0], wrong[0]) == (403, 401),
+                  f"/peer/snapshot without the token {missing[0]}, wrong token {wrong[0]}")
+            ok = _timed_get(ports[1], {"X-TFD-Probe-Token": token})
+            check(ok[0] == 200 and ok[1] and ok[1].startswith('"') and ok[1].endswith('"')
+                  and json.loads(ok[2])["worker_id"] == 1, f"/peer/snapshot answered {ok[:2]}")
+            nm = _timed_get(ports[1], {"X-TFD-Probe-Token": token, "If-None-Match": ok[1]})
+            check(nm[:3] == (304, ok[1], b""), f"If-None-Match answered {nm[:3]}")
+
+            # The leader after a few steady rounds: 304s, reused connections,
+            # and the notification worker 2's delta sent.
+            time.sleep(4 * SLICE_SLEEP_S)
+            leader = _scrape(ports[0])
+            sender = _scrape(ports[2])
+            steady = {
+                "not_modified": leader.get(("tfd_peer_snapshot_not_modified_total", ""), 0),
+                "reuses": leader.get(("tfd_peer_connection_reuses_total", ""), 0),
+                "notify_received_ok": leader.get(
+                    ("tfd_notify_received_total", '{outcome="ok"}'), 0),
+                "notify_sent_ok": sender.get(("tfd_notify_sent_total", '{outcome="ok"}'), 0),
+            }
+            check(all(v > 0 for v in steady.values()), f"the leader's steady state {steady}")
+            poll_median_s = _histogram_median(leader, "tfd_peer_poll_duration_seconds")
+            poll_mean_s = (leader[("tfd_peer_poll_duration_seconds_sum", "")]
+                           / leader[("tfd_peer_poll_duration_seconds_count", "")])
+
+            # Failover: SIGTERM the leader; worker 1 takes over. Killed one
+            # cycle after a probe report of worker 2 (the only one still
+            # probing), so no burn-in lands in the window.
+            n_reports = len(_probe_reports(logs[2]))
+            _wait_for(lambda: len(_probe_reports(logs[2])) > n_reports, 60.0,
+                      "a probe of worker 2 before the failover")
+            time.sleep(2 * SLICE_SLEEP_S)
+            before = [_node_local(_read_labels(o)) for o in outs[1:]]
+            reports_before = [len(_probe_reports(log)) for log in logs[1:]]
+            t_term = time.monotonic()
+            procs[0].send_signal(signal.SIGTERM)
+
+            def promoted():
+                l = _read_labels(outs[1])
+                return l if (l.get(SLICE_PREFIX + "role") == "leader"
+                             and l.get(SLICE_PREFIX + "total-hosts") == "3"
+                             and l.get(SLICE_PREFIX + "healthy-hosts") == "2"
+                             and l.get(SLICE_PREFIX + "degraded") == "true") else None
+
+            bound = (broker.GRACEFUL_CLOSE_S + CONFIRM_POLLS * SLICE_SLEEP_S
+                     + SLICE_PEER_TIMEOUT_S + 5.0)
+            promoted_labels = _wait_for(promoted, bound,
+                                        "worker 1 leading the slice after the SIGTERM")
+            failover_s = time.monotonic() - t_term
+            check(promoted_labels.get(SLICE_PREFIX + "sick-chips") == "0",
+                  f"sick-chips after the failover {promoted_labels}")
+            rc0 = procs[0].wait(timeout=30)
+            check(rc0 == 0, f"the leader exited {rc0}")
+            after = [_node_local(_read_labels(o)) for o in outs[1:]]
+            check([len(_probe_reports(log)) for log in logs[1:]] == reports_before,
+                  "a burn-in probe landed in the failover window")
+            check(after == before, "node-local labels moved across the failover: "
+                  f"{[{k: (b.get(k), a.get(k)) for k in set(a) | set(b) if a.get(k) != b.get(k)} for a, b in zip(after, before)]}")
+            w1 = _scrape(ports[1])
+            degraded = {
+                "slice_degraded": w1.get(("tfd_slice_degraded", "")),
+                "unreachable": w1.get(("tfd_peer_unreachable",
+                                       f'{{peer="127.0.0.1:{ports[0]}"}}')),
+            }
+            check(degraded == {"slice_degraded": 1.0, "unreachable": 1.0},
+                  f"worker 1's series after the failover {degraded}")
+            check(_gone(pids[0]), "the leader's broker worker outlived it")
+        finally:
+            stop_sampling.set()
+            sampler.join(timeout=5)
+            t_stop = time.monotonic()
+            rcs = []
+            for p in procs:
+                if p.poll() is None:
+                    p.send_signal(signal.SIGTERM)
+            for p in procs:
+                try:
+                    rcs.append(p.wait(timeout=30))
+                finally:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            _wait_for(lambda: all(_gone(pid) for pid in pids.values()),
+                      max(0.0, t_stop + broker.GRACEFUL_CLOSE_S * SLICE_WORKERS + 2.0
+                          - time.monotonic()), f"no broker worker of {pids} alive")
+        check(rcs == [0] * SLICE_WORKERS, f"slice daemons exited {rcs}")
+        totals = [_per_worker_totals(_probe_reports(log)) for log in logs]
+        check(all(len(t) == 1 for t in totals), f"workers per daemon {totals}")
+        from gpu_feature_discovery_tpu_torch.ops import healthcheck
+
+        iters = healthcheck.PROBE_HBM_ITERS
+        check(all((t[0] - 1) % iters == 0 and t[0] >= 1 + iters for t in totals),
+              f"hbm_stream_sum launches per worker {totals}, want 1 + 3k")
+    emit("slice", nvidia_smi=smi, first_slice_labels_s=first_slice_s,
+         sigterm_to_new_leader_s=failover_s, failover_bound_s=bound,
+         peer_poll_median_s=poll_median_s, peer_poll_mean_s=poll_mean_s,
+         snapshot_get_ms={"200": ok[3], "304": nm[3]},
+         worker_spawn_ms=[sp[""][0][1] for sp in spawned],
+         device_used_mib_three_workers=used_mib, steady=steady, rates=rates,
+         launches_per_worker=[t[0] for t in totals], maps=maps)
+    entries["hbm_stream_sum"]["slice_launches"] = sum(t[0] for t in totals)
+    return {"failover_s": failover_s}
+
+
 
 def main() -> int:
     import importlib.util
@@ -1871,6 +2177,7 @@ def main() -> int:
     phase_broker(entries, info["count"], facts["labels"])
     phase_config_registry(entries, facts["labels"]["nvidia.com/gpu.product"],
                           info["nvidia_smi"])
+    phase_slice(entries, info["nvidia_smi"])
     # What serving and recording metrics cost, beside the card.
     emit("metrics", nvidia_smi=info["nvidia_smi"],
          scrape_ms_median=statistics.median(cli["scrape_ms"]),

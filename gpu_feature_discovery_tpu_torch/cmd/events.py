@@ -11,9 +11,10 @@ the daemon loop blocks on ONE event queue instead of sleeping:
   watcher (:class:`ConfigFileWatcher` posts ``CONFIG_CHANGED``: a
   ConfigMap remount reloads the daemon without a SIGHUP), the loop's own
   :class:`DeltaTracker` (``HEALTH_DELTA`` when a health verdict moves
-  between cycles), and the introspection server's authenticated
-  ``POST /probe`` (``PROBE_REQUEST``, obs/server.py). The twin's peer
-  producers belong to a later slice of this port.
+  between cycles, ``PEER_DELTA`` when the slice coordinator's reachable
+  membership moves between poll rounds), and the introspection server's
+  authenticated ``POST /probe`` (``PROBE_REQUEST``) and ``POST
+  /peer/notify`` (``PEER_NOTIFY``, a child peer's push hint; obs/server.py).
 - **The wait** (:meth:`ReconcileLoop.wait_for_wake`) has a deadline of
   ``--max-staleness`` (default: the sleep interval); the deadline
   expiring IS a wake, so the interval survives as a guarantee.
@@ -56,6 +57,8 @@ REASON_SIGNAL = "signal"
 REASON_WORKER_DIED = "worker_died"
 REASON_CONFIG_CHANGED = "config_changed"
 REASON_HEALTH_DELTA = "health_delta"
+REASON_PEER_DELTA = "peer_delta"
+REASON_PEER_NOTIFY = "peer_notify"
 REASON_PROBE_REQUEST = "probe_request"
 REASON_STALENESS_BOUND = "staleness_bound"
 
@@ -240,13 +243,14 @@ def health_subset(labels) -> dict:
 
 class DeltaTracker:
     """Posts ``HEALTH_DELTA`` when the health projection of the published
-    labels moves between cycles. The first observation only sets the
-    baseline. (The twin's peer-membership scopes belong to the peering
-    slice.)"""
+    labels moves between cycles, and ``PEER_DELTA`` when a membership
+    fingerprint (the slice coordinator's reachable peers) moves between
+    poll rounds. The first observation of each only sets its baseline."""
 
     def __init__(self, events: EventQueue):
         self._events = events
         self._health: Optional[dict] = None
+        self._memberships: dict = {}
 
     def observe_labels(self, labels) -> None:
         subset = health_subset(labels)
@@ -259,6 +263,23 @@ class DeltaTracker:
                 Event(REASON_HEALTH_DELTA, detail=",".join(sorted(changed)[:4]))
             )
         self._health = subset
+
+    def observe_peers(self, membership) -> None:
+        """``membership`` is the coordinator's reachable-peer fingerprint
+        (None before its first poll round completes)."""
+        self.observe_membership("slice", membership)
+
+    def observe_membership(self, scope: str, membership) -> None:
+        """One baseline per ``scope``; ``membership`` is any comparable
+        iterable, None means "not observed yet" and never moves the
+        baseline."""
+        if membership is None:
+            return
+        if scope in self._memberships and membership != self._memberships[scope]:
+            self._events.post(
+                Event(REASON_PEER_DELTA, detail=str(sorted(membership)))
+            )
+        self._memberships[scope] = membership
 
 
 class TokenBucket:

@@ -44,10 +44,19 @@ With a ``--backends`` list that names the cpu family (``gpu,cpu``) the
 cycle runs the multi-backend registry (resource/registry.py): each
 family is acquired, through its own broker worker under the daemon, with
 its own retries, and a family that will not init publishes only its own
-``<family>.tfd.degraded`` marker while the other stays fresh. The twin's
-slice coordinator and actuation engine have no counterpart yet; their
-config-file keys are refused with the slice that brings them
-(config/spec.py).
+``<family>.tfd.degraded`` marker while the other stays fresh.
+
+Each daemon epoch whose labels include the gpu family also builds one
+slice coordinator (peering/coordinator.py) when ``--slice-coordination``
+resolves on (``auto``: ``WORKER_HOSTNAMES`` names 2+ workers and the
+introspection server serves): it serves ``/peer/snapshot`` and ``POST
+/peer/notify`` on the epoch's server, runs as the offloaded ``slice``
+source beside the node's sources, is told of every label write, and
+wakes the event loop on a membership change (``peer_delta``) or a
+child's notification (``peer_notify``). It is closed at the epoch's end,
+so a SIGHUP reload rebuilds it from the new config. The twin's actuation
+engine has no counterpart yet; its config-file keys are refused with the
+slice that brings it (config/spec.py).
 """
 
 from __future__ import annotations
@@ -94,6 +103,7 @@ from gpu_feature_discovery_tpu_torch.lm.labelers import (
 )
 from gpu_feature_discovery_tpu_torch.lm.labels import remove_output_file
 from gpu_feature_discovery_tpu_torch.lm.pjrt_family import FAMILY_DEGRADED_LABELS
+from gpu_feature_discovery_tpu_torch.lm.slice_labeler import new_slice_label_source
 from gpu_feature_discovery_tpu_torch.lm.timestamp import new_timestamp_labeler
 from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
 from gpu_feature_discovery_tpu_torch.ops import kernel_cache
@@ -240,12 +250,22 @@ def start(argv: Optional[list] = None) -> int:
             signal.signal(s, handler)
 
 
-def start_introspection_server(config: Config, quiet: bool = False, probe_request=None):
+def start_introspection_server(
+    config: Config,
+    quiet: bool = False,
+    probe_request=None,
+    peer_snapshot=None,
+    peer_fault=None,
+    peer_notify=None,
+    notify_subscribe=None,
+):
     """Bind the introspection server for a daemon epoch: ``(server,
     state)``, or ``(None, None)``. Oneshot never serves and
     ``--metrics-port 0`` disables it. A bind failure degrades to no
     server with a warning (``quiet`` silences the repeats); the run loop
-    retries the bind each cycle, so a port race at boot heals itself."""
+    retries the bind each cycle, so a port race at boot heals itself.
+    The ``peer_*`` and ``notify_subscribe`` hooks are the epoch's slice
+    coordinator's (None without one: ``/peer/*`` answer 404)."""
     tfd = config.flags.tfd
     if tfd.oneshot or not tfd.metrics_port:
         return None, None
@@ -264,6 +284,13 @@ def start_introspection_server(config: Config, quiet: bool = False, probe_reques
             debug_endpoints=bool(tfd.debug_endpoints),
             probe_request=probe_request,
             probe_token=tfd.probe_token or "",
+            peer_snapshot=peer_snapshot,
+            peer_fault=peer_fault,
+            # --peer-token gates /peer/snapshot; the coordinator's own
+            # poller sends it too.
+            peer_token=tfd.peer_token or "",
+            peer_notify=peer_notify,
+            notify_subscribe=notify_subscribe,
         )
     except OSError as e:
         if not quiet:
@@ -343,6 +370,7 @@ def run(
     process_state: Optional[dict] = None,
     interconnect: Optional[Labeler] = None,
     config_file: Optional[str] = None,
+    coordinator=None,
 ) -> bool:
     """One config epoch. Returns True to request a reload (SIGHUP), False
     for a clean exit.
@@ -369,7 +397,13 @@ def run(
 
     ``config_file`` is the path the config was loaded from; under
     ``--reconcile=event`` a stat watcher on it posts CONFIG_CHANGED, and
-    the epoch ends for a reload as on SIGHUP."""
+    the epoch ends for a reload as on SIGHUP.
+
+    ``coordinator`` is an injected peering.SliceCoordinator: an
+    in-process harness runs N daemon loops in one process, whose shared
+    environment cannot carry per-worker slice identity. None builds one
+    from the config and ``WORKER_HOSTNAMES``/``WORKER_ID`` per epoch (or
+    none, and the node-local cycle)."""
     tfd = config.flags.tfd
     # The kernel cache (--compilation-cache-dir), resolved per config
     # epoch and exported through the environment, so the broker worker
@@ -415,7 +449,21 @@ def run(
                          "cycle completes", len(restored))
     # One engine per epoch: its cache and stragglers die with the epoch.
     engine = new_label_engine(config)
+    # Slice coordination: daemon epochs only, one coordinator per epoch
+    # (its reachability state must not survive a reload's hostname-list
+    # change). The slice family is a gpu-family fact: a daemon labeling
+    # only the cpu family claims no slice membership.
+    if coordinator is None and supervised and (
+        backend_set is None or backend_set.has_family("gpu")
+    ):
+        from gpu_feature_discovery_tpu_torch.peering import new_slice_coordinator
+
+        coordinator = new_slice_coordinator(config)
+    peer_snapshot = coordinator.snapshot_response if coordinator is not None else None
+    # The two-tier fault sites' gate, consulted per /peer/snapshot request.
+    peer_fault = coordinator.serving_fault if coordinator is not None else None
     event_loop = None
+    events_q = None
     forwarder = None
     config_watcher = None
     delta_tracker = None
@@ -447,6 +495,24 @@ def run(
         def probe_request():
             events_q.post(reconcile_events.Event(reconcile_events.REASON_PROBE_REQUEST))
 
+    # Push-on-delta receive side: a child peer's authenticated POST
+    # /peer/notify marks it dirty (its name checked against the peer set)
+    # and, in event mode, wakes the loop, which debounces and rate-guards
+    # it like any wake. Interval mode still takes the dirty mark.
+    peer_notify = None
+    notify_subscribe = None
+    if coordinator is not None and coordinator.push_notify:
+        def peer_notify(name, generation, etag):
+            if not coordinator.mark_dirty(name, generation, etag):
+                return False
+            if events_q is not None:
+                events_q.post(reconcile_events.Event(
+                    reconcile_events.REASON_PEER_NOTIFY, detail=name,
+                ))
+            return True
+
+        notify_subscribe = coordinator.notify_subscriptions.observe_poll
+
     if supervised:
         # Broker-worker death watch (sandbox/broker.py), in both reconcile
         # modes: a dead worker is marked dead at death time, so the next
@@ -473,9 +539,18 @@ def run(
             sandbox.prespawn_broker(config)
     # Introspection server: daemon epochs only, rebound per epoch so a
     # reload picks up new --metrics-* flags.
-    obs_server, obs_state = start_introspection_server(
-        config, probe_request=probe_request
+    peer_hooks = dict(
+        probe_request=probe_request,
+        peer_snapshot=peer_snapshot,
+        peer_fault=peer_fault,
+        peer_notify=peer_notify,
+        notify_subscribe=notify_subscribe,
     )
+    obs_server, obs_state = start_introspection_server(config, **peer_hooks)
+    if obs_server is not None and coordinator is not None:
+        # The BOUND port rides the poller's subscribe headers, so children
+        # know where to POST their notifications.
+        coordinator.set_notify_port(obs_server.port)
     # Anti-flap hysteresis: daemon only; oneshot publishes what it measured.
     flap = None
     if supervised:
@@ -489,6 +564,8 @@ def run(
             flap.observe(restored_served)
             if obs_state is not None:
                 obs_state.labels_written(restored_served, {}, mode="restored")
+            if coordinator is not None:
+                coordinator.publish_local(restored_served, "restored")
         # The post time of the event that woke the cycle about to run,
         # for tfd_wake_to_labels_seconds.
         wake_first_ts: Optional[float] = None
@@ -497,8 +574,10 @@ def run(
             if obs_server is None:
                 # A bind that failed (a port race) is retried each cycle.
                 obs_server, obs_state = start_introspection_server(
-                    config, quiet=True, probe_request=probe_request
+                    config, quiet=True, **peer_hooks
                 )
+                if obs_server is not None and coordinator is not None:
+                    coordinator.set_notify_port(obs_server.port)
             cycle_mode = "full"
             try:
                 with timed("labelgen.total"):
@@ -513,6 +592,8 @@ def run(
                         if supervised:
                             # Fail-fast only with nothing left to publish.
                             backend_set.check_escalation()
+                        if coordinator is not None:
+                            sources.append(new_slice_label_source(coordinator))
                         try:
                             labels = engine.generate(sources)
                         finally:
@@ -540,10 +621,17 @@ def run(
                             # Backend down: the non-device facts plus
                             # the degraded marker, never nothing.
                             cycle_mode = "degraded"
-                            labels = engine.generate(degraded_label_sources(
+                            sources = degraded_label_sources(
                                 config, timestamp=timestamp_labeler,
                                 interconnect=interconnect,
-                            ))
+                            )
+                            if coordinator is not None:
+                                # The slice view is about host
+                                # reachability: a daemon whose backend is
+                                # down keeps polling and serving (its
+                                # snapshot's mode says so).
+                                sources.append(new_slice_label_source(coordinator))
+                            labels = engine.generate(sources)
                             labels[DEGRADED_LABEL] = "true"
                         else:
                             # init() runs inside new_label_sources; its
@@ -552,6 +640,11 @@ def run(
                                 current, config, timestamp=timestamp_labeler,
                                 interconnect=interconnect,
                             )
+                            if coordinator is not None:
+                                # Merged LAST: the slice family is derived
+                                # from peers and never overrides a
+                                # node-local fact.
+                                sources.append(new_slice_label_source(coordinator))
                             try:
                                 labels = engine.generate(sources)
                             finally:
@@ -580,12 +673,19 @@ def run(
                             time.monotonic() - wake_first_ts
                         )
                         wake_first_ts = None
-                    # A moved health verdict wakes a prompt follow-up.
+                    # A moved health verdict or slice membership wakes a
+                    # prompt follow-up.
                     delta_tracker.observe_labels(labels)
+                    if coordinator is not None:
+                        delta_tracker.observe_peers(coordinator.membership_token())
                 if obs_state is not None:
                     obs_state.labels_written(
                         labels, engine.last_provenance, mode=cycle_mode
                     )
+                if coordinator is not None:
+                    # Peers see what the node published, markers and the
+                    # slice family stripped (peering/snapshot.py).
+                    coordinator.publish_local(labels, cycle_mode)
             except (InitRetriesExhausted, TooManyConsecutiveFailures):
                 raise  # supervision verdicts, not containable faults
             except Exception as e:  # noqa: BLE001 - supervision boundary
@@ -632,6 +732,8 @@ def run(
                         if obs_state is not None:
                             obs_state.labels_written(reserve, {}, mode="reserved")
                             obs_state.cycle_completed()
+                        if coordinator is not None:
+                            coordinator.publish_local(reserve, "reserved")
                 # The backoff replaces the sleep interval for a failed
                 # cycle; a signal during it is serviced at once.
                 log.info("retrying failed cycle in %.3fs", delay)
@@ -704,6 +806,10 @@ def run(
         if obs_server is not None:
             # Synchronous: the port is free before a reload rebinds it.
             obs_server.close()
+        if coordinator is not None:
+            # Zero the per-peer gauges: a reload may bring another
+            # hostname list, and a departed peer must not stay latched.
+            coordinator.close()
         # A daemon exit removes the label file so stale labels do not
         # outlive the pod; oneshot leaves it for NFD.
         if not oneshot and output_file:

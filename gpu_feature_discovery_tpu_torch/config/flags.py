@@ -4,7 +4,8 @@
 Each flag keeps its twin's spelling, its ``TFD_*`` environment alias and
 its default. Only the flags of the burn-in cycle, the supervised daemon
 loop, the probe sandbox, the host facts, the introspection server and
-the multi-backend registry are here; the config file
+the multi-backend registry and the slice coordination are here; the
+config file
 (``--config-file`` / ``TFD_CONFIG_FILE``, config/spec.py) sets the same
 flags under their camelCase keys.
 """
@@ -17,6 +18,10 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from gpu_feature_discovery_tpu_torch.config.spec import (
+    PUSH_NOTIFY_AUTO,
+    PUSH_NOTIFY_MODES,
+    SLICE_COORDINATION_AUTO,
+    SLICE_COORDINATION_MODES,
     PROBE_BROKER_AUTO,
     PROBE_BROKER_MODES,
     PROBE_ISOLATION_AUTO,
@@ -28,6 +33,7 @@ from gpu_feature_discovery_tpu_torch.config.spec import (
     Config,
     ConfigError,
     parse_bool as _parse_bool,
+    parse_cohort_size as _parse_cohort_size,
     parse_config_file,
     parse_fraction as _parse_fraction,
     parse_nonneg_int as _parse_nonneg_int,
@@ -74,6 +80,14 @@ CONFIG_FILE_ENV_VARS = ("TFD_CONFIG_FILE", "CONFIG_FILE")
 # Kernel-build cache (ops/kernel_cache.py): 'auto' follows --state-dir.
 DEFAULT_COMPILATION_CACHE_DIR = "auto"
 KERNEL_CACHE_SUBDIR = "kernel-cache"
+# Slice coordination (peering/): the per-peer connect/read budget of one
+# /peer/snapshot poll (a round is bounded on top by 0.8 x the labeler
+# timeout); the poll fan-out, 0 = auto = min(8, peers), 1 = sequential;
+# and the two-tier cohort size, "0" = flat, "auto" = 64 once the slice
+# has more than 64 hosts.
+DEFAULT_PEER_TIMEOUT = 2.0
+DEFAULT_PEER_FANOUT = 0
+DEFAULT_COHORT_SIZE = "0"
 # Straggler detection (lm/health.py): a healthy device whose throughput
 # falls below this fraction of the healthy-device median on two
 # consecutive probes is published as gpu.straggler-chip.
@@ -330,6 +344,53 @@ FLAG_DEFS: List[FlagDef] = [
             "/probe on the introspection server (an on-demand labeling "
             "cycle); empty (default) answers 403: the endpoint never works "
             "unauthenticated", "probe_token"),
+    FlagDef("slice-coordination", ("TFD_SLICE_COORDINATION",), str,
+            SLICE_COORDINATION_AUTO,
+            "cross-host slice health coordination (peering/): 'on' serves "
+            "this daemon's label snapshot at /peer/snapshot on the "
+            "introspection server and polls every slice peer each cycle; "
+            "the lowest reachable worker id publishes slice-scoped labels "
+            "(nvidia.com/gpu.slice.healthy-hosts, slice.degraded, ...); "
+            "'off' reproduces the node-local label output byte for byte; "
+            "'auto' (default) is on exactly when WORKER_HOSTNAMES names 2+ "
+            "workers (WORKER_ID indexes it) and the introspection server is "
+            "enabled", "slice_coordination"),
+    FlagDef("peer-timeout", ("TFD_PEER_TIMEOUT",), parse_duration,
+            DEFAULT_PEER_TIMEOUT,
+            "with slice coordination on, per-peer connect/read budget (Go "
+            "duration, e.g. 2s) of one /peer/snapshot poll; a peer "
+            "exceeding it counts as a failed poll (two consecutive failures "
+            "confirm the peer unreachable)", "peer_timeout"),
+    FlagDef("peer-fanout", ("TFD_PEER_FANOUT",), _parse_nonneg_int,
+            DEFAULT_PEER_FANOUT,
+            "with slice coordination on, how many peer snapshot polls one "
+            "round runs concurrently: 0 (default) is auto, min(8, peers); "
+            "1 is the sequential round; values above the peer count are "
+            "capped at it", "peer_fanout"),
+    FlagDef("cohort-size", ("TFD_COHORT_SIZE",), _parse_cohort_size,
+            DEFAULT_COHORT_SIZE,
+            "with slice coordination on, partition the WORKER_HOSTNAMES "
+            "list into fixed cohorts of this size for two-tier aggregation: "
+            "within each cohort the lowest reachable worker id aggregates "
+            "its members and the slice leader polls only cohort leaders "
+            "(polling a cohort whose whole leadership chain is dark "
+            "directly, marked nvidia.com/gpu.slice.cohort.<i>.degraded); "
+            "'0' (default) is the flat single tier; 'auto' resolves to 64 "
+            "when the slice exceeds 64 hosts", "cohort_size"),
+    FlagDef("peer-token", ("TFD_PEER_TOKEN",), str, "",
+            "shared secret authenticating GET /peer/snapshot (X-TFD-Probe-"
+            "Token header or Authorization: Bearer): when set, the slice "
+            "leader's poll round sends it and unauthenticated requests are "
+            "rejected (missing header 403, wrong token 401); empty "
+            "(default) keeps the endpoint open", "peer_token"),
+    FlagDef("push-notify", ("TFD_PUSH_NOTIFY",), str, PUSH_NOTIFY_AUTO,
+            "push-on-delta notifications: 'on' POSTs a small authenticated "
+            "/peer/notify hint to the polling leader whenever the served "
+            "snapshot moves, so its next round polls only dirty peers (the "
+            "full sweep on the --max-staleness cadence stays the only "
+            "correctness mechanism); 'off' is the pull-everything round; "
+            "'auto' (default) is on exactly when --peer-token is set",
+            "push_notify"),
 ]
 
 
@@ -369,6 +430,8 @@ def new_config(
         ("probe_isolation", PROBE_ISOLATION_MODES),
         ("probe_broker", PROBE_BROKER_MODES),
         ("reconcile", RECONCILE_MODES),
+        ("slice_coordination", SLICE_COORDINATION_MODES),
+        ("push_notify", PUSH_NOTIFY_MODES),
     ):
         if getattr(tfd, attr) not in modes:
             raise ConfigError(

@@ -63,6 +63,31 @@ RECONCILE_EVENT = "event"
 RECONCILE_AUTO = "auto"
 RECONCILE_MODES = (RECONCILE_INTERVAL, RECONCILE_EVENT, RECONCILE_AUTO)
 
+# Cross-host slice coordination modes (peering/): `on` serves the peer
+# snapshot endpoint and publishes slice-scoped labels; `off` reproduces
+# the strictly node-local label output byte for byte; `auto` (the
+# default) is on exactly when WORKER_HOSTNAMES names >= 2 workers and the
+# daemon serves the introspection endpoint.
+SLICE_COORDINATION_ON = "on"
+SLICE_COORDINATION_OFF = "off"
+SLICE_COORDINATION_AUTO = "auto"
+SLICE_COORDINATION_MODES = (
+    SLICE_COORDINATION_ON,
+    SLICE_COORDINATION_OFF,
+    SLICE_COORDINATION_AUTO,
+)
+
+# Push-on-delta notification modes (peering/notify.py): `on` makes a
+# child whose served snapshot moves POST an authenticated /peer/notify
+# hint upward, so the parent's next round polls only dirty children (the
+# full sweep on the --max-staleness cadence stays the only correctness
+# mechanism); `off` is the pull-everything round byte for byte; `auto`
+# (the default) is on exactly when --peer-token is configured.
+PUSH_NOTIFY_ON = "on"
+PUSH_NOTIFY_OFF = "off"
+PUSH_NOTIFY_AUTO = "auto"
+PUSH_NOTIFY_MODES = (PUSH_NOTIFY_ON, PUSH_NOTIFY_OFF, PUSH_NOTIFY_AUTO)
+
 
 @dataclass
 class ReplicatedResource:
@@ -150,6 +175,15 @@ class TfdFlags:
     metrics_port: Optional[int] = None  # 0 = disabled
     debug_endpoints: Optional[bool] = None
     probe_token: Optional[str] = None  # "" = POST /probe disabled
+    # Cross-host slice coordination (peering/): every daemon serves its
+    # label snapshot at /peer/snapshot; the lowest reachable worker id
+    # aggregates and publishes the nvidia.com/gpu.slice.* family.
+    slice_coordination: Optional[str] = None  # auto | on | off
+    peer_timeout: Optional[float] = None  # seconds, per-peer connect/read
+    peer_fanout: Optional[int] = None  # 0 = auto (min(8, peers))
+    cohort_size: Optional[str] = None  # "0" | "auto" | positive int
+    peer_token: Optional[str] = None  # "" = /peer/snapshot open
+    push_notify: Optional[str] = None  # auto | on | off
 
 
 @dataclass
@@ -251,6 +285,25 @@ def parse_positive_float(value: Any) -> float:
     return f
 
 
+def parse_cohort_size(value: Any) -> str:
+    """Strict ``--cohort-size`` grammar: ``auto`` | an integer >= 0 (0 =
+    flat single-tier coordination). Returns the canonical string form:
+    resolving ``auto`` needs the slice's host count, which only the
+    peering layer has (peering/cohort.resolve_cohort_size)."""
+    s = str(value).strip().lower()
+    if s == "auto":
+        return "auto"
+    try:
+        n = int(s)
+    except ValueError as e:
+        raise ConfigError(
+            f"invalid cohort-size {value!r} (want 'auto' or an integer >= 0)"
+        ) from e
+    if n < 0:
+        raise ConfigError(f"cohort-size must be >= 0: {value!r}")
+    return str(n)
+
+
 # -- the config file (twin config/spec.py parse_config_file) -----------------
 
 def file_key(flag_name: str) -> Tuple[str, str]:
@@ -266,19 +319,12 @@ def file_key(flag_name: str) -> Tuple[str, str]:
 
 # Keys the twin reads for flags this port does not have, and where each
 # comes from (ROADMAP.md queue 1).
-_PEERING = "the slice and peer coordination slice (ROADMAP.md queue 1, item 6)"
 _ACTUATION = "the actuation slice (ROADMAP.md queue 1, item 7)"
 _TPU_ONLY = ("no slice: it configures libtpu's PJRT client, which a CUDA node "
              "does not have")
 UNPORTED_FILE_KEYS: Dict[Tuple[str, str], str] = {
     ("flags", "libtpuPath"): _TPU_ONLY,
     ("flags", "pjrtCreateOptions"): _TPU_ONLY,
-    ("tfd", "sliceCoordination"): _PEERING,
-    ("tfd", "peerTimeout"): _PEERING,
-    ("tfd", "peerFanout"): _PEERING,
-    ("tfd", "cohortSize"): _PEERING,
-    ("tfd", "peerToken"): _PEERING,
-    ("tfd", "pushNotify"): _PEERING,
     ("tfd", "actuation"): _ACTUATION,
     ("tfd", "actuationWindow"): _ACTUATION,
     ("tfd", "maxActuatedFraction"): _ACTUATION,

@@ -4,10 +4,9 @@ stage store (twin: ``gpu_feature_discovery_tpu/obs/metrics.py``).
 Each family keeps its twin's name, type, label names and buckets, so a
 dashboard built on the twin reads the port unchanged; the help text says
 what the series means here where the twin's names PJRT or XLA. Only the
-families of layers the port has are declared: those of the slice peer
-layer, cohorts, actuation, the fleet collector, push notifications and
-the HTTP admission gate land with their modules (tests/test_torch_obs.py
-pins the list of what is left out).
+families of layers the port has are declared: those of actuation, the
+fleet collector and the HTTP admission gate land with their modules
+(tests/test_torch_obs.py pins the list of what is left out).
 
 ``utils/timing.py``'s cycle summary and ``--timings-file`` are views
 over the stage store here (``observe_stage`` / ``cycle_stages``), and
@@ -62,6 +61,7 @@ RECONCILE_WAKES = REGISTRY.counter(
     "tfd_reconcile_wakes_total",
     "Event-loop wakes by reason: signal, worker_died (broker worker "
     "death), config_changed (the --config-file watcher), health_delta, "
+    "peer_delta (slice membership moved), peer_notify (POST /peer/notify), "
     "probe_request (POST /probe), staleness_bound "
     "(--max-staleness expired with no event). One wake per cycle "
     "decision; the events a wake absorbed beyond the first are in "
@@ -235,6 +235,117 @@ STRAGGLER_DETECTED = REGISTRY.counter(
     "Probes that CONFIRMED a straggler device (throughput below "
     "--straggler-threshold of the healthy-device median on consecutive "
     "probes — the gpu.straggler-chip label).",
+)
+
+# -- cross-host slice coordination (peering/) -------------------------------
+
+PEER_POLLS = REGISTRY.counter(
+    "tfd_peer_polls_total",
+    "Peer /peer/snapshot polls by outcome: ok (valid schema-1 snapshot), "
+    "error (timeout, HTTP failure, junk body, worker-id mismatch — every "
+    "failure shape counts as one miss), or skipped (the round budget ran "
+    "out before this peer; its reachability state is untouched).",
+    labelnames=("outcome",),
+)
+PEER_POLL_DURATION = REGISTRY.histogram(
+    "tfd_peer_poll_duration_seconds",
+    "Round-trip time of each peer snapshot poll, whatever its outcome "
+    "(a timed-out poll contributes its full --peer-timeout budget).",
+)
+PEER_FANOUT_INFLIGHT = REGISTRY.gauge(
+    "tfd_peer_fanout_inflight",
+    "Peer polls currently in flight on the coordinator's bounded fan-out "
+    "pool (--peer-fanout); 0 between rounds. A value pinned at the "
+    "fan-out width across scrapes means the round is saturated by slow "
+    "peers and the width (or --peer-timeout) needs raising.",
+)
+PEER_SNAPSHOT_NOT_MODIFIED = REGISTRY.counter(
+    "tfd_peer_snapshot_not_modified_total",
+    "Peer snapshot requests THIS daemon answered 304 Not Modified (the "
+    "poller's If-None-Match matched the cached snapshot ETag): no body, "
+    "no serialization, no JSON parse on either end. On an idle slice "
+    "this should dominate tfd_peer_polls_total across the fleet.",
+)
+PEER_CONNECTION_REUSES = REGISTRY.counter(
+    "tfd_peer_connection_reuses_total",
+    "Peer polls completed over an already-open persistent HTTP "
+    "connection (keep-alive reuse; steady-state polls skip TCP setup). "
+    "A low reuse ratio means peer connections are being torn down "
+    "between rounds — look for flapping peers or an intermediary "
+    "closing idle connections.",
+)
+PEER_SNAPSHOT_SERIALIZATIONS = REGISTRY.counter(
+    "tfd_peer_snapshot_serializations_total",
+    "Times this daemon's peer snapshot was (re-)serialized — once per "
+    "DISTINCT published label set / write mode, never per request "
+    "(/peer/snapshot serves the cached body). Steady growth without "
+    "label churn means something is perturbing the published set.",
+)
+PEER_UNREACHABLE = REGISTRY.gauge(
+    "tfd_peer_unreachable",
+    "1 while the named peer is CONFIRMED unreachable (2 consecutive "
+    "failed polls), 0 after any successful poll.",
+    labelnames=("peer",),
+)
+SLICE_DEGRADED = REGISTRY.gauge(
+    "tfd_slice_degraded",
+    "1 while the aggregated slice view counts fewer reachable hosts than "
+    "WORKER_HOSTNAMES names (the slice.degraded label), else 0.",
+)
+COHORT_LEADERS = REGISTRY.gauge(
+    "tfd_cohort_leaders",
+    "Two-tier coordination (--cohort-size): cohorts this node currently "
+    "sees served by a LIVE leader — on the slice leader, its own cohort "
+    "plus every cohort whose leadership chain answered with an "
+    "aggregate; 1 on a mid-tier cohort leader; leader visibility (0/1) "
+    "on followers. 0 in flat mode.",
+)
+COHORT_DEGRADED = REGISTRY.gauge(
+    "tfd_cohort_degraded",
+    "Cohorts currently marked degraded in this node's view (whole "
+    "leadership chain dark, members served by the slice leader's "
+    "direct-poll fallback — the slice.cohort.<i>.degraded labels). "
+    "0 in flat mode and on every non-slice-leader.",
+)
+COHORT_POLL_ROUNDS = REGISTRY.counter(
+    "tfd_cohort_poll_rounds_total",
+    "Hierarchical poll rounds STARTED by tier: cohort (the intra-cohort "
+    "sibling round every member runs) or slice (the slice leader's "
+    "inter-cohort leadership round). Counted at round start — a round "
+    "abandoned by an epoch teardown still counts. Absent entirely in "
+    "flat mode.",
+    labelnames=("tier",),
+)
+NOTIFY_SENT = REGISTRY.counter(
+    "tfd_notify_sent_total",
+    "Push-on-delta notifications this process attempted upward, by "
+    "outcome: ok (202 accepted), rejected (any non-202 answer — auth "
+    "mismatch, unknown name, parent mid-restart), error (connection "
+    "failed after the capped-backoff retries), dropped (a newer "
+    "generation superseded this one before it could be sent, or the "
+    "notify.drop fault site consumed it). Notifications are lossy hints "
+    "by design: every non-ok outcome is repaired by the parent's next "
+    "confirmation sweep, never by the child blocking its publish path.",
+    labelnames=("outcome",),
+)
+NOTIFY_RECEIVED = REGISTRY.counter(
+    "tfd_notify_received_total",
+    "POST /peer/notify requests this parent's introspection server "
+    "answered, by outcome: ok (202 — the named child was marked dirty "
+    "and the reconcile loop woken), unauthorized (missing or mismatched "
+    "token — the hook is never invoked, so an attacker cannot wake the "
+    "poll loop), unknown (a name outside this parent's child set), "
+    "invalid (unparseable body), disabled (push disabled or no "
+    "subscription hook wired — answered 404), rejected (the "
+    "notify.reject fault site answered 503 — chaos rows only).",
+    labelnames=("outcome",),
+)
+DIRTY_CHILDREN = REGISTRY.gauge(
+    "tfd_dirty_children",
+    "Children currently marked dirty by an accepted /peer/notify hint "
+    "and not yet re-polled. Drains to 0 after every round; a value that "
+    "never drains means the poll loop is wedged while notifications "
+    "keep arriving.",
 )
 
 # -- introspection server (obs/server.py) -----------------------------------

@@ -19,16 +19,30 @@ never holds up the daemon's shutdown. Endpoints:
   ``Authorization: Bearer``, compared with ``hmac.compare_digest``):
   202 and a ``probe_request`` event; 404 without an event loop, 403
   without a configured token, 401 on a missing or wrong one.
+- ``GET /peer/snapshot``: the slice peer layer's wire surface
+  (peering/snapshot.py), the coordinator's body serialized at PUBLISH
+  time with its strong ``ETag``; a matching ``If-None-Match`` answers
+  ``304`` with no body. Served only while slice coordination built a
+  coordinator (independent of ``--debug-endpoints``: peers depend on
+  it), 404 otherwise. With ``--peer-token`` set it requires the secret
+  through the same transport and ``hmac.compare_digest`` as ``POST
+  /probe``: missing 403, wrong 401. A poll's ``X-TFD-Poll-Tier`` header
+  names its coordination plane (the tier fault sites read it), and its
+  ``X-TFD-Notify-Port``/``X-TFD-Notify-Name`` headers subscribe the
+  poller to push notifications.
+- ``POST /peer/notify``: a child's push-on-delta hint
+  (peering/notify.py): 404 without a notify hook (push off), 403
+  without a configured ``--peer-token``, 401 on a mismatch, 400 on an
+  unparseable body, 404 for a name outside the peer set, 202 accepted.
 
 ``HEAD`` answers every GET endpoint with the same status and headers
 (Content-Length states the GET body's size) and no body. A handler that
 raises answers 500 naming the error class and counts
 ``tfd_http_errors_total{endpoint}``, whose label is clamped to the known
-endpoints. The twin's ``/peer/snapshot``, ``/peer/notify`` and
-``/fleet/snapshot`` come with the peering and fleet modules of this port
-and answer 404 here, as on a twin daemon without coordination; the
-twin's ``--max-inflight-requests`` gate, which its node daemon does not
-pass, is not ported.
+endpoints. The twin's ``/fleet/snapshot`` comes with the fleet module of
+this port and answers 404 here, as on a twin node daemon; the twin's
+``--max-inflight-requests`` gate, which its node daemon does not pass,
+is not ported.
 
 cmd/main.run binds the server for daemon epochs only (oneshot never
 serves; ``--metrics-port 0`` disables it) and closes it at epoch end,
@@ -73,6 +87,18 @@ _KNOWN_ENDPOINTS = (
 # Largest POST body the handler drains to keep a keep-alive connection
 # parseable; anything bigger closes the connection instead.
 _MAX_PROBE_BODY = 65536
+
+# How long a fault-armed /peer/snapshot (peer.slow) or /peer/notify
+# (notify.slow) handler stalls: past the default --peer-timeout (2 s) and
+# the notify sender's timeout, so the caller counts a miss first.
+PEER_SLOW_DELAY_S = 5.0
+
+# Header names restated from peering/ (obs does not import peering; a
+# test pins the spellings equal): the poller's coordination plane, and a
+# parent's notify subscription.
+_POLL_TIER_HEADER = "X-TFD-Poll-Tier"
+_NOTIFY_PORT_HEADER = "X-TFD-Notify-Port"
+_NOTIFY_NAME_HEADER = "X-TFD-Notify-Name"
 
 
 class IntrospectionState:
@@ -162,6 +188,11 @@ def _make_handler(
     debug_endpoints: bool,
     probe_request: Optional[Callable[[], None]] = None,
     probe_token: str = "",
+    peer_snapshot: Optional[Callable[[], "tuple[bytes, str]"]] = None,
+    peer_fault: Optional[Callable[[str], bool]] = None,
+    peer_token: str = "",
+    peer_notify: Optional[Callable[[str, int, str], bool]] = None,
+    notify_subscribe: Optional[Callable[[str, int, str], None]] = None,
 ):
     class _Handler(BaseHTTPRequestHandler):
         # Content-Length is always sent, so keep-alive is safe.
@@ -206,10 +237,83 @@ def _make_handler(
             elif path == "/debug/labels" and debug_endpoints:
                 body = json.dumps(state.debug_snapshot(), indent=2, sort_keys=True)
                 self._reply(200, body.encode() + b"\n", "application/json")
+            elif path == "/peer/snapshot" and peer_snapshot is not None:
+                if not self._peer_auth_ok():
+                    return
+                self._observe_notify_subscription()
+                if self._peer_fault():
+                    return
+                # The body and ETag were rendered at publish time; this
+                # handler serializes nothing.
+                body, etag = peer_snapshot()
+                if etag and self.headers.get("If-None-Match") == etag:
+                    metrics.PEER_SNAPSHOT_NOT_MODIFIED.inc()
+                    self._reply(304, b"", "application/json", etag=etag)
+                else:
+                    self._reply(200, body, "application/json", etag=etag)
             else:
                 self._reply(404, b"not found\n")
 
+        def _peer_auth_ok(self) -> bool:
+            """The --peer-token gate: True lets the request through (no
+            token configured keeps the surface open); False means a 403
+            (missing) or 401 (wrong) was sent."""
+            if not peer_token:
+                return True
+            provided = self._provided_token()
+            if not provided:
+                self._reply(403, b"peer token required: set --peer-token\n")
+                return False
+            if not hmac.compare_digest(provided.encode(), peer_token.encode()):
+                self._reply(401, b"unauthorized\n")
+                return False
+            return True
+
+        def _observe_notify_subscription(self) -> None:
+            """Record an authenticated poller's notify subscription: the
+            poll connection's source address (never a client-asserted
+            host), the advertised port and the name it knows us by."""
+            if notify_subscribe is None:
+                return
+            name = self.headers.get(_NOTIFY_NAME_HEADER, "")
+            raw_port = self.headers.get(_NOTIFY_PORT_HEADER, "")
+            if not name or not raw_port:
+                return
+            try:
+                port = int(raw_port)
+            except ValueError:
+                return
+            notify_subscribe(self.client_address[0], port, name)
+
+        def _peer_fault(self) -> bool:
+            """Enact an armed peer.* fault (utils/faults.py) on the serving
+            side; True when the normal reply must be skipped."""
+            from gpu_feature_discovery_tpu_torch.utils import faults
+
+            if faults.consume("peer.unreachable"):
+                # No response at all: the poller sees what a dead host's
+                # RST gives it.
+                self.close_connection = True
+                return True
+            if faults.consume("peer.junk"):
+                self._reply(200, b"not json {", "application/json")
+                return True
+            if faults.consume("peer.slow"):
+                time.sleep(PEER_SLOW_DELAY_S)
+            if peer_fault is not None:
+                # The two-tier sites need the request's plane and this
+                # daemon's role, so their gate is the coordinator's
+                # (SliceCoordinator.serving_fault); the dropped connection
+                # is enacted here.
+                if peer_fault(self.headers.get(_POLL_TIER_HEADER, "")):
+                    self.close_connection = True
+                    return True
+            return False
+
         def _dispatch_post(self, path: str) -> None:
+            if path == "/peer/notify":
+                self._handle_notify()
+                return
             self._drain_body()
             if path != "/probe" or probe_request is None:
                 # The hook exists only under --reconcile=event: without
@@ -232,18 +336,64 @@ def _make_handler(
             # other wake, and the label file is the result.
             self._reply(202, b"probe scheduled\n")
 
-        def _drain_body(self) -> None:
-            """Consume the request body so keep-alive framing survives;
-            an oversized body closes the connection instead."""
+        def _handle_notify(self) -> None:
+            """POST /peer/notify: mark the named child dirty. The token
+            gate is POST /probe's: a notification wakes the poll loop, so
+            the endpoint never works unauthenticated, and a failed check
+            returns before the hook runs."""
+            body = self._read_body()
+            if peer_notify is None:
+                metrics.NOTIFY_RECEIVED.labels(outcome="disabled").inc()
+                self._reply(404, b"not found\n")
+                return
+            if not peer_token:
+                metrics.NOTIFY_RECEIVED.labels(outcome="unauthorized").inc()
+                self._reply(403, b"notify endpoint disabled: --peer-token not set\n")
+                return
+            if not hmac.compare_digest(
+                self._provided_token().encode(), peer_token.encode()
+            ):
+                metrics.NOTIFY_RECEIVED.labels(outcome="unauthorized").inc()
+                self._reply(401, b"unauthorized\n")
+                return
+            from gpu_feature_discovery_tpu_torch.utils import faults
+
+            if faults.consume("notify.slow"):
+                time.sleep(PEER_SLOW_DELAY_S)
+            if faults.consume("notify.reject"):
+                metrics.NOTIFY_RECEIVED.labels(outcome="rejected").inc()
+                self._reply(503, b"notify rejected\n")
+                return
+            try:
+                doc = json.loads(body.decode("utf-8"))
+                name = str(doc["name"])
+                generation = int(doc.get("generation", 0))
+                etag = str(doc.get("etag", ""))
+            except (ValueError, KeyError, UnicodeDecodeError):
+                metrics.NOTIFY_RECEIVED.labels(outcome="invalid").inc()
+                self._reply(400, b"invalid notify body\n")
+                return
+            if not peer_notify(name, generation, etag):
+                metrics.NOTIFY_RECEIVED.labels(outcome="unknown").inc()
+                self._reply(404, b"unknown child\n")
+                return
+            metrics.NOTIFY_RECEIVED.labels(outcome="ok").inc()
+            self._reply(202, b"notify accepted\n")
+
+        def _read_body(self) -> bytes:
+            """Consume and return the request body so keep-alive framing
+            survives; an oversized body closes the connection instead."""
             try:
                 length = int(self.headers.get("Content-Length") or 0)
             except ValueError:
                 length = 0
             if length > _MAX_PROBE_BODY:
                 self.close_connection = True
-                return
-            if length:
-                self.rfile.read(length)
+                length = 0
+            return self.rfile.read(length) if length else b""
+
+        def _drain_body(self) -> None:
+            self._read_body()
 
         def _provided_token(self) -> str:
             provided = self.headers.get("X-TFD-Probe-Token", "")
@@ -252,10 +402,15 @@ def _make_handler(
                 provided = auth[len("Bearer "):]
             return provided
 
-        def _reply(self, code: int, body: bytes, ctype: str = "text/plain") -> None:
+        def _reply(
+            self, code: int, body: bytes, ctype: str = "text/plain",
+            etag: Optional[str] = None,
+        ) -> None:
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
+            if etag:
+                self.send_header("ETag", etag)
             self.end_headers()
             if self.command != "HEAD":
                 self.wfile.write(body)
@@ -311,6 +466,11 @@ class IntrospectionServer:
         debug_endpoints: bool = True,
         probe_request: Optional[Callable[[], None]] = None,
         probe_token: str = "",
+        peer_snapshot: Optional[Callable[[], "tuple[bytes, str]"]] = None,
+        peer_fault: Optional[Callable[[str], bool]] = None,
+        peer_token: str = "",
+        peer_notify: Optional[Callable[[str, int, str], bool]] = None,
+        notify_subscribe: Optional[Callable[[str, int, str], None]] = None,
     ):
         self._httpd = _TrackingHTTPServer(
             (addr, port),
@@ -320,6 +480,11 @@ class IntrospectionServer:
                 debug_endpoints,
                 probe_request=probe_request,
                 probe_token=probe_token,
+                peer_snapshot=peer_snapshot,
+                peer_fault=peer_fault,
+                peer_token=peer_token,
+                peer_notify=peer_notify,
+                notify_subscribe=notify_subscribe,
             ),
         )
         self._httpd.daemon_threads = True

@@ -7,8 +7,9 @@ inline, in order. The multi-backend registry's per-family init
 (resource/registry.py ``BackendSet.acquire_all``) is its consumer here: a
 hung family's init, bounded by its own ``--probe-timeout`` when
 sandboxed, overlaps the other families' instead of holding them up. The
-twin's round ``Budget`` serves its peer poller, which this port does not
-have yet.
+slice coordinator's poll rounds (peering/coordinator.py) are the other:
+a task checks the round's budget as its first act, so a spent budget
+skips exactly the tasks that had not started yet (``Budget``).
 """
 
 from __future__ import annotations
@@ -50,6 +51,28 @@ class BoundedPool:
     def shutdown(self, wait: bool = False) -> None:
         if self.pool is not None:
             self.pool.shutdown(wait=wait, cancel_futures=True)
+
+
+class Budget:
+    """One round's wall-clock budget, shared by every task of the round.
+
+    ``remaining()`` is what a task consults as its first act; ``spent``
+    (with the caller's grace margin) is the dispatch cutoff. None = an
+    unbounded round (remaining() is None, never spent)."""
+
+    def __init__(self, budget_s: Optional[float], clock: Callable[[], float]):
+        self._budget = float(budget_s) if budget_s is not None else None
+        self._clock = clock
+        self._started = clock()
+
+    def remaining(self) -> Optional[float]:
+        if self._budget is None:
+            return None
+        return self._budget - (self._clock() - self._started)
+
+    def spent(self, grace: float = 0.0) -> bool:
+        remaining = self.remaining()
+        return remaining is not None and remaining <= grace
 
 
 class ErrorSink:

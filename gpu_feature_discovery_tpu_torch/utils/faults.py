@@ -53,9 +53,34 @@ Sites this port wires:
     chip.<i>.slow      device <i>'s measured rate is scaled by
                        SLOW_CHIP_FACTOR for one probe; straggler
                        confirmation takes 2 consecutive probes
-
-The twin's ``peer.*`` and ``notify.*`` sites belong to the peering plane,
-which this port does not have yet.
+    peer.unreachable   slice coordination (peering/): this daemon's
+                       /peer/snapshot handler drops the connection with
+                       no response on the next N polls, as a dead host
+                       does; confirmation takes 2 consecutive misses, so
+                       arm 2+ shots to flip slice.degraded
+    peer.slow          the snapshot handler stalls past --peer-timeout
+                       before answering (the poll-timeout miss)
+    peer.junk          the snapshot handler answers 200 with a non-JSON
+                       body (the parse-rejection miss)
+    peer.tier-partition
+                       two-tier coordination (--cohort-size): the
+                       handler drops the next N slice-tier leadership
+                       polls (X-TFD-Poll-Tier: slice) while cohort and
+                       direct-fallback polls answer
+                       (SliceCoordinator.serving_fault)
+    peer.cohort-leader-dead
+                       the handler drops the next N polls while this
+                       daemon IS a cohort leader: the mid-tier death
+                       whose failover re-derives the next chain member
+    notify.drop        push-on-delta (peering/notify.py): the CHILD's
+                       next change notification is never sent, as a
+                       dropped packet; the parent's --max-staleness
+                       sweep repairs it
+    notify.slow        the parent's POST /peer/notify handler stalls
+                       before answering (the child's notify timeout gives
+                       up off its publish path)
+    notify.reject      the parent's POST /peer/notify handler answers
+                       503, a rejection the child never retries
 
 The ``probe.*``, ``broker.*`` and ``chip.*`` sites are BEHAVIOURAL: they
 are consumed in the PARENT with ``consume()`` (a countdown that does not
@@ -66,7 +91,10 @@ would count in a registry that dies with the child, re-fire in every new
 child, and no scenario could converge. ``chip.*`` is consumed by the
 health labeler (lm/health.py) once per PROBING cycle and shipped to
 wherever the probe runs: in process, or the broker worker's ``health``
-RPC.
+RPC. The ``peer.*`` sites and ``notify.slow``/``notify.reject`` are
+consumed and enacted in the SERVING daemon's handler (obs/server.py; the
+two tier sites through the coordinator's gate), and ``notify.drop`` in
+the sending child's NotifySender, where each misbehaviour lives.
 
 The registry is process-global and loaded lazily from the environment on
 first use; tests install specs with ``load_fault_spec`` and ``reset()``

@@ -236,6 +236,9 @@ _FLAG_VALUES = {
     "max-staleness": [0, "2m"], "reconcile-debounce": ["0.5s", 0],
     "max-probe-rate": [1, 0.5, 2.5], "metrics-addr": ["0.0.0.0", "127.0.0.1"],
     "metrics-port": [0, 9101, 19000], "probe-token": ["", "sekrit"],
+    "slice-coordination": ["on", "off", "auto"], "peer-timeout": ["2s", 0.5, "750ms"],
+    "peer-fanout": [0, 1, 4], "cohort-size": ["0", "auto", 2, "64"],
+    "peer-token": ["", "tok"], "push-notify": ["on", "off", "auto"],
 }
 
 
@@ -333,10 +336,44 @@ def test_empty_and_json_files_read_as_the_twins_do(tmp_path):
 # A value the twin accepts for each key the port refuses.
 _UNPORTED_VALUES = {
     "libtpuPath": "/lib/libtpu.so", "pjrtCreateOptions": "a=b",
-    "sliceCoordination": "off", "peerTimeout": "2s", "peerFanout": 2,
-    "cohortSize": "auto", "peerToken": "tok", "pushNotify": "off",
     "actuation": "off", "actuationWindow": 2, "maxActuatedFraction": 0.5,
 }
+
+
+def test_only_the_actuation_and_tpu_only_keys_are_refused():
+    """The slice coordination keys are read since that slice was ported;
+    what stays refused is the actuation slice's keys and the two that
+    configure libtpu."""
+    assert set(spec.UNPORTED_FILE_KEYS) == {
+        ("flags", "libtpuPath"), ("flags", "pjrtCreateOptions"),
+        ("tfd", "actuation"), ("tfd", "actuationWindow"),
+        ("tfd", "maxActuatedFraction"),
+    }
+    assert set(_UNPORTED_VALUES) == {key for _, key in spec.UNPORTED_FILE_KEYS}
+
+
+@pytest.mark.parametrize("key,value", [
+    ("sliceCoordination", "off"), ("peerTimeout", "2s"), ("peerFanout", 2),
+    ("cohortSize", "auto"), ("peerToken", "tok"), ("pushNotify", "off"),
+])
+def test_slice_coordination_keys_are_read_as_the_twins(tmp_path, key, value):
+    path = tmp_path / "slice.yaml"
+    path.write_text(yaml.safe_dump({"flags": {"tfd": {key: value}}}))
+    port, twin = _both(path=path)
+    assert _same(port, twin)
+
+
+@pytest.mark.parametrize("cli", [
+    {"slice-coordination": "maybe"}, {"push-notify": "sometimes"},
+    {"cohort-size": "-1"}, {"cohort-size": "big"}, {"peer-fanout": "-2"},
+    {"peer-timeout": "soon"},
+])
+def test_slice_coordination_values_are_refused_with_the_twins_texts(cli):
+    with pytest.raises(ConfigError) as port:
+        flags.new_config(cli_values=cli, environ={})
+    with pytest.raises(Exception) as twin:
+        twin_flags.new_config(cli_values=cli, environ={})
+    assert str(port.value) == str(twin.value)
 
 
 @pytest.mark.parametrize("section,key", sorted(spec.UNPORTED_FILE_KEYS))

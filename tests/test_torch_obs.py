@@ -42,13 +42,6 @@ DOCS = Path(__file__).resolve().parent.parent / "docs" / "observability.md"
 # Twin families whose layers the port does not have yet; each lands with
 # its module (ROADMAP.md queue 1).
 LEFT_OUT = {
-    # slice and peer coordination (peering/)
-    "tfd_peer_polls_total", "tfd_peer_poll_duration_seconds",
-    "tfd_peer_fanout_inflight", "tfd_peer_snapshot_not_modified_total",
-    "tfd_peer_connection_reuses_total", "tfd_peer_snapshot_serializations_total",
-    "tfd_peer_unreachable", "tfd_slice_degraded",
-    "tfd_cohort_leaders", "tfd_cohort_degraded", "tfd_cohort_poll_rounds_total",
-    "tfd_notify_sent_total", "tfd_notify_received_total", "tfd_dirty_children",
     # actuation (actuation/engine.py)
     "tfd_actuation_advice", "tfd_actuation_budget_exhausted",
     "tfd_actuation_transitions_total", "tfd_actuation_convergence_cycles",
@@ -185,7 +178,7 @@ def test_every_port_family_is_the_twins_and_is_documented():
         assert name in twin, f"{name} is not a twin family"
         assert _signature(fam) == _signature(twin[name]), name
         assert f"`{name}`" in docs, f"{name} is not in docs/observability.md"
-    assert len(port) == 43
+    assert len(port) == 57
 
 
 def test_the_families_left_out_are_pinned():
@@ -195,6 +188,19 @@ def test_the_families_left_out_are_pinned():
     twin = set(twin_metrics.REGISTRY.families())
     assert twin - port == LEFT_OUT
     assert port <= twin
+
+
+def test_the_wake_reasons_are_the_twins():
+    """Every tfd_reconcile_wakes_total{reason} value of the twin exists in
+    the port, peer_delta and peer_notify included."""
+    from gpu_feature_discovery_tpu.cmd import events as twin_events
+    from gpu_feature_discovery_tpu_torch.cmd import events
+
+    def reasons(module):
+        return {v for k, v in vars(module).items() if k.startswith("REASON_")}
+
+    assert reasons(events) == reasons(twin_events)
+    assert {"peer_delta", "peer_notify"} <= reasons(events)
 
 
 def test_stage_store_feeds_the_summary_and_the_histograms():

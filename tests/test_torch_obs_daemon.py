@@ -246,9 +246,17 @@ def test_pjrt_init_chaos_scrapes_like_the_twin(tmp_path):
     assert 0 < port_final[("tfd_restart_to_labels_seconds", "")] < 90
 
 
+# The broker budget of the fault daemons below. It bounds each worker's
+# spawn (interpreter and torch's import) as well as each request, and
+# three torch imports side by side under a loaded suite take over 4 s,
+# which killed spawns and counted them as probe kills; 15 s is well
+# above any spawn seen and still lets the hang shot end in seconds.
+BROKER_BUDGET_S = 15.0
+
+
 def test_broker_faults_and_the_server_lifecycle_scrape_live(tmp_path):
     """The three broker fault shots run as three daemons side by side."""
-    common = ["--sleep-interval", "0.5s", "--probe-timeout", "4s",
+    common = ["--sleep-interval", "0.5s", "--probe-timeout", f"{BROKER_BUDGET_S}s",
               "--init-backoff-max", "0.2s"]
     hang = _Cli(tmp_path, "hang", "broker.hang:fail:1", common)
     crash = _Cli(tmp_path, "crash", "broker.crash:fail:1",
@@ -279,7 +287,7 @@ def test_broker_faults_and_the_server_lifecycle_scrape_live(tmp_path):
         assert s[("tfd_probe_crashes_total", "")] == 0
         assert s[("tfd_broker_respawns_total", "")] == 1
         assert s[("tfd_broker_up", "")] == 1
-        assert s[("tfd_broker_request_duration_seconds_sum", "")] >= 4.0
+        assert s[("tfd_broker_request_duration_seconds_sum", "")] >= BROKER_BUDGET_S
 
         # The crash shot: one signal death, one respawn.
         s = crash.wait("a crashed worker respawned into full cycles",
