@@ -8,7 +8,7 @@ include versions.mk
 
 COV_MIN ?= 75
 
-.PHONY: all native native-selftest test coverage integration bench check-yamls lint typecheck helm-check clean stamp wheel docker-build docker-build-multiarch docker-push
+.PHONY: all native native-selftest test coverage integration bench check-yamls lint typecheck helm-check clean stamp stamp-torch wheel docker-build docker-build-multiarch docker-push
 
 all: native test
 
@@ -104,12 +104,18 @@ clean:
 	# Generated build stamp + wheel artifacts: a leftover stamp would
 	# shadow the env fallback (tests assert an unstamped tree).
 	rm -f gpu_feature_discovery_tpu/info/_build_info.py
+	rm -f gpu_feature_discovery_tpu_torch/info/_build_info.py
 	rm -rf dist build *.egg-info
 
 # Bake provenance into the package before any artifact is cut
 # (ldflags analog; see info/stamp.py).
 stamp:
 	$(PYTHON) -m gpu_feature_discovery_tpu.info.stamp \
+	    --version $(VERSION) --git-commit "$(GIT_COMMIT)"
+
+# The same for the PyTorch/CUDA port, gpu_feature_discovery_tpu_torch.
+stamp-torch:
+	$(PYTHON) -m gpu_feature_discovery_tpu_torch.info.stamp \
 	    --version $(VERSION) --git-commit "$(GIT_COMMIT)"
 
 # --no-build-isolation: resolve the build backend from the environment

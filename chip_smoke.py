@@ -85,6 +85,21 @@ Phases, each printing one JSON line:
                   degraded) with the survivors' node-local labels
                   unchanged; 1 + 3k launches of ``hbm_stream_sum`` in each
                   worker, none in a labeling process.
+11. ``actuation``— ``--version`` (exit 0, the port's string, no torch
+                  imported); then three such CLI daemons with ``--actuation
+                  enforce --actuation-window 2 --max-actuated-fraction
+                  0.25`` (an allowance of 1 host of 3), workers 1 and 2 under
+                  ``chip.0.sick``, worker 2 started once worker 1 advises:
+                  worker 1 advises exactly 2 full cycles after its first
+                  ``chips.sick=1``; worker 2 is held back by the budget; no
+                  ``/peer/snapshot`` carries advice; worker 1's SIGKILL takes
+                  its broker worker with it and re-ranks worker 2 into the
+                  budget; worker 1 restarted on its ``--state-dir`` after its
+                  lease lapsed restores no advice (one ``lease-lapsed``);
+                  worker 2's advice clears 2 clean cycles after its device
+                  heals; every advice change moves the advice family alone
+                  and no two live daemons advise at once; 1 + 3k launches in
+                  each gpu worker, none in a CLI.
 
 Then a ``metrics`` line (the cost of a scrape, the exposition's size,
 restart-to-labels, first use, the broker's request histogram and the
@@ -2147,6 +2162,345 @@ def phase_slice(entries: dict, smi: str) -> dict:
 
 
 
+ACT_WORKERS = 3
+ACT_SLEEP_S = 0.5
+ACT_WINDOW = 2
+ACT_FRACTION = 0.25
+# Workers 1 and 2 start with a sick device: worker 1 probes once (its
+# first probe, sick until it is killed); worker 2 probes every
+# ACT_SICK_BURNIN_INTERVAL cycles, each probe taking one of its
+# ACT_SICK_SHOTS sick shots, so its verdict holds through the kill and
+# the restart (some 20 s) and then heals. Worker 0 probes once, healthy.
+ACT_SICK_SHOTS = 10
+ACT_SICK_BURNIN_INTERVAL = 10
+ACT_QUIET_BURNIN_INTERVAL = 100000
+GPU_NS = "nvidia.com/gpu."
+# Labels a probe measures anew each time, and probe-ms, which only a
+# probing cycle carries: the cycle of an advice change may be the one
+# right after a probe, or a probe itself.
+_RATE_KEY = re.compile(r"(tflops|gbps|probe-ms)$")
+
+
+def _advice_of(labels: dict) -> dict:
+    from gpu_feature_discovery_tpu_torch.actuation.engine import ADVICE_LABELS
+
+    return {k: v for k, v in labels.items() if k in ADVICE_LABELS}
+
+
+def _without_advice(labels: dict) -> dict:
+    """Node-local labels less the advice family, the restored marker and
+    what each probe measures anew."""
+    from gpu_feature_discovery_tpu_torch.actuation.engine import ADVICE_LABELS
+    from gpu_feature_discovery_tpu_torch.cmd.supervisor import RESTORED_LABEL
+
+    return {k: v for k, v in _node_local(labels).items()
+            if k not in ADVICE_LABELS and k != RESTORED_LABEL and not _RATE_KEY.search(k)}
+
+
+def _counter(samples: dict, action: str) -> float:
+    return samples.get(("tfd_actuation_transitions_total", f'{{action="{action}"}}'), 0.0)
+
+
+def _actuation_series(port: int) -> dict:
+    s = _scrape(port)
+    return {
+        "advice": s.get(("tfd_actuation_advice", "")),
+        "budget_exhausted": s.get(("tfd_actuation_budget_exhausted", "")),
+        "convergence_cycles": s.get(("tfd_actuation_convergence_cycles", "")),
+        **{a: _counter(s, a) for a in ("fired", "cleared", "budget-suppressed",
+                                       "lease-lapsed")},
+    }
+
+
+def _version_check() -> dict:
+    """``--version``: exit 0, the port's string, and no torch imported."""
+    from gpu_feature_discovery_tpu_torch.info.version import get_version_string
+
+    plain = subprocess.run([sys.executable, "-m", "gpu_feature_discovery_tpu_torch",
+                            "--version"], cwd=REPO, capture_output=True, text=True,
+                           timeout=60)
+    check(plain.returncode == 0 and plain.stdout.strip() == get_version_string(),
+          f"--version answered {plain.returncode} {plain.stdout!r} {plain.stderr[-500:]!r}")
+    probe = subprocess.run([sys.executable, "-c", (
+        "import runpy, sys\n"
+        "sys.argv = ['gpu_feature_discovery_tpu_torch', '--version']\n"
+        "try:\n"
+        "    runpy.run_module('gpu_feature_discovery_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    print('exit', e.code, 'torch' in sys.modules)\n")],
+        cwd=REPO, capture_output=True, text=True, timeout=60)
+    check(probe.stdout.split()[-3:] == ["exit", "0", "False"],
+          f"--version imported torch or failed: {probe.stdout!r} {probe.stderr[-500:]!r}")
+    return {"version": plain.stdout.strip()}
+
+
+def phase_actuation(entries: dict, smi: str) -> dict:
+    """Three CLI daemons as one slice, each through its own broker worker
+    with ``--actuation enforce --actuation-window 2
+    --max-actuated-fraction 0.25``: an allowance of 1 host of 3. Workers 1
+    and 2 hold a sick device (``chip.0.sick``). Worker 2 starts once
+    worker 1 advises, so its verdict meets worker 1's on the wire before
+    its own window holds. Worker 1 advises; worker 2 is held back by the
+    budget; no peer snapshot carries advice; worker 1's SIGKILL re-ranks
+    worker 2 into the budget; worker 1, restarted on its state after its
+    lease lapsed, restores no advice; worker 2's advice clears once its
+    device heals."""
+    from gpu_feature_discovery_tpu_torch.lm.health import CHIPS_SICK
+    from gpu_feature_discovery_tpu_torch.ops import healthcheck
+    from gpu_feature_discovery_tpu_torch.sandbox import broker
+
+    out = _version_check()
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    ports = [_free_port() for _ in range(ACT_WORKERS)]
+    hostnames = ",".join(f"127.0.0.1:{p}" for p in ports)
+    token = secrets.token_hex(16)
+    sick_spec = f"chip.0.sick:fail:{ACT_SICK_SHOTS}"
+    SCHED = GPU_NS + "schedulable"
+    CORDON = GPU_NS + "tfd.cordon-advice"
+    LEASE = GPU_NS + "tfd.actuation-lease"
+    RESTORED = GPU_NS + "tfd.restored"
+    procs, logs, cli_pids, worker_pids = {}, {}, [], []
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        cache = os.path.join(tmp, "kernel-cache")
+        outs = [os.path.join(tmp, f"w{i}.tfd") for i in range(ACT_WORKERS)]
+
+        def start(i: int, fault: str, name: str):
+            env = dict(os.environ, WORKER_HOSTNAMES=hostnames, WORKER_ID=str(i))
+            env.pop("TFD_FAULT_SPEC", None)
+            env.pop("TFD_BACKEND", None)
+            if fault:
+                env["TFD_FAULT_SPEC"] = fault
+            interval = (ACT_SICK_BURNIN_INTERVAL if i == 2 and fault
+                        else ACT_QUIET_BURNIN_INTERVAL)
+            logs[name] = os.path.join(tmp, f"{name}.log")
+            with open(logs[name], "w") as log:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "gpu_feature_discovery_tpu_torch", "--debug",
+                     "--backends", "gpu", "--with-burnin",
+                     "--sleep-interval", f"{ACT_SLEEP_S}s",
+                     "--burnin-interval", str(interval),
+                     "--output-file", outs[i],
+                     "--state-dir", os.path.join(tmp, f"state{i}"),
+                     "--compilation-cache-dir", cache,
+                     "--metrics-addr", "127.0.0.1", "--metrics-port", str(ports[i]),
+                     "--peer-token", token,
+                     "--actuation", "enforce", "--actuation-window", str(ACT_WINDOW),
+                     "--max-actuated-fraction", str(ACT_FRACTION)],
+                    cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
+            cli_pids.append(procs[name].pid)
+            return procs[name]
+
+        timeline, stop_sampling = [], threading.Event()
+
+        def sample():
+            last = None
+            while not stop_sampling.is_set():
+                now = tuple(tuple(sorted(_read_labels(o).items())) for o in outs)
+                if now != last:
+                    timeline.append((time.monotonic(), [dict(x) for x in now]))
+                    last = now
+                time.sleep(0.01)
+
+        def alive(name):
+            return procs[name].poll() is None
+
+        def live_advised(ls, live):
+            return [i for i in range(ACT_WORKERS) if live[i] and _advice_of(ls[i])]
+
+        def first_t(i, cond, after=0.0):
+            return next((t for t, ls in list(timeline) if t > after and cond(ls[i])), None)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        used_before = _device_used_mib()
+        t0 = time.monotonic()
+        try:
+            start(0, "", "w0")
+            start(1, sick_spec, "w1")
+            # (b) Worker 1 advises, exactly ACT_WINDOW full cycles after its
+            # first chips.sick=1.
+            w1 = _wait_for(lambda: (lambda l: l if l.get(SCHED) == "false" else None)(
+                _read_labels(outs[1])), 180.0, "worker 1's cordon advice")
+            first_advice_s = time.monotonic() - t0
+            check(w1.get(CORDON) == "sick-chips" and int(w1[LEASE]) > time.time(),
+                  f"worker 1's advice {_advice_of(w1)}")
+            t_sick1 = _wait_for(lambda: first_t(1, lambda l: l.get(CHIPS_SICK) == "1"), 5.0,
+                                "worker 1's first sick write in the timeline")
+            check(not _advice_of(
+                next(ls for t, ls in timeline if t == t_sick1)[1]),
+                "worker 1's first sick write already carried advice")
+            s1 = _actuation_series(ports[1])
+            check((s1["convergence_cycles"], s1["advice"], s1["fired"])
+                  == (ACT_WINDOW, 1.0, 1.0), f"worker 1's series {s1}")
+            with open(logs["w1"]) as f:
+                check(f"after {ACT_WINDOW} confirming cycles" in f.read(),
+                      "worker 1's log does not name its confirming cycles")
+
+            # (c) Worker 2 holds a sick verdict too; the budget holds it back.
+            start(2, sick_spec, "w2")
+            _wait_for(lambda: _read_labels(outs[2]).get(CHIPS_SICK) == "1", 180.0,
+                      "worker 2's sick verdict")
+            s2 = _wait_for(lambda: (lambda s: s if s["budget-suppressed"] == 1 else None)(
+                _actuation_series(ports[2])), 30.0, "worker 2 held back by the budget")
+            ls = [_read_labels(o) for o in outs]
+            check(not _advice_of(ls[2]) and not _advice_of(ls[0]) and _advice_of(ls[1]),
+                  f"advice with worker 2 held back: {[_advice_of(l) for l in ls]}")
+            check((s2["budget_exhausted"], s2["fired"], s2["advice"]) == (1.0, 0.0, 0.0),
+                  f"worker 2's series {s2}")
+            check(_actuation_series(ports[0])["fired"] == 0, "worker 0 advised")
+            used_mib = _device_used_mib() - used_before
+
+            # (d) The wire carries the verdicts and never the advice.
+            docs = []
+            for i in range(ACT_WORKERS):
+                code, _, body, _ = _timed_get(ports[i], {"X-TFD-Probe-Token": token},
+                                              rounds=1)
+                check(code == 200, f"worker {i}'s /peer/snapshot answered {code}")
+                docs.append(json.loads(body))
+            check(not any(_advice_of(d["labels"]) for d in docs),
+                  "advice on a peer snapshot")
+            check([d["chips"]["sick"] for d in docs[1:]] == [1, 1]
+                  and all(d["labels"].get(CHIPS_SICK) == "1" for d in docs[1:]),
+                  f"sick verdicts on the wire {[d['chips'] for d in docs]}")
+
+            # (e) SIGKILL worker 1: its broker worker goes with it, and
+            # worker 2 re-ranks into the budget.
+            spawned = {n: _spawned(logs[n]) for n in ("w0", "w1", "w2")}
+            for n, sp in spawned.items():
+                check(list(sp) == [""] and len(sp[""]) == 1, f"{n} spawns {sp}")
+            worker_pids.extend(sp[""][0][0] for sp in spawned.values())
+            maps = {n: _maps_libcuda(procs[n].pid) for n in ("w0", "w1", "w2")}
+            lease1 = int(_read_labels(outs[1])[LEASE])
+            t_kill = time.monotonic()
+            procs["w1"].kill()
+            procs["w1"].wait(timeout=30)
+            w1_worker = spawned["w1"][""][0][0]
+            _wait_for(lambda: _gone(w1_worker), 10.0, "worker 1's broker worker gone")
+            w1_worker_gone_s = time.monotonic() - t_kill
+            _wait_for(lambda: _read_labels(outs[2]).get(SCHED) == "false", 30.0,
+                      "worker 2's advice after worker 1's SIGKILL")
+            kill_to_rerank_s = time.monotonic() - t_kill
+            lease_overlap_s = lease1 - time.time()
+            s2 = _actuation_series(ports[2])
+            check((s2["fired"], s2["budget_exhausted"], s2["advice"]) == (1.0, 0.0, 1.0),
+                  f"worker 2's series after the re-rank {s2}")
+
+            # (f) Worker 1 again on its state, once its lease has lapsed:
+            # its first write is the restored inventory without advice.
+            _wait_for(lambda: time.time() > lease1 + 0.5, 30.0, "worker 1's lease to lapse")
+            before = _read_labels(outs[1])
+            n_timeline = len(timeline)
+            t_restart = time.monotonic()
+            start(1, "", "w1b")
+            restored = _wait_for(lambda: (lambda l: l if l.get(RESTORED) == "true" else None)(
+                _read_labels(outs[1])), 60.0, "worker 1's restored write")
+            restart_to_first_write_s = time.monotonic() - t_restart
+            check(not _advice_of(restored) and restored.get(CHIPS_SICK) == "1",
+                  f"worker 1's restored write {restored}")
+            check(_without_advice(restored) == _without_advice(before),
+                  "the restore moved more than the advice")
+            live = _wait_for(lambda: (lambda l: l if _has_health(l) and RESTORED not in l
+                                      else None)(_read_labels(outs[1])), 120.0,
+                             "worker 1's live health after the restart")
+            check(live.get(CHIPS_SICK) == "0" and not _advice_of(live),
+                  f"worker 1 after the restart {live}")
+            s1 = _actuation_series(ports[1])
+            check((s1["lease-lapsed"], s1["fired"]) == (1.0, 0.0),
+                  f"worker 1's series after the restart {s1}")
+            w2 = _wait_for(lambda: (lambda l: l if l.get(SCHED) == "false" else None)(
+                _read_labels(outs[2])), 30.0, "worker 2's advice with worker 1 back")
+            check(w2.get(CHIPS_SICK) == "1", "worker 2 healed before worker 1 came back")
+            # The restored sick verdict is worker 1's honest last answer:
+            # on the wire it outranks worker 2 until worker 1's first live
+            # write, if worker 2 polled it in that window.
+            w2_withdrawn = any(not _advice_of(ls[2]) for _, ls in timeline[n_timeline:])
+            maps["w1b"] = _maps_libcuda(procs["w1b"].pid)
+            spawned["w1b"] = _spawned(logs["w1b"])
+            worker_pids.append(spawned["w1b"][""][0][0])
+
+            # (g) Worker 2's shots run out: its advice clears after
+            # ACT_WINDOW clean cycles.
+            t_heal = _wait_for(lambda: first_t(2, lambda l: l.get(CHIPS_SICK) == "0",
+                                               after=t_restart), 120.0,
+                               "worker 2's device healed")
+            # The sampler, not this thread, records when the file changed.
+            t_clear = _wait_for(lambda: first_t(2, lambda l: not _advice_of(l), after=t_heal),
+                                30.0, "worker 2's advice cleared")
+            heal_to_clear_s = t_clear - t_heal
+            check(_advice_of(next(ls for t, ls in timeline if t == t_heal)[2]) != {},
+                  "worker 2's advice cleared on its first clean cycle")
+            s2 = _actuation_series(ports[2])
+            check((s2["cleared"], s2["advice"]) == (1.0, 0.0), f"worker 2's series {s2}")
+            with open(logs["w2"]) as f:
+                check(f"cleared after {ACT_WINDOW} clean cycles" in f.read(),
+                      "worker 2's log does not name its clean cycles")
+            s_end = [_actuation_series(p) for p in ports]
+            check(all(l is False for l in maps.values()), f"a CLI maps libcuda.so: {maps}")
+        finally:
+            stop_sampling.set()
+            sampler.join(timeout=5)
+            t_stop = time.monotonic()
+            for p in procs.values():
+                if p.poll() is None:
+                    p.send_signal(signal.SIGTERM)
+            rcs = {}
+            for n, p in procs.items():
+                try:
+                    rcs[n] = p.wait(timeout=30)
+                finally:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            # (j) No broker worker alive 3 s after the SIGTERMs.
+            _wait_for(lambda: all(_gone(pid) for pid in worker_pids),
+                      max(0.0, t_stop + 3.0 - time.monotonic()),
+                      f"no broker worker of {worker_pids} alive")
+        check(rcs == {"w0": 0, "w1": -signal.SIGKILL, "w2": 0, "w1b": 0},
+              f"actuation daemons exited {rcs}")
+        # (h) Every advice change (keys added or dropped; a lease renewal,
+        # or the reason the held advice names in its clear window, is
+        # none) moved the advice family alone, and two live daemons never
+        # advised at once.
+        def verdict(l):
+            return sorted(_advice_of(l))
+
+        moves, prev = 0, None
+        for t, ls in timeline:
+            if prev is not None:
+                for i in range(ACT_WORKERS):
+                    if verdict(ls[i]) != verdict(prev[i]) and prev[i] and ls[i]:
+                        moves += 1
+                        a, b = _without_advice(prev[i]), _without_advice(ls[i])
+                        check(a == b, f"worker {i}'s advice change at {t - t0:.2f}s moved "
+                              f"{ {k: (a.get(k), b.get(k)) for k in set(a) | set(b) if a.get(k) != b.get(k)} }")
+            live = [True, not (t_kill <= t < t_restart), True]
+            check(len(live_advised(ls, live)) <= 1, f"two live hosts advised at {t - t0:.2f}s")
+            prev = ls
+        reasons = sorted({ls[2][CORDON] for _, ls in timeline if CORDON in ls[2]})
+        w0_local = [_without_advice(ls[0]) for _, ls in timeline if _has_health(ls[0])]
+        check(all(l == w0_local[0] for l in w0_local), "worker 0's node labels moved")
+        # (i) 1 + 3k launches of hbm_stream_sum in each gpu worker.
+        totals = {n: _per_worker_totals(_probe_reports(logs[n])) for n in logs}
+        iters = healthcheck.PROBE_HBM_ITERS
+        check(all(len(t) == 1 and (t[0] - 1) % iters == 0 and t[0] >= 1 + iters
+                  for t in totals.values()),
+              f"hbm_stream_sum launches per worker {totals}, want 1 + 3k")
+    out.update(
+        nvidia_smi=smi, first_advice_s=first_advice_s,
+        convergence_cycles=ACT_WINDOW, kill_to_rerank_s=kill_to_rerank_s,
+        killed_worker_gone_s=w1_worker_gone_s, dead_lease_left_s=lease_overlap_s,
+        restart_to_first_write_s=restart_to_first_write_s,
+        w2_withdrawn_while_w1_restored=w2_withdrawn, heal_to_clear_s=heal_to_clear_s,
+        w2_cordon_reasons=reasons,
+        advice_moves=moves, series=s_end, device_used_mib_three_workers=used_mib,
+        launches_per_worker={n: t[0] for n, t in totals.items()}, cli_maps_libcuda=maps,
+        worker_spawn_ms={n: sp[""][0][1] for n, sp in spawned.items()})
+    emit("actuation", **out)
+    entries["hbm_stream_sum"]["actuation_launches"] = sum(t[0] for t in totals.values())
+    return out
+
+
 def main() -> int:
     import importlib.util
 
@@ -2178,6 +2532,7 @@ def main() -> int:
     phase_config_registry(entries, facts["labels"]["nvidia.com/gpu.product"],
                           info["nvidia_smi"])
     phase_slice(entries, info["nvidia_smi"])
+    phase_actuation(entries, info["nvidia_smi"])
     # What serving and recording metrics cost, beside the card.
     emit("metrics", nvidia_smi=info["nvidia_smi"],
          scrape_ms_median=statistics.median(cli["scrape_ms"]),

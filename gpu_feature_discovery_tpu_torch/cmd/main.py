@@ -24,10 +24,12 @@ it at the end. Each epoch also exports the resolved
 ``--compilation-cache-dir`` (ops/kernel_cache.py) to the worker it
 spawns.
 
-The host-interconnect labeler (a sysfs PCI scan, lm/interconnect.py) is
-built once per epoch here, as the twin builds it; its ``TFD_MOCK_PCI``
-fixture stands synthesized NVIDIA functions in for the bus. Oneshot wraps
-its manager in the fallback-to-null decorator under
+The host-interconnect labeler (a sysfs PCI scan and the host's slice
+facts from ``WORKER_HOSTNAMES``/``WORKER_ID`` and their siblings,
+lm/interconnect.py over hostinfo/) is built once per epoch here, as the
+twin builds it; its ``TFD_MOCK_PCI`` fixture stands synthesized NVIDIA
+functions in for the bus, and ``TFD_HERMETIC`` blanks the host facts.
+Oneshot wraps its manager in the fallback-to-null decorator under
 ``--fail-on-init-error=false``; the daemon keeps raw init errors for its
 supervisor.
 
@@ -54,9 +56,13 @@ introspection server serves): it serves ``/peer/snapshot`` and ``POST
 source beside the node's sources, is told of every label write, and
 wakes the event loop on a membership change (``peer_delta``) or a
 child's notification (``peer_notify``). It is closed at the epoch's end,
-so a SIGHUP reload rebuilds it from the new config. The twin's actuation
-engine has no counterpart yet; its config-file keys are refused with the
-slice that brings it (config/spec.py).
+so a SIGHUP reload rebuilds it from the new config.
+
+Each daemon epoch builds one actuation engine (actuation/engine.py) from
+``--actuation`` and the epoch's coordinator, whose peer snapshots bound
+the slice-wide budget; it projects the confirmed verdicts into advice
+labels after the flap damper and before the write. At ``--actuation
+off`` (the default) there is none, and the label path is unchanged.
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ import time
 from typing import Callable, Optional, Union
 
 from gpu_feature_discovery_tpu_torch import sandbox
+from gpu_feature_discovery_tpu_torch.actuation import new_actuation_engine
 from gpu_feature_discovery_tpu_torch.cmd import events as reconcile_events
 from gpu_feature_discovery_tpu_torch.cmd.supervisor import (
     DEGRADED_LABEL,
@@ -92,6 +99,7 @@ from gpu_feature_discovery_tpu_torch.config.flags import (
     resolve_compilation_cache_dir,
 )
 from gpu_feature_discovery_tpu_torch.config.spec import Config, ConfigError
+from gpu_feature_discovery_tpu_torch.info.version import get_version_string
 from gpu_feature_discovery_tpu_torch.lm.engine import STALE_SOURCES_LABEL, new_label_engine
 from gpu_feature_discovery_tpu_torch.lm.health import reset_burnin_schedule
 from gpu_feature_discovery_tpu_torch.lm.interconnect import InterconnectLabeler
@@ -141,6 +149,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
         prog="gpu-feature-discovery-torch",
         description="generate NFD labels for NVIDIA GPUs (PyTorch/CUDA port)",
     )
+    parser.add_argument("--version", action="version", version=get_version_string())
     for fd in FLAG_DEFS:
         names = [f"--{fd.name}"] + [
             (f"--{a}" if len(a) > 1 else f"-{a}") for a in fd.aliases
@@ -307,11 +316,15 @@ def start_introspection_server(
 
 def new_interconnect_labeler(config: Config) -> Labeler:
     """vgpu.NewVGPULib(NewNvidiaPCILib()) (main.go:134): the sysfs PCI
-    scanner; ``TFD_MOCK_PCI=1`` substitutes synthesized NVIDIA functions
-    (a test fixture for hosts without GPUs)."""
+    scanner and the host's slice facts from its environment
+    (hostinfo/provider.py); ``TFD_MOCK_PCI=1`` substitutes synthesized
+    NVIDIA functions (a test fixture for hosts without GPUs), and
+    ``TFD_HERMETIC=1`` blanks the environment provider, as in the twin."""
     del config  # reserved for future flags, as in the twin
+    from gpu_feature_discovery_tpu_torch.hostinfo.provider import new_host_info_provider
+
     pci = MockNvidiaPCI() if env_flag("TFD_MOCK_PCI") else _TolerantPCI()
-    return InterconnectLabeler(pci=pci)
+    return InterconnectLabeler(pci=pci, provider=new_host_info_provider())
 
 
 class _TolerantPCI:
@@ -553,10 +566,15 @@ def run(
         coordinator.set_notify_port(obs_server.port)
     # Anti-flap hysteresis: daemon only; oneshot publishes what it measured.
     flap = None
+    # Verdict actuation: daemon epochs only, one engine per epoch, so a
+    # reload's mode or window change applies cleanly. None at --actuation
+    # off (the default): the projection below is its only touch point.
+    actuation = None
     if supervised:
         flap = FlapDamper(
             tfd.flap_window if tfd.flap_window is not None else DEFAULT_FLAP_WINDOW
         )
+        actuation = new_actuation_engine(config, coordinator)
     try:
         timestamp_labeler = new_timestamp_labeler(config)
         if restored_served is not None:
@@ -663,6 +681,12 @@ def run(
                     labels = supervisor.with_restored(labels)
                 if flap is not None:
                     labels = flap.observe(labels)
+                if actuation is not None:
+                    # After the damper (the advice family has its own
+                    # hysteresis) and before the write. A changed advice
+                    # set is a new object: the damper's baseline is never
+                    # mutated.
+                    labels = actuation.project(labels, cycle_mode)
                 log.info("Writing labels to output file %s", output_file or "<stdout>")
                 labels.write_to_file(output_file)
                 wrote_this_epoch = True

@@ -26,8 +26,10 @@ without hiding genuine brokenness:
 
 A sick device is a measurement, not a daemon fault: the health labeler
 publishes ``chip.<i>.ok=false`` inside a normally completing cycle, and
-none of this fires. Oneshot bypasses all of it. The twin's actuation
-advice labels are not part of this port, so nothing here ages them out.
+none of this fires. Oneshot bypasses all of it. Actuation advice
+(actuation/engine.py) rides the last-good cache like any label, but only
+while its lease holds: the restore, the restored overlay and the
+failed-cycle re-serve each drop advice whose lease has lapsed.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import os
 import time
 from typing import Callable, Optional
 
+from gpu_feature_discovery_tpu_torch.actuation.engine import drop_lapsed_advice
 from gpu_feature_discovery_tpu_torch.config.flags import (
     DEFAULT_INIT_BACKOFF_MAX,
     DEFAULT_INIT_RETRIES,
@@ -185,7 +188,11 @@ class Supervisor:
         restored = self._state_store.load()
         if restored is None:
             return None
-        cleaned = self._strip_markers(restored)
+        # Lapsed advice must not resurrect across a restart: a killed
+        # daemon's cordon advice outliving its lease in the state file is
+        # the frozen cordon the lease exists to prevent. Still-leased
+        # advice is restored under its ORIGINAL stamp.
+        cleaned = drop_lapsed_advice(self._strip_markers(restored))
         if not cleaned:
             return None
         self._last_good = cleaned
@@ -213,6 +220,9 @@ class Supervisor:
             return labels
         merged = Labels(self._last_good)
         merged.update(labels)
+        # Restored advice rides the overlay only while its lease holds: a
+        # cycle that measured nothing never refreshes it.
+        merged = drop_lapsed_advice(merged)
         merged[RESTORED_LABEL] = "true"
         return merged
 
@@ -294,7 +304,14 @@ class Supervisor:
         """What a failed cycle publishes instead of nothing: the last good
         set (if any), the unhealthy-cycles counter, the degraded marker
         while init is failing, the restored marker while restored."""
-        labels = Labels(self._last_good) if self._last_good is not None else Labels()
+        if self._last_good is not None:
+            # Failed-cycle re-serves bypass the actuation projection, so
+            # the lease check lands here: lapsed advice ages out of the
+            # re-serve and of the cache (one warning, not one per cycle).
+            self._last_good = drop_lapsed_advice(self._last_good)
+            labels = Labels(self._last_good)
+        else:
+            labels = Labels()
         labels[UNHEALTHY_CYCLES_LABEL] = str(self._consecutive_failures)
         if self.degraded:
             labels[DEGRADED_LABEL] = "true"

@@ -2,12 +2,10 @@
 ``gpu_feature_discovery_tpu/config/flags.py``).
 
 Each flag keeps its twin's spelling, its ``TFD_*`` environment alias and
-its default. Only the flags of the burn-in cycle, the supervised daemon
-loop, the probe sandbox, the host facts, the introspection server and
-the multi-backend registry and the slice coordination are here; the
-config file
-(``--config-file`` / ``TFD_CONFIG_FILE``, config/spec.py) sets the same
-flags under their camelCase keys.
+its default. Every flag of the twin's node daemon is here except the two
+that configure libtpu (``--libtpu-path``, ``--pjrt-create-options``); the
+config file (``--config-file`` / ``TFD_CONFIG_FILE``, config/spec.py)
+sets the same flags under their camelCase keys.
 """
 
 from __future__ import annotations
@@ -18,6 +16,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from gpu_feature_discovery_tpu_torch.config.spec import (
+    ACTUATION_MODES,
+    ACTUATION_OFF,
     PUSH_NOTIFY_AUTO,
     PUSH_NOTIFY_MODES,
     SLICE_COORDINATION_AUTO,
@@ -92,6 +92,14 @@ DEFAULT_COHORT_SIZE = "0"
 # falls below this fraction of the healthy-device median on two
 # consecutive probes is published as gpu.straggler-chip.
 DEFAULT_STRAGGLER_THRESHOLD = 0.2
+# Verdict actuation (actuation/engine.py). The window is the actuation
+# layer's own hysteresis on top of the verdicts' confirmation: a
+# confirmed verdict must hold this many consecutive full cycles before
+# advice fires, and stay clean as long before it clears. The fraction is
+# the slice-wide blast-radius cap: at most ceil(fraction * hosts) of a
+# slice carry advice, and the rest raise tfd_actuation_budget_exhausted.
+DEFAULT_ACTUATION_WINDOW = 2
+DEFAULT_MAX_ACTUATED_FRACTION = 0.25
 
 
 def env_flag(name: str) -> bool:
@@ -391,6 +399,30 @@ FLAG_DEFS: List[FlagDef] = [
             "correctness mechanism); 'off' is the pull-everything round; "
             "'auto' (default) is on exactly when --peer-token is set",
             "push_notify"),
+    FlagDef("actuation", ("TFD_ACTUATION",), str, ACTUATION_OFF,
+            "fail-safe verdict actuation (actuation/): 'enforce' projects "
+            "confirmed health verdicts into scheduler-facing advice labels "
+            "(nvidia.com/gpu.schedulable=false, tfd.cordon-advice=<reason>, "
+            "tfd.drain-advice=true on a confirmed straggler) in the same "
+            "label file, gated by the --actuation-window hysteresis, the "
+            "--max-actuated-fraction slice budget and a lease that lets a "
+            "dead actuator's advice lapse to NO advice; 'advise' is the dry "
+            "run, writing only tfd.would-cordon=<reason>; 'off' (default) "
+            "builds none of it and the label output is unchanged",
+            "actuation"),
+    FlagDef("actuation-window", ("TFD_ACTUATION_WINDOW",), _parse_positive_int,
+            DEFAULT_ACTUATION_WINDOW,
+            "with --actuation on, how many consecutive full cycles a "
+            "confirmed verdict must hold before advice fires, and stay "
+            "clean before it clears", "actuation_window"),
+    FlagDef("max-actuated-fraction", ("TFD_MAX_ACTUATED_FRACTION",),
+            _parse_fraction, DEFAULT_MAX_ACTUATED_FRACTION,
+            "with --actuation on, fraction in (0, 1): at most "
+            "ceil(fraction * slice hosts) members of one slice carry advice "
+            "at once, derived alike by every member from the peer snapshots "
+            "(the lowest verdict-carrying worker ids win; no election); the "
+            "suppressed rest raise tfd_actuation_budget_exhausted",
+            "max_actuated_fraction"),
 ]
 
 
@@ -432,6 +464,7 @@ def new_config(
         ("reconcile", RECONCILE_MODES),
         ("slice_coordination", SLICE_COORDINATION_MODES),
         ("push_notify", PUSH_NOTIFY_MODES),
+        ("actuation", ACTUATION_MODES),
     ):
         if getattr(tfd, attr) not in modes:
             raise ConfigError(

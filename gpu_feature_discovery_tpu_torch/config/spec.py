@@ -11,8 +11,8 @@ section, the only place a time-slicing contract (replicas per GPU, the
 ``-SHARED`` product) can come from.
 
 A flag's key is its name in camelCase (``file_key``); a key the twin
-reads for a flag this port does not have yet is refused with the slice
-that will bring it, never dropped (``UNPORTED_FILE_KEYS``).
+reads for a flag this port does not have is refused with the reason,
+never dropped (``UNPORTED_FILE_KEYS``).
 """
 
 from __future__ import annotations
@@ -87,6 +87,17 @@ PUSH_NOTIFY_ON = "on"
 PUSH_NOTIFY_OFF = "off"
 PUSH_NOTIFY_AUTO = "auto"
 PUSH_NOTIFY_MODES = (PUSH_NOTIFY_ON, PUSH_NOTIFY_OFF, PUSH_NOTIFY_AUTO)
+
+# Verdict actuation modes (actuation/engine.py): `off` (the default) builds
+# none of the actuation machinery, so the label output stays byte for byte
+# the daemon's without it; `advise` is the dry run, writing only
+# tfd.would-cordon=<reason> and the lease; `enforce` writes the advice
+# family (nvidia.com/gpu.schedulable=false, tfd.cordon-advice,
+# tfd.drain-advice). Roll out in that order: off -> advise -> enforce.
+ACTUATION_OFF = "off"
+ACTUATION_ADVISE = "advise"
+ACTUATION_ENFORCE = "enforce"
+ACTUATION_MODES = (ACTUATION_OFF, ACTUATION_ADVISE, ACTUATION_ENFORCE)
 
 
 @dataclass
@@ -184,6 +195,12 @@ class TfdFlags:
     cohort_size: Optional[str] = None  # "0" | "auto" | positive int
     peer_token: Optional[str] = None  # "" = /peer/snapshot open
     push_notify: Optional[str] = None  # auto | on | off
+    # Verdict actuation (actuation/engine.py): confirmed health verdicts
+    # projected into advice labels under a confirmation window, a
+    # slice-wide budget and a lease.
+    actuation: Optional[str] = None  # off | advise | enforce
+    actuation_window: Optional[int] = None  # consecutive confirming cycles
+    max_actuated_fraction: Optional[float] = None  # (0, 1) exclusive
 
 
 @dataclass
@@ -317,17 +334,13 @@ def file_key(flag_name: str) -> Tuple[str, str]:
     return ("flags" if flag_name in common else "tfd"), key
 
 
-# Keys the twin reads for flags this port does not have, and where each
-# comes from (ROADMAP.md queue 1).
-_ACTUATION = "the actuation slice (ROADMAP.md queue 1, item 7)"
+# Keys the twin reads for flags this port does not have, and why
+# (ROADMAP.md queue 1).
 _TPU_ONLY = ("no slice: it configures libtpu's PJRT client, which a CUDA node "
              "does not have")
 UNPORTED_FILE_KEYS: Dict[Tuple[str, str], str] = {
     ("flags", "libtpuPath"): _TPU_ONLY,
     ("flags", "pjrtCreateOptions"): _TPU_ONLY,
-    ("tfd", "actuation"): _ACTUATION,
-    ("tfd", "actuationWindow"): _ACTUATION,
-    ("tfd", "maxActuatedFraction"): _ACTUATION,
 }
 
 

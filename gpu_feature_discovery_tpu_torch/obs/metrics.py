@@ -4,8 +4,8 @@ stage store (twin: ``gpu_feature_discovery_tpu/obs/metrics.py``).
 Each family keeps its twin's name, type, label names and buckets, so a
 dashboard built on the twin reads the port unchanged; the help text says
 what the series means here where the twin's names PJRT or XLA. Only the
-families of layers the port has are declared: those of actuation, the
-fleet collector and the HTTP admission gate land with their modules
+families of layers the port has are declared: those of the fleet
+collector and its HTTP admission gate land with their module
 (tests/test_torch_obs.py pins the list of what is left out).
 
 ``utils/timing.py``'s cycle summary and ``--timings-file`` are views
@@ -346,6 +346,42 @@ DIRTY_CHILDREN = REGISTRY.gauge(
     "and not yet re-polled. Drains to 0 after every round; a value that "
     "never drains means the poll loop is wedged while notifications "
     "keep arriving.",
+)
+
+# -- verdict actuation (actuation/engine.py, --actuation) -------------------
+
+ACTUATION_ADVICE = REGISTRY.gauge(
+    "tfd_actuation_advice",
+    "1 while this daemon's label file carries actuation advice "
+    "(schedulable=false / cordon-advice / would-cordon), 0 otherwise. "
+    "Sums across a slice to the hosts currently advised — bounded by "
+    "ceil(--max-actuated-fraction * hosts) by construction.",
+)
+ACTUATION_BUDGET_EXHAUSTED = REGISTRY.gauge(
+    "tfd_actuation_budget_exhausted",
+    "1 while this daemon holds a confirmed verdict that WANTS advice but "
+    "the slice blast-radius budget (--max-actuated-fraction over the "
+    "peer snapshot plane) suppresses it. A slice-wide sum near the host "
+    "count is the systemic-false-positive signature: every member reads "
+    "sick at once, and the budget — not the scheduler — is what kept "
+    "the slice alive.",
+)
+ACTUATION_TRANSITIONS = REGISTRY.counter(
+    "tfd_actuation_transitions_total",
+    "Actuation state changes, by action: fired (advice published after "
+    "the window held), cleared (verdicts converged clean for a full "
+    "window), budget-suppressed (desire arrived but the slice budget "
+    "said no), lease-lapsed (cached or restored advice outlived its "
+    "lease without a fresh confirmation and was dropped — the "
+    "fail-static path doing its job).",
+    labelnames=("action",),
+)
+ACTUATION_CONVERGENCE_CYCLES = REGISTRY.gauge(
+    "tfd_actuation_convergence_cycles",
+    "Consecutive confirmed cycles the last advice firing waited for "
+    "before publishing — the engine's self-reported verdict-to-advice "
+    "latency in cycles. Equals --actuation-window when hysteresis is "
+    "the only delay.",
 )
 
 # -- introspection server (obs/server.py) -----------------------------------

@@ -41,6 +41,10 @@ import hashlib
 import json
 from typing import Any, Dict, Optional
 
+# A snapshot never carries advice: peers exchange the underlying verdicts
+# and each derives its own advice (actuation/engine.py).
+from gpu_feature_discovery_tpu_torch.actuation.engine import ADVICE_LABELS
+
 PEER_SCHEMA_VERSION = 1
 PEER_SNAPSHOT_PATH = "/peer/snapshot"
 
@@ -55,19 +59,6 @@ SLICE_SECTION_SCHEMA_VERSION = 1
 
 # A snapshot is a label set of a few KiB; anything larger is junk.
 MAX_SNAPSHOT_BYTES = 256 * 1024
-
-# The twin's actuation advice family (actuation/engine.py ADVICE_LABELS)
-# under the port's key rule. The port has no actuation engine yet, but a
-# snapshot must never carry advice: peers exchange the underlying
-# verdicts and each derives the advice itself.
-ADVICE_LABELS = (
-    "nvidia.com/gpu.schedulable",
-    "nvidia.com/gpu.tfd.cordon-advice",
-    "nvidia.com/gpu.tfd.drain-advice",
-    "nvidia.com/gpu.tfd.would-cordon",
-    "nvidia.com/gpu.tfd.actuation-lease",
-)
-
 
 class PeerSnapshotError(ValueError):
     """A peer answered, but not with a valid schema-1 snapshot: counted as

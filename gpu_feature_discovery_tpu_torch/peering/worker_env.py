@@ -11,7 +11,8 @@ list), set per pod by whoever deploys the slice (a StatefulSet's ordinal,
 a job launcher). Nothing else is consulted: no metadata server, no
 ``TPU_*`` name.
 
-The list is cleaned as the twin cleans it (``parse_worker_hostnames``):
+The list is cleaned as the twin cleans it (``parse_worker_hostnames``,
+shared with hostinfo/gpu_env.py):
 whitespace stripped, blanks dropped, duplicates warned about with the
 first occurrence keeping its place, since the order is the worker-id
 indexing and the leadership order.
@@ -23,6 +24,10 @@ import logging
 import os
 from dataclasses import dataclass, field
 from typing import List, Mapping, Optional
+
+# The hostname list is cleaned by the parser the interconnect labeler's
+# host facts use (hostinfo/gpu_env.py), so the two never disagree.
+from gpu_feature_discovery_tpu_torch.hostinfo.gpu_env import parse_worker_hostnames
 
 log = logging.getLogger("tfd.peering")
 
@@ -37,33 +42,6 @@ class WorkerEnv:
 
     worker_id: Optional[int] = None
     worker_hostnames: List[str] = field(default_factory=list)
-
-
-def parse_worker_hostnames(raw: str) -> List[str]:
-    """Clean the comma-separated hostname list: whitespace stripped,
-    empty entries dropped, duplicates removed with the FIRST occurrence
-    keeping its position. A duplicate is warned about: two workers
-    sharing one entry means the environment is corrupt."""
-    seen = set()
-    cleaned: List[str] = []
-    duplicates: List[str] = []
-    for entry in raw.split(","):
-        host = entry.strip()
-        if not host:
-            continue
-        if host in seen:
-            duplicates.append(host)
-            continue
-        seen.add(host)
-        cleaned.append(host)
-    if duplicates:
-        log.warning(
-            "WORKER_HOSTNAMES carries duplicate entries %s; "
-            "keeping first occurrences (%d unique of the raw list)",
-            sorted(set(duplicates)),
-            len(cleaned),
-        )
-    return cleaned
 
 
 def worker_env_from_mapping(env: Mapping[str, str]) -> WorkerEnv:

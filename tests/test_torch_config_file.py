@@ -239,6 +239,8 @@ _FLAG_VALUES = {
     "slice-coordination": ["on", "off", "auto"], "peer-timeout": ["2s", 0.5, "750ms"],
     "peer-fanout": [0, 1, 4], "cohort-size": ["0", "auto", 2, "64"],
     "peer-token": ["", "tok"], "push-notify": ["on", "off", "auto"],
+    "actuation": ["off", "advise", "enforce"], "actuation-window": [1, 2, 4],
+    "max-actuated-fraction": [0.25, 0.5, 0.75],
 }
 
 
@@ -334,22 +336,41 @@ def test_empty_and_json_files_read_as_the_twins_do(tmp_path):
 
 
 # A value the twin accepts for each key the port refuses.
-_UNPORTED_VALUES = {
-    "libtpuPath": "/lib/libtpu.so", "pjrtCreateOptions": "a=b",
-    "actuation": "off", "actuationWindow": 2, "maxActuatedFraction": 0.5,
-}
+_UNPORTED_VALUES = {"libtpuPath": "/lib/libtpu.so", "pjrtCreateOptions": "a=b"}
 
 
 def test_only_the_actuation_and_tpu_only_keys_are_refused():
-    """The slice coordination keys are read since that slice was ported;
-    what stays refused is the actuation slice's keys and the two that
-    configure libtpu."""
+    """The slice coordination and actuation keys are read since their
+    slices were ported; what stays refused is the two keys that configure
+    libtpu."""
     assert set(spec.UNPORTED_FILE_KEYS) == {
         ("flags", "libtpuPath"), ("flags", "pjrtCreateOptions"),
-        ("tfd", "actuation"), ("tfd", "actuationWindow"),
-        ("tfd", "maxActuatedFraction"),
     }
     assert set(_UNPORTED_VALUES) == {key for _, key in spec.UNPORTED_FILE_KEYS}
+
+
+@pytest.mark.parametrize("key,value", [
+    ("actuation", "advise"), ("actuation", "enforce"), ("actuationWindow", 3),
+    ("maxActuatedFraction", 0.5), ("maxActuatedFraction", "0.125"),
+])
+def test_actuation_keys_are_read_as_the_twins(tmp_path, key, value):
+    path = tmp_path / "actuation.yaml"
+    path.write_text(yaml.safe_dump({"flags": {"tfd": {key: value}}}))
+    port, twin = _both(path=path)
+    assert _same(port, twin)
+
+
+@pytest.mark.parametrize("cli", [
+    {"actuation": "bogus"}, {"actuation": "ENFORCE"}, {"actuation-window": "0"},
+    {"actuation-window": "two"}, {"max-actuated-fraction": "1.5"},
+    {"max-actuated-fraction": "0"},
+])
+def test_actuation_values_are_refused_with_the_twins_texts(cli):
+    with pytest.raises(ConfigError) as port:
+        flags.new_config(cli_values=cli, environ={})
+    with pytest.raises(Exception) as twin:
+        twin_flags.new_config(cli_values=cli, environ={})
+    assert str(port.value) == str(twin.value)
 
 
 @pytest.mark.parametrize("key,value", [

@@ -42,9 +42,6 @@ DOCS = Path(__file__).resolve().parent.parent / "docs" / "observability.md"
 # Twin families whose layers the port does not have yet; each lands with
 # its module (ROADMAP.md queue 1).
 LEFT_OUT = {
-    # actuation (actuation/engine.py)
-    "tfd_actuation_advice", "tfd_actuation_budget_exhausted",
-    "tfd_actuation_transitions_total", "tfd_actuation_convergence_cycles",
     # the fleet collector (fleet/) and its --max-inflight-requests gate
     "tfd_fleet_slices", "tfd_fleet_slices_stale", "tfd_fleet_polls_total",
     "tfd_fleet_snapshot_not_modified_total", "tfd_fleet_inventory_not_modified_total",
@@ -178,7 +175,7 @@ def test_every_port_family_is_the_twins_and_is_documented():
         assert name in twin, f"{name} is not a twin family"
         assert _signature(fam) == _signature(twin[name]), name
         assert f"`{name}`" in docs, f"{name} is not in docs/observability.md"
-    assert len(port) == 57
+    assert len(port) == 61
 
 
 def test_the_families_left_out_are_pinned():

@@ -100,12 +100,33 @@ def _slowed(hook, delay_s):
     return slow_hook
 
 
+class _PortSickOverlay:
+    """Wraps a worker's interconnect labeler with a confirmed chips.sick
+    verdict, as the twin's harness does (``sick_workers``): the verdict
+    rides the real engine merge, peer snapshot and actuation path.
+    ``sick`` is mutable mid-scenario (heal by setting 0)."""
+
+    def __init__(self, inner, sick=1):
+        self._inner = inner
+        self.sick = sick
+
+    def labels(self):
+        from gpu_feature_discovery_tpu_torch.lm.health import CHIPS_HEALTHY, CHIPS_SICK
+
+        labels = self._inner.labels()
+        if self.sick:
+            labels[CHIPS_SICK] = str(self.sick)
+            labels[CHIPS_HEALTHY] = labels.get(CHIPS_HEALTHY, "0")
+        return labels
+
+
 class PortWorker:
-    def __init__(self, worker_id, config, coordinator, port):
+    def __init__(self, worker_id, config, coordinator, port, interconnect=None):
         self.worker_id = worker_id
         self.config = config
         self.coordinator = coordinator
         self.port = port
+        self.interconnect = interconnect
         self.output_file = config.flags.tfd.output_file
         self.sigs = None
         self.thread = None
@@ -138,13 +159,15 @@ class PortSliceHarness:
     def __init__(self, tmp_path, workers=4, coordination="on", sleep_interval="0.05s",
                  peer_timeout="0.5s", cohort_size=0, peer_token="", labeler_timeout="10s",
                  round_budget=None, peer_fanout=None, slow_workers=(), slow_delay_s=0.0,
-                 backends="mock-gpu:2", inject=True, extra_cli=None):
+                 backends="mock-gpu:2", inject=True, extra_cli=None, sick_workers=()):
         """``slow_workers`` stall their /peer/snapshot answers by
         ``slow_delay_s`` (the peer.slow behaviour, scoped to a worker: the
         fault registry is process-wide here); ``round_budget`` and
         ``peer_fanout`` go to every coordinator. ``inject=False`` builds no
         coordinator here: each daemon then builds its own from the config
-        and the process's ``WORKER_HOSTNAMES``/``WORKER_ID``."""
+        and the process's ``WORKER_HOSTNAMES``/``WORKER_ID``.
+        ``sick_workers`` overlay a confirmed chips.sick verdict on the
+        named workers' interconnect labelers (``_PortSickOverlay``)."""
         obs_metrics.reset_for_tests()
         self.workers = []
         ports = [_free_port() for _ in range(workers)]
@@ -186,7 +209,10 @@ class PortSliceHarness:
                 if i in slow_workers:
                     coordinator.snapshot_response = _slowed(
                         coordinator.snapshot_response, slow_delay_s)
-            self.workers.append(PortWorker(i, config, coordinator, ports[i]))
+            interconnect = None
+            if i in sick_workers:
+                interconnect = _PortSickOverlay(port_main.new_interconnect_labeler(config))
+            self.workers.append(PortWorker(i, config, coordinator, ports[i], interconnect))
 
     def start(self):
         for worker in self.workers:
@@ -203,7 +229,7 @@ class PortSliceHarness:
                 worker.result["restart"] = port_main.run(
                     lambda: factory.build_manager(worker.config), worker.config,
                     worker.sigs, supervisor=Supervisor(worker.config),
-                    coordinator=worker.coordinator)
+                    interconnect=worker.interconnect, coordinator=worker.coordinator)
             except BaseException as e:  # noqa: BLE001 - reported by the tests
                 worker.result["error"] = e
 
@@ -502,6 +528,21 @@ def test_the_registry_cycle_coordinates_only_with_the_gpu_family(
         labels = worker.labels()
         assert labels["node.features/cpu.count"] == "2"
         code = _request(worker.port, "/peer/snapshot")[0]
+    from gpu_feature_discovery_tpu.hostinfo.tpu_env import host_info_from_mapping
+    from gpu_feature_discovery_tpu.lm.interconnect import _host_info_labels
+
+    # The host facts of WORKER_HOSTNAMES/WORKER_ID ride the gpu family's
+    # interconnect source, as the twin's interconnect labeler publishes
+    # them for the same mapping.
+    twin_facts = _host_info_labels(host_info_from_mapping(
+        {k: os.environ[k] for k in ("WORKER_HOSTNAMES", "WORKER_ID")}))
+    facts = {k: v for k, v in labels.items() if k.startswith(GPU + "multihost.")}
+    if serves:
+        assert facts == {GPU + k[len(TPU):]: v for k, v in twin_facts.items()} == {
+            GPU + "multihost.present": "true", GPU + "multihost.worker-id": "1",
+            GPU + "multihost.worker-count": "2"}
+    else:
+        assert facts == {}
     if serves:
         assert _port_slice(labels) == {SLICE_ROLE_LABEL: "follower",
                                        SLICE_LEADER_SEEN_LABEL: "false"}
@@ -566,6 +607,10 @@ def test_two_cli_daemons_form_a_slice_through_the_broker(tmp_path):
         else:
             raise AssertionError(f"no slice: {[l.read_text()[-3000:] for l in logs]}")
         assert w0[SLICE_DEGRADED_LABEL] == "false" and w0[SLICE_TOTAL_HOSTS_LABEL] == "2"
+        # Each CLI's own place in the slice, from its WORKER_ID.
+        for i, labels in enumerate((w0, w1)):
+            assert (labels[GPU + "multihost.present"], labels[GPU + "multihost.worker-id"],
+                    labels[GPU + "multihost.worker-count"]) == ("true", str(i), "2")
         for log in logs:
             assert "broker worker" in log.read_text()
         # The token gate, then the ETag economy, on the follower.
