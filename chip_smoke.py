@@ -34,7 +34,13 @@ Phases, each printing one JSON line:
                   ``--backends native`` against ``--backends gpu``; the
                   three MIG strategies as the card's MIG mode implies;
                   family, generation, slice capability and the PCI count
-                  against sysfs; NVML's cost beside ``gpu.acquire``.
+                  against sysfs; NVML's cost beside ``gpu.acquire``; and
+                  a ``fault5`` line: the probe report's device UUIDs
+                  among nvidia-smi's (``--query-gpu=uuid``), device 0's
+                  equal to it on one card. Where NVML lists more GPUs
+                  than CUDA (``per_device_labels`` false, said on a
+                  line after ``device``), every phase expects no
+                  ``chip.<i>.*`` label and ``slice``/``actuation`` fail.
 7. ``daemon``   — the supervised daemon loop with the probe in process
                   (``--probe-broker off``): ``cmd.main.run`` on a worker
                   thread with ``--burnin-interval 2 --sleep-interval 1s``
@@ -84,7 +90,22 @@ Phases, each printing one JSON line:
                   of the leader promotes worker 1 (healthy-hosts 2,
                   degraded) with the survivors' node-local labels
                   unchanged; 1 + 3k launches of ``hbm_stream_sum`` in each
-                  worker, none in a labeling process.
+                  worker, none in a labeling process. The ``fleet`` line
+                  rides the same daemons: a region collector (``python -m
+                  gpu_feature_discovery_tpu_torch fleet-collector``) over
+                  the three and a root collector over it (``--upstream-mode
+                  collectors``), both with the token: the region's entry
+                  follows worker 2's sick verdict 1 -> 0, equals the
+                  leader's ``/peer/snapshot`` section, and the root serves
+                  it under ``region/<name>/<slice>``; a re-GET with
+                  ``If-None-Match`` is a 304, an anonymous one 403;
+                  ``tfd_fleet_*`` scraped live; neither collector maps
+                  ``libcuda.so`` or ``libnvidia-ml.so``; after the
+                  leader's SIGTERM the chain walk reaches worker 1 (2 of
+                  3 hosts, degraded); once every daemon is down the entry
+                  goes stale under the 2-miss rule with its last verdict
+                  kept, on the root too; both collectors exit 0 on
+                  SIGTERM.
 11. ``actuation``— ``--version`` (exit 0, the port's string, no torch
                   imported); then three such CLI daemons with ``--actuation
                   enforce --actuation-window 2 --max-actuated-fraction
@@ -134,6 +155,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TIMED_LAUNCHES = 20
+# Whether CUDA lists exactly NVML's GPUs (joined by UUID), so the health
+# labeler publishes chip.<i>.* keyed by NVML's index; set by phase_device.
+# Where it does not (CUDA_VISIBLE_DEVICES naming a subset), the phases
+# expect no per-device label.
+PER_DEVICE_LABELS = True
 
 
 def emit(phase: str, **fields) -> None:
@@ -178,6 +204,20 @@ def phase_device() -> dict:
         "torch_cuda": torch.version.cuda,
     }
     emit("device", **info)
+    global PER_DEVICE_LABELS
+    from gpu_feature_discovery_tpu_torch.native import nvml
+    from gpu_feature_discovery_tpu_torch.ops import healthcheck
+
+    nvml_uuids = [d.uuid for d in nvml.read_inventory().devices]
+    cuda_uuids = healthcheck.device_uuids(
+        [torch.device("cuda", i) for i in range(info["count"])])
+    where = nvml.inventory_positions(nvml_uuids, cuda_uuids)
+    PER_DEVICE_LABELS = len(where) == len(nvml_uuids) == len(cuda_uuids)
+    if not PER_DEVICE_LABELS:
+        emit("per_device_labels", published=False, nvml_gpus=len(nvml_uuids),
+             cuda_devices=len(cuda_uuids),
+             note="CUDA lists other GPUs than NVML's: the phases expect no "
+                  "chip.<i>.*, chips.* or straggler-chip label")
     return info
 
 
@@ -578,7 +618,7 @@ def phase_main_path(entries: dict, count: int) -> None:
     want = {
         "nvidia.com/gpu.health.ok": "true",
         "nvidia.com/gpu.health.timing": "device-profiler",
-        "nvidia.com/gpu.chip.0.ok": "true",
+        "nvidia.com/gpu.chip.0.ok": "true" if PER_DEVICE_LABELS else None,
         "nvidia.com/gpu.count": str(count),
         "nvidia.com/gpu.family": "hopper",
         "nvidia.com/gpu.generation.major": "9",
@@ -722,16 +762,22 @@ def phase_host_facts(count: int) -> dict:
 
     inv = nvml.read_inventory()  # raises where NVML does not load
     again = nvml.read_inventory()
-    check(len(inv.devices) == torch.cuda.device_count(),
-          f"NVML sees {len(inv.devices)} GPUs, torch {torch.cuda.device_count()}")
+    if PER_DEVICE_LABELS:
+        check(len(inv.devices) == torch.cuda.device_count(),
+              f"NVML sees {len(inv.devices)} GPUs, torch {torch.cuda.device_count()}")
+    else:
+        check(len(inv.devices) >= torch.cuda.device_count(),
+              f"NVML sees {len(inv.devices)} GPUs, torch {torch.cuda.device_count()}")
     rows = subprocess.run(
         ["nvidia-smi", "--query-gpu=driver_version,name,memory.total,pci.bus_id,"
-         "mig.mode.current,compute_cap", "--format=csv,noheader,nounits"],
+         "mig.mode.current,compute_cap,uuid", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     check(len(rows) == len(inv.devices), f"nvidia-smi rows {rows}")
+    smi_uuids = []
     for dev, row in zip(inv.devices, rows):
-        driver, name, memory, bus_id, mig_mode, cc = [f.strip() for f in row.split(",")]
+        driver, name, memory, bus_id, mig_mode, cc, uuid = [f.strip() for f in row.split(",")]
+        smi_uuids.append(uuid)
         smi_mig = {"Enabled": (True, True), "Disabled": (True, False)}.get(
             mig_mode, (False, False))
         for what, got, want in (
@@ -743,6 +789,7 @@ def phase_host_facts(count: int) -> dict:
              None if bus_id.strip("[]") == "N/A" else nvml.normalize_bus_id(bus_id)),
             ("mig.mode.current", (dev.mig_capable, dev.mig_enabled), smi_mig),
             ("compute_cap", "%d.%d" % dev.compute_capability, cc),
+            ("uuid", dev.uuid, uuid),
         ):
             check(got == want, f"GPU {dev.index} {what}: NVML {got!r}, nvidia-smi {want!r}")
 
@@ -760,6 +807,23 @@ def phase_host_facts(count: int) -> dict:
     check(sum(child["device_used_mib"]) - used_before < CONTEXT_MIB,
           f"the NVML child took device memory: {used_before} MiB before, "
           f"{child['device_used_mib']} MiB while it ran")
+
+    # Fault 5: the probe's devices are CUDA's, the labels' index is
+    # NVML's; each report entry carries its device's UUID (torch's, bare)
+    # and it must be one of nvidia-smi's (NVML's, "GPU-" prefixed).
+    from gpu_feature_discovery_tpu_torch.ops import healthcheck
+
+    report = healthcheck.measure_node_health(
+        per_chip=True, inventory_uuids=[d.uuid for d in inv.devices])
+    probe_uuids = [e["uuid"] for e in report["per_chip"]]
+    smi_bare = [nvml.normalize_uuid(u) for u in smi_uuids]
+    check(all(u in smi_bare for u in probe_uuids),
+          f"probe UUIDs {probe_uuids} against nvidia-smi's {smi_uuids}")
+    if len(smi_bare) == 1:
+        check(probe_uuids == smi_bare, f"device 0: probe {probe_uuids}, nvidia-smi {smi_uuids}")
+    emit("fault5", nvidia_smi_uuids=smi_uuids, probe_uuids=probe_uuids,
+         label_index_of_cuda_device=[smi_bare.index(u) for u in probe_uuids],
+         per_device_labels=PER_DEVICE_LABELS)
 
     gpu = _oneshot_labels("--backends", "gpu")
     native = _oneshot_labels("--backends", "native")
@@ -1039,7 +1103,7 @@ def phase_daemon(entries: dict, count: int) -> dict:
         scraped = _scrape(metrics_port)
         labels = _read_labels(out)
         check(scraped[("tfd_broker_up", "")] == 0, "tfd_broker_up with the broker off")
-        for i in range(count):
+        for i in range(count if PER_DEVICE_LABELS else 0):
             ok = scraped.get(("tfd_chip_ok", f'{{chip="{i}"}}'))
             want = 1.0 if labels.get(f"nvidia.com/gpu.chip.{i}.ok") == "true" else 0.0
             check(ok == want, f"tfd_chip_ok{{chip={i}}} {ok}, label says {want}")
@@ -1106,7 +1170,7 @@ def phase_daemon(entries: dict, count: int) -> dict:
     emit("daemon", first_write_s=first_write_s, probing_cycles=len(probing),
          cached_cycles=len(cached), launches=daemon_launches,
          launches_per_probing_cycle=per_probe, memory_bytes=memory,
-         chip_ok=[scraped[("tfd_chip_ok", f'{{chip="{i}"}}')] for i in range(count)],
+         chip_ok=[scraped.get(("tfd_chip_ok", f'{{chip="{i}"}}')) for i in range(count)],
          first_probe_compile_s=scraped[("tfd_first_probe_compile_seconds", "")])
     cli = phase_daemon_cli(count)
     # Steady cycles: the probing ones after the first (which pays first
@@ -1195,6 +1259,10 @@ def _chip_series_agree(port: int, out: str) -> dict:
         raise SystemExit("chip_smoke: check failed: the label file never held "
                          "still across a scrape")
     ok = scraped.get(("tfd_chip_ok", '{chip="0"}'))
+    if not PER_DEVICE_LABELS:
+        check(ok is None and "nvidia.com/gpu.chip.0.ok" not in before,
+              f"per-device health published on a CUDA subset: {ok}, {before}")
+        return scraped
     want = 1.0 if before.get("nvidia.com/gpu.chip.0.ok") == "true" else 0.0
     check(ok == want and (ok == 1.0) == (before.get("nvidia.com/gpu.health.ok") == "true"),
           f"tfd_chip_ok{{chip=0}} {ok} against chip.0.ok "
@@ -1538,7 +1606,7 @@ def phase_broker(entries: dict, count: int, host_labels: dict) -> None:
         check(counted == {"kills": 1, "crashes": 1, "respawns": 2},
               f"the registry counted {counted} for one hang and one crash")
         check(obs_metrics.BROKER_UP.value() == 1, "tfd_broker_up after the respawns")
-        check(obs_metrics.CHIP_OK.value(chip="0") == 1,
+        check(obs_metrics.CHIP_OK.value(chip="0") == (1 if PER_DEVICE_LABELS else 0),
               "tfd_chip_ok{chip=0} after fresh health labels")
         sigs.put(signal.SIGTERM)
         t_term = time.monotonic()
@@ -1938,6 +2006,117 @@ def _timed_get(port: int, headers: dict, rounds: int = 5):
     return answer + (statistics.median(ms),)
 
 
+# The fleet phase: a region collector over the slice's three daemons and a
+# root collector over it (--upstream-mode collectors), each in a fresh
+# process at a fast cadence.
+FLEET_SCRAPE_INTERVAL_S = 0.2
+FLEET_PEER_TIMEOUT_S = 0.5
+FLEET_SLICE = "slice-a"
+FLEET_REGION = "region-a"
+FLEET_VERDICT = ("healthy_hosts", "total_hosts", "degraded", "sick_chips")
+
+
+class _FleetWatch:
+    """The ``fleet`` phase's collectors (``python -m
+    gpu_feature_discovery_tpu_torch fleet-collector``) over the slice
+    phase's live daemons, and a sampler of the region collector's entry
+    for the slice: (monotonic time, entry) at each change."""
+
+    def __init__(self, tmp: str, ports: list, token: str):
+        self.token = token
+        self.region_port, self.root_port = _free_port(), _free_port()
+        region_targets = os.path.join(tmp, "fleet-targets.yaml")
+        root_targets = os.path.join(tmp, "fleet-root-targets.yaml")
+        with open(region_targets, "w") as f:
+            f.write("version: v1\nslices:\n  - name: %s\n    hosts: [%s]\n" % (
+                FLEET_SLICE, ", ".join(f'"127.0.0.1:{p}"' for p in ports)))
+        with open(root_targets, "w") as f:
+            f.write('version: v1\nslices:\n  - name: %s\n    hosts: ["127.0.0.1:%d"]\n'
+                    % (FLEET_REGION, self.region_port))
+        env = dict(os.environ)
+        env.pop("TFD_FAULT_SPEC", None)
+        self.logs = {name: os.path.join(tmp, f"fleet-{name}.log") for name in ("region", "root")}
+        self.procs = {}
+        for name, targets, port, extra in (
+                ("region", region_targets, self.region_port, []),
+                ("root", root_targets, self.root_port, ["--upstream-mode", "collectors"])):
+            with open(self.logs[name], "w") as log:
+                self.procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "gpu_feature_discovery_tpu_torch", "fleet-collector",
+                     "--targets-file", targets, "--metrics-addr", "127.0.0.1",
+                     "--metrics-port", str(port),
+                     "--scrape-interval", f"{FLEET_SCRAPE_INTERVAL_S}s",
+                     "--peer-timeout", f"{FLEET_PEER_TIMEOUT_S}s",
+                     "--peer-token", token, *extra],
+                    cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
+        self.timeline = []
+        self._stop = threading.Event()
+        self._sampler = threading.Thread(target=self._sample, daemon=True)
+        self._sampler.start()
+
+    def get(self, port: int, path: str = "/fleet/snapshot", etag=None):
+        """(status, ETag, body, ms) of one GET with the token."""
+        headers = {"X-TFD-Probe-Token": self.token}
+        if etag:
+            headers["If-None-Match"] = etag
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+        try:
+            t = time.perf_counter()
+            conn.request("GET", path, headers=headers)
+            resp = conn.getresponse()
+            body = resp.read()
+            return resp.status, resp.getheader("ETag"), body, (time.perf_counter() - t) * 1e3
+        finally:
+            conn.close()
+
+    def entry(self, port=None, key=FLEET_SLICE):
+        """The slice's entry on the region collector (or ``key`` on
+        another), None before it serves."""
+        try:
+            status, _etag, body, _ms = self.get(port or self.region_port)
+        except (OSError, http.client.HTTPException):
+            return None
+        return json.loads(body)["slices"].get(key) if status == 200 else None
+
+    def _sample(self):
+        last = None
+        while not self._stop.is_set():
+            entry = self.entry()
+            if entry != last:
+                self.timeline.append((time.monotonic(), entry))
+                last = entry
+            time.sleep(0.02)
+
+    def first(self, cond, after: float = 0.0):
+        """The time of the first sample after ``after`` whose entry meets
+        ``cond``; None if none has."""
+        return next((t for t, e in list(self.timeline) if t > after and e and cond(e)), None)
+
+    def wait(self, cond, timeout: float, what: str, after: float = 0.0) -> float:
+        return _wait_for(lambda: self.first(cond, after), timeout, what)
+
+    def stop(self) -> list:
+        """SIGTERM both collectors: their exit codes."""
+        self._stop.set()
+        self._sampler.join(timeout=5)
+        rcs = []
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for proc in self.procs.values():
+            try:
+                rcs.append(proc.wait(timeout=15))
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return rcs
+
+
+def _verdict(entry: dict) -> dict:
+    return {k: entry.get(k) for k in FLEET_VERDICT}
+
+
 def phase_slice(entries: dict, smi: str) -> dict:
     """Three CLI daemons on the one card form one slice over 127.0.0.1:
     each at its defaults through its own broker worker (``--backends gpu
@@ -1945,7 +2124,16 @@ def phase_slice(entries: dict, smi: str) -> dict:
     ``--slice-coordination auto`` and a ``--peer-token`` (so push-notify
     resolves on). Worker 2 runs under ``chip.0.sick:fail:1``: the leader's
     ``slice.sick-chips`` follows the card's verdict from 1 back to 0. Then
-    the leader is SIGTERMed and worker 1 takes over."""
+    the leader is SIGTERMed and worker 1 takes over.
+
+    The ``fleet`` phase rides it, adding no gpu worker: a region collector
+    over the three daemons and a root collector over the region, started
+    with the daemons; their entries are checked against the leader's
+    ``/peer/snapshot`` through the sick window, the failover and the
+    shutdown of every daemon."""
+    check(PER_DEVICE_LABELS, "the slice phase reads each daemon's per-device "
+          "verdict (chips.sick), which a node whose CUDA lists a subset of "
+          "NVML's GPUs does not publish")
     from gpu_feature_discovery_tpu_torch.peering.coordinator import CONFIRM_POLLS
     from gpu_feature_discovery_tpu_torch.sandbox import broker
 
@@ -1998,6 +2186,7 @@ def phase_slice(entries: dict, smi: str) -> dict:
 
         sampler = threading.Thread(target=sample, daemon=True)
         sampler.start()
+        fleet = _FleetWatch(tmp, ports, token)
         try:
             def converged():
                 ls = [_read_labels(o) for o in outs]
@@ -2026,6 +2215,12 @@ def phase_slice(entries: dict, smi: str) -> dict:
             _wait_for(lambda: any(t > t_sick and _sick_pair(ls, "0")
                                   for t, ls in list(timeline)),
                       120.0, "the leader's sick-chips back to 0 after worker 2's next probe")
+            # The collector's entry followed the same verdict: sick 1 on
+            # the whole slice, then 0.
+            t_fleet_sick = fleet.wait(lambda e: e["sick_chips"] == 1 and e["reachable"],
+                                      30.0, "the collector's sick_chips 1")
+            fleet.wait(lambda e: e["sick_chips"] == 0 and e["healthy_hosts"] == 3,
+                       30.0, "the collector's sick_chips back to 0", after=t_fleet_sick)
             all_health = _wait_for(
                 lambda: (lambda ls: ls if all(_has_health(l) for l in ls) else None)(
                     [_read_labels(o) for o in outs]), 60.0, "health labels on all three")
@@ -2053,6 +2248,8 @@ def phase_slice(entries: dict, smi: str) -> dict:
             libs = sorted(os.listdir(cache))
             check(len(libs) == 1 and libs[0].endswith(".so"),
                   f"the shared kernel cache holds {libs}")
+
+            fleet_checks = _fleet_steady(fleet, ports)
 
             # By hand on worker 1: the token gate, the ETag, the 304.
             missing = _timed_get(ports[1], {}, rounds=1)
@@ -2106,6 +2303,16 @@ def phase_slice(entries: dict, smi: str) -> dict:
             promoted_labels = _wait_for(promoted, bound,
                                         "worker 1 leading the slice after the SIGTERM")
             failover_s = time.monotonic() - t_term
+            # The collector's chain walk passes the dead leader and finds
+            # worker 1's verdict: the slice stays live with one host fewer.
+            t_fleet_leader = fleet.wait(
+                lambda e: (e["reachable"] and not e["stale"] and e["healthy_hosts"] == 2
+                           and e["total_hosts"] == 3 and e["degraded"] is True),
+                bound, "the collector following worker 1's verdict", after=t_term)
+            fleet_failover_s = t_fleet_leader - t_term
+            section = json.loads(fleet.get(ports[1], "/peer/snapshot")[2])["slice"]
+            check(_verdict(fleet.entry()) == _verdict(section),
+                  f"collector {fleet.entry()} against worker 1's section {section}")
             check(promoted_labels.get(SLICE_PREFIX + "sick-chips") == "0",
                   f"sick-chips after the failover {promoted_labels}")
             rc0 = procs[0].wait(timeout=30)
@@ -2124,21 +2331,33 @@ def phase_slice(entries: dict, smi: str) -> dict:
             check(degraded == {"slice_degraded": 1.0, "unreachable": 1.0},
                   f"worker 1's series after the failover {degraded}")
             check(_gone(pids[0]), "the leader's broker worker outlived it")
+            t_stop = time.monotonic()
+            rcs = _stop_daemons(procs)
+            t_all_down = time.monotonic()
+            # Every daemon is gone: after two missed rounds the slice is
+            # stale, its last verdict kept, on the region and the root. A
+            # daemon closes its server before its process exits, so the
+            # flip may come before the last exit.
+            t_stale = fleet.wait(lambda e: e["stale"] and not e["reachable"], 30.0,
+                                 "the collector's entry going stale", after=t_stop)
+            fleet_stale_s = {"from_sigterm": t_stale - t_stop,
+                             "from_last_exit": t_stale - t_all_down}
+            dark = fleet.entry()
+            check(dark["healthy_hosts"] == 2 and dark["last_seen_unix"] is not None,
+                  f"the stale entry lost its last verdict: {dark}")
+            root_key = f"region/{FLEET_REGION}/{FLEET_SLICE}"
+            _wait_for(lambda: (fleet.entry(fleet.root_port, root_key) or {}).get("stale"),
+                      30.0, "the root's entry going stale")
+            fleet_rcs = fleet.stop()
+            check(fleet_rcs == [0, 0], f"fleet collectors exited {fleet_rcs}")
+            check(all(_gone(p.pid) for p in fleet.procs.values()),
+                  "a fleet collector outlived its SIGTERM")
         finally:
             stop_sampling.set()
             sampler.join(timeout=5)
+            fleet.stop()
             t_stop = time.monotonic()
-            rcs = []
-            for p in procs:
-                if p.poll() is None:
-                    p.send_signal(signal.SIGTERM)
-            for p in procs:
-                try:
-                    rcs.append(p.wait(timeout=30))
-                finally:
-                    if p.poll() is None:
-                        p.kill()
-                        p.wait()
+            rcs = _stop_daemons(procs)
             _wait_for(lambda: all(_gone(pid) for pid in pids.values()),
                       max(0.0, t_stop + broker.GRACEFUL_CLOSE_S * SLICE_WORKERS + 2.0
                           - time.monotonic()), f"no broker worker of {pids} alive")
@@ -2150,6 +2369,10 @@ def phase_slice(entries: dict, smi: str) -> dict:
         iters = healthcheck.PROBE_HBM_ITERS
         check(all((t[0] - 1) % iters == 0 and t[0] >= 1 + iters for t in totals),
               f"hbm_stream_sum launches per worker {totals}, want 1 + 3k")
+    emit("fleet", nvidia_smi=smi, **fleet_checks,
+         sigterm_to_new_leader_in_fleet_s=fleet_failover_s,
+         last_daemons_down_to_stale_s=fleet_stale_s, stale_entry=dark,
+         collector_rcs=fleet_rcs)
     emit("slice", nvidia_smi=smi, first_slice_labels_s=first_slice_s,
          sigterm_to_new_leader_s=failover_s, failover_bound_s=bound,
          peer_poll_median_s=poll_median_s, peer_poll_mean_s=poll_mean_s,
@@ -2160,6 +2383,80 @@ def phase_slice(entries: dict, smi: str) -> dict:
     entries["hbm_stream_sum"]["slice_launches"] = sum(t[0] for t in totals)
     return {"failover_s": failover_s}
 
+
+
+def _stop_daemons(procs: list) -> list:
+    """SIGTERM every daemon still running: their exit codes."""
+    rcs = []
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=30))
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return rcs
+
+
+def _fleet_steady(fleet: _FleetWatch, ports: list) -> dict:
+    """The collectors against the healthy slice: the region's entry is the
+    leader's published verdict, the root serves it under
+    region/<name>/<slice>, a re-GET with If-None-Match is a 304, the
+    tfd_fleet_* series are live, and neither collector maps CUDA or NVML."""
+    section = json.loads(fleet.get(ports[0], "/peer/snapshot")[2])["slice"]
+    entry = _wait_for(lambda: (lambda e: e if e and _verdict(e) == _verdict(section)
+                               else None)(fleet.entry()),
+                      30.0, f"the collector's entry equal to the leader's section {section}")
+    check(entry["reachable"] and not entry["stale"] and entry["healthy_hosts"] == 3
+          and entry["degraded"] is False and entry["sick_chips"] == 0,
+          f"the healthy slice's entry {entry}")
+    root_key = f"region/{FLEET_REGION}/{FLEET_SLICE}"
+    root_entry = _wait_for(lambda: (lambda e: e if e and e.get("generation") == entry[
+        "generation"] else None)(fleet.entry(fleet.root_port, root_key)),
+        30.0, f"the root serving {root_key}")
+    check({k: v for k, v in root_entry.items() if k != "region"} == entry
+          and root_entry["region"] == FLEET_REGION,
+          f"the root's {root_key} {root_entry} against the region's {entry}")
+    status, etag, body, _ms = fleet.get(fleet.region_port)
+    check(status == 200 and etag and etag.startswith('"'), f"/fleet/snapshot {status} {etag}")
+    not_modified = []
+    for _ in range(5):
+        got = fleet.get(fleet.region_port, etag=etag)
+        check(got[:3] == (304, etag, b""), f"If-None-Match answered {got[:3]}")
+        not_modified.append(got[3])
+    anonymous = _http(fleet.region_port, "GET", "/fleet/snapshot")[0]
+    check(anonymous == 403, f"/fleet/snapshot without the token answered {anonymous}")
+    region, root = _scrape(fleet.region_port), _scrape(fleet.root_port)
+    series = {
+        "slices": region.get(("tfd_fleet_slices", "")),
+        "slices_stale": region.get(("tfd_fleet_slices_stale", "")),
+        "scrape_rounds": region.get(("tfd_fleet_scrape_rounds_total", "")),
+        "polls_ok": region.get(("tfd_fleet_polls_total", '{outcome="ok"}')),
+        "upstream_304": region.get(("tfd_fleet_snapshot_not_modified_total", "")),
+        "served_304": region.get(("tfd_fleet_inventory_not_modified_total", "")),
+        "root_regions": root.get(("tfd_fleet_regions", "")),
+        "root_slices": root.get(("tfd_fleet_slices", "")),
+    }
+    check(series["slices"] == 1 and series["slices_stale"] == 0
+          and series["scrape_rounds"] > 0 and series["polls_ok"] > 0
+          and series["upstream_304"] > 0 and series["served_304"] >= 5
+          and series["root_regions"] == 1 and series["root_slices"] == 1,
+          f"the collectors' tfd_fleet_* series {series}")
+    round_median_s = _histogram_median(region, "tfd_fleet_scrape_round_duration_seconds")
+    pids = {name: p.pid for name, p in fleet.procs.items()}
+    maps = {name: {lib: _maps_libcuda(pid, lib) for lib in ("libcuda.so", "libnvidia-ml.so")}
+            for name, pid in pids.items()}
+    check(not any(v for m in maps.values() for v in m.values()),
+          f"a collector maps CUDA or NVML: {maps}")
+    return {
+        "scrape_round_median_ms": round_median_s * 1e3,
+        "not_modified_get_ms": statistics.median(not_modified),
+        "body_bytes": len(body), "series": series,
+        "maps": maps, "memory": _host_memory(pids),
+    }
 
 
 ACT_WORKERS = 3
@@ -2247,6 +2544,10 @@ def phase_actuation(entries: dict, smi: str) -> dict:
     device heals."""
     from gpu_feature_discovery_tpu_torch.lm.health import CHIPS_SICK
     from gpu_feature_discovery_tpu_torch.ops import healthcheck
+
+    check(PER_DEVICE_LABELS, "the actuation phase reads each daemon's per-device "
+          "verdict (chips.sick), which a node whose CUDA lists a subset of "
+          "NVML's GPUs does not publish")
     from gpu_feature_discovery_tpu_torch.sandbox import broker
 
     out = _version_check()

@@ -844,6 +844,12 @@ def run(
 
 
 def main() -> None:
+    # The one entry of the console script and ``python -m``, so both take
+    # the subcommand; the collector imports no torch.
+    if len(sys.argv) > 1 and sys.argv[1] == "fleet-collector":
+        from gpu_feature_discovery_tpu_torch.cmd.fleet import main as fleet_main
+
+        sys.exit(fleet_main(sys.argv[2:]))
     sys.exit(start())
 
 

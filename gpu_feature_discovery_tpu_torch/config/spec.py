@@ -88,6 +88,17 @@ PUSH_NOTIFY_OFF = "off"
 PUSH_NOTIFY_AUTO = "auto"
 PUSH_NOTIFY_MODES = (PUSH_NOTIFY_ON, PUSH_NOTIFY_OFF, PUSH_NOTIFY_AUTO)
 
+# Fleet collector upstream modes (fleet/, cmd/fleet.py --upstream-mode):
+# `slices` scrapes each targets-file entry as a slice's worker list over
+# /peer/snapshot (the default); `collectors` treats each entry as a REGION
+# whose hosts are that region's fleet collectors, scraped over
+# /fleet/snapshot and merged under region/<name>/<slice> keys (the
+# federation tier, which nests: a root is a valid upstream for a higher
+# root).
+UPSTREAM_SLICES = "slices"
+UPSTREAM_COLLECTORS = "collectors"
+UPSTREAM_MODES = (UPSTREAM_SLICES, UPSTREAM_COLLECTORS)
+
 # Verdict actuation modes (actuation/engine.py): `off` (the default) builds
 # none of the actuation machinery, so the label output stays byte for byte
 # the daemon's without it; `advise` is the dry run, writing only
@@ -277,6 +288,41 @@ def parse_nonneg_int(value: Any) -> int:
     if n < 0:
         raise ConfigError(f"value must be >= 0: {value!r}")
     return n
+
+
+# How many generations back a /fleet/snapshot?since= delta can reach: one
+# full-body ETag per generation in the lineage history (a few hundred
+# bytes each), so 1024 bound it to about 100 KiB.
+DEFAULT_FLEET_DELTA_WINDOW = 1024
+
+
+def parse_delta_window(value: Any) -> int:
+    """Strict ``--delta-window``: an integer >= 0, the generations of ETag
+    lineage kept for ``?since=`` deltas; 0 disables delta serving (every
+    ``?since`` answers the full body)."""
+    return parse_nonneg_int(value)
+
+
+# The fleet query surface (fleet/query.py): rendered filtered views kept
+# (LRU), the ceiling on one ?watch= park, the parked watchers admitted at
+# once (each holds a handler thread), and the introspection server's
+# inflight-request cap (0 = unbounded).
+DEFAULT_FILTER_CACHE_SIZE = 64
+DEFAULT_WATCH_TIMEOUT_S = 30.0
+DEFAULT_MAX_WATCHERS = 64
+DEFAULT_MAX_INFLIGHT = 0
+
+
+def parse_upstream_mode(value: Any) -> str:
+    """Strict ``--upstream-mode``: ``slices`` | ``collectors``; a typo
+    fails the collector's start, never scrapes the wrong surface."""
+    s = str(value).strip().lower()
+    if s not in UPSTREAM_MODES:
+        raise ConfigError(
+            f"invalid upstream-mode {value!r} "
+            f"(want one of {', '.join(UPSTREAM_MODES)})"
+        )
+    return s
 
 
 def parse_fraction(value: Any) -> float:

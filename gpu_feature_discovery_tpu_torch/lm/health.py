@@ -14,6 +14,9 @@ CUDA device (ops/healthcheck.py ``measure_node_health``) and publishes:
 and, with --chip-probes (the default), per-device fault localisation:
 ``chip.<i>.ok``, ``chip.<i>.tflops``, ``chip.<i>.hbm-gbps``,
 ``chips.healthy``, ``chips.sick`` and a confirmed ``straggler-chip``.
+``<i>`` is the GPU's NVML index, the inventory's (``gpu.count``), joined
+to the probed CUDA device by UUID; where CUDA lists other GPUs than the
+inventory's (a subset, MIG), no per-device label is published.
 A multi-GPU node also publishes ``health.ici.ok`` (the ring sweep over
 peer copies and NCCL) and, with --chip-probes, ``health.ici.allreduce-gbps``
 (the timed NCCL all-reduce, GiB/s per device).
@@ -64,6 +67,7 @@ from gpu_feature_discovery_tpu_torch.config.flags import (
 from gpu_feature_discovery_tpu_torch.config.spec import Config
 from gpu_feature_discovery_tpu_torch.lm.labeler import Empty, Labeler
 from gpu_feature_discovery_tpu_torch.lm.labels import Labels
+from gpu_feature_discovery_tpu_torch.native import nvml
 from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
 from gpu_feature_discovery_tpu_torch.utils.logging import warn_once
@@ -312,7 +316,7 @@ def new_health_labeler(manager: Manager, config: Config) -> Labeler:
             sick, slow = frozenset(), frozenset()
         return functools.partial(
             measure_node_health, per_chip=chip_probes,
-            sick_chips=sick, slow_chips=slow,
+            sick_chips=sick, slow_chips=slow, **_inventory_kwargs(manager),
         )
 
     first_probe = sched.cached is None and sched.consecutive_failures == 0
@@ -374,6 +378,33 @@ def _mig_enabled(manager) -> bool:
     return manager is not None and any(
         chip.is_slice_enabled() for chip in manager.get_chips()
     )
+
+
+def _inventory_kwargs(manager) -> dict:
+    """The inventory's GPU UUIDs for the probe, in NVML's order, so its
+    fault indices name the GPUs the labels name; nothing for an inventory
+    without UUIDs."""
+    uuids = [chip.get_uuid() for chip in manager.get_chips()]
+    return {"inventory_uuids": uuids} if any(uuids) else {}
+
+
+def _label_indices(manager, table):
+    """The label index of each probed device: its NVML index, joined by
+    UUID (CUDA's ordinal may differ: ``CUDA_VISIBLE_DEVICES``,
+    ``CUDA_DEVICE_ORDER``); the position itself for an inventory without
+    UUIDs. None when CUDA lists other GPUs than the inventory's or a
+    device does not join: a label keyed by either index could then name
+    the wrong GPU or contradict ``gpu.count``."""
+    chips = manager.get_chips() if manager is not None else []
+    where = nvml.inventory_positions(
+        [chip.get_uuid() for chip in chips], [e.get("uuid") for e in table]
+    )
+    if where is None:
+        return list(range(len(table)))
+    if len(where) != len(chips) or len(table) != len(chips):
+        return None
+    index_at = {pos: i for i, pos in where.items()}
+    return [index_at[pos] for pos in range(len(table))]
 
 
 def _rate_plausible(value, host_clock: bool, peak: float) -> bool:
@@ -474,6 +505,7 @@ def _labels_from_probe(
     chip_probes, threshold = _chip_probe_opts(config)
     table = report.get("per_chip") or []
     if chip_probes and table:
+        indices = _label_indices(manager, table)
         if _mig_enabled(manager):
             # The probe ran on the devices CUDA lists: under MIG the GPUs
             # outside MIG plus one MIG device, not the inventory's GPUs,
@@ -487,11 +519,21 @@ def _labels_from_probe(
                 len(table),
             )
             sched.straggler = None
+        elif indices is None:
+            warn_once(
+                log,
+                "health:unjoined-per-device",
+                "CUDA lists %d device(s) that are not the node's %d GPU(s) "
+                "one to one by UUID; publishing no per-device health labels",
+                len(table),
+                len(manager.get_chips()),
+            )
+            sched.straggler = None
         else:
             healthy_n = sum(1 for e in table if e.get("healthy"))
             labels[CHIPS_HEALTHY] = str(healthy_n)
             labels[CHIPS_SICK] = str(len(table) - healthy_n)
-            for i, e in enumerate(table):
+            for i, e in zip(indices, table):
                 ok = bool(e.get("healthy"))
                 labels[CHIP_OK_FMT % i] = "true" if ok else "false"
                 obs_metrics.CHIP_OK.labels(chip=str(i)).set(1.0 if ok else 0.0)
@@ -510,8 +552,10 @@ def _labels_from_probe(
                     labels[CHIP_HBM_FMT % i] = str(int(chip_hbm))
             if sched.straggler is None or sched.straggler.threshold != threshold:
                 sched.straggler = StragglerDetector(threshold)
+            # The detector counts probe positions, stable across probes.
             confirmed = sched.straggler.observe(table)
             if confirmed is not None:
+                confirmed = indices[confirmed]
                 labels[STRAGGLER_CHIP] = str(confirmed)
                 obs_metrics.STRAGGLER_DETECTED.inc()
                 log.warning(
@@ -576,6 +620,7 @@ def _broker_health_labels(manager, broker, config: Config) -> Labeler:
             per_chip=chip_probes,
             sick_chips=sorted(sick),
             slow_chips=sorted(slow),
+            **_inventory_kwargs(manager),
         )
     except Exception:
         # The request died with the worker: the probe never published, so

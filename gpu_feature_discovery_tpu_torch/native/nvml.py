@@ -26,6 +26,11 @@ PCI bus ids are normalised once, here, to the sysfs spelling
 virtualised hosts give no PCI information at all
 (``nvmlDeviceGetPciInfo_v3`` answers NOT_SUPPORTED, and nvidia-smi
 prints ``[N/A]``); the bus id is then None.
+
+A GPU's UUID joins NVML's index to CUDA's device ordinal, which may
+differ (``CUDA_VISIBLE_DEVICES``, ``CUDA_DEVICE_ORDER``): NVML spells it
+``GPU-<hex>``, torch's ``_CUuuid`` prints the bare hex, and
+:func:`normalize_uuid` is the one spelling both sides are compared in.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import ctypes
 import logging
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 from gpu_feature_discovery_tpu_torch.resource.types import ResourceError
 
@@ -65,6 +70,7 @@ NVML_ERROR_NAMES: Dict[int, str] = {
 NVML_DEVICE_MIG_ENABLE = 1
 SYSTEM_DRIVER_VERSION_BUFFER_SIZE = 80
 DEVICE_NAME_BUFFER_SIZE = 96
+DEVICE_UUID_V2_BUFFER_SIZE = 96
 
 nvmlDevice_t = ctypes.c_void_p
 
@@ -122,6 +128,7 @@ ENTRY_POINTS: Dict[str, Tuple] = {
     "nvmlDeviceGetCount_v2": (_P(_UINT),),
     "nvmlDeviceGetHandleByIndex_v2": (_UINT, _P(nvmlDevice_t)),
     "nvmlDeviceGetName": (nvmlDevice_t, ctypes.c_char_p, _UINT),
+    "nvmlDeviceGetUUID": (nvmlDevice_t, ctypes.c_char_p, _UINT),
     "nvmlDeviceGetMemoryInfo": (nvmlDevice_t, _P(NvmlMemory)),
     "nvmlDeviceGetPciInfo_v3": (nvmlDevice_t, _P(NvmlPciInfo)),
     "nvmlDeviceGetCudaComputeCapability": (
@@ -157,6 +164,28 @@ def normalize_bus_id(bus_id: str) -> str:
         return f"{int(domain, 16):04x}:{int(bus, 16):02x}:{int(dev, 16):02x}.{int(fn, 16):x}"
     except ValueError as e:
         raise ValueError(f"not a PCI bus id: {bus_id!r}") from e
+
+
+def normalize_uuid(value) -> str:
+    """A GPU UUID in the spelling joins compare: NVML's
+    ``GPU-2B7F...`` and the ``str()`` of torch's ``_CUuuid`` (the same
+    hex, no prefix) both become the lower-case bare hex; "" for none."""
+    text = str(value or "").strip().lower()
+    return text[4:] if text.startswith("gpu-") else text
+
+
+def inventory_positions(
+    inventory_uuids: Iterable, device_uuids: Iterable
+) -> Optional[Dict[int, int]]:
+    """NVML index → position among the probed devices, for every GPU of
+    the inventory whose UUID a probed device carries. None when the
+    inventory carries no UUID (a mock inventory: positions are the
+    index, as before the join)."""
+    inventory = [normalize_uuid(u) for u in inventory_uuids]
+    if not any(inventory):
+        return None
+    positions = {u: pos for pos, u in enumerate(map(normalize_uuid, device_uuids)) if u}
+    return {i: positions[u] for i, u in enumerate(inventory) if u in positions}
 
 
 @dataclass(frozen=True)
@@ -213,6 +242,7 @@ class DeviceInfo:
     mig_capable: bool
     mig_enabled: bool
     mig_devices: Tuple[MigDeviceInfo, ...] = ()
+    uuid: str = ""  # NVML's spelling, "GPU-<hex>"
 
     @property
     def memory_mb(self) -> int:
@@ -292,6 +322,11 @@ class Nvml:
         self._check("nvmlDeviceGetName", h, buf, len(buf))
         return buf.value.decode(errors="replace")
 
+    def uuid(self, h: nvmlDevice_t) -> str:
+        buf = ctypes.create_string_buffer(DEVICE_UUID_V2_BUFFER_SIZE)
+        self._check("nvmlDeviceGetUUID", h, buf, len(buf))
+        return buf.value.decode(errors="replace")
+
     def memory_info(self, h: nvmlDevice_t) -> NvmlMemory:
         mem = NvmlMemory()
         self._check("nvmlDeviceGetMemoryInfo", h, ctypes.pointer(mem))
@@ -366,6 +401,7 @@ class Nvml:
             mig_capable=mode is not None,
             mig_enabled=enabled,
             mig_devices=self.mig_devices(h) if enabled else (),
+            uuid=self.uuid(h),
         )
 
     def inventory(self) -> Inventory:

@@ -3,10 +3,9 @@ stage store (twin: ``gpu_feature_discovery_tpu/obs/metrics.py``).
 
 Each family keeps its twin's name, type, label names and buckets, so a
 dashboard built on the twin reads the port unchanged; the help text says
-what the series means here where the twin's names PJRT or XLA. Only the
-families of layers the port has are declared: those of the fleet
-collector and its HTTP admission gate land with their module
-(tests/test_torch_obs.py pins the list of what is left out).
+what the series means here where the twin's names PJRT or XLA; the
+fleet collector's and the HTTP admission gate's keep the twin's help
+text too. Every twin family is declared (tests/test_torch_obs.py).
 
 ``utils/timing.py``'s cycle summary and ``--timings-file`` are views
 over the stage store here (``observe_stage`` / ``cycle_stages``), and
@@ -384,6 +383,209 @@ ACTUATION_CONVERGENCE_CYCLES = REGISTRY.gauge(
     "the only delay.",
 )
 
+# -- fleet aggregation service (fleet/, the fleet-collector mode) -----------
+
+FLEET_SLICES = REGISTRY.gauge(
+    "tfd_fleet_slices",
+    "Slices in the served fleet inventory: the targets file's slice "
+    "count in slices mode (re-read on a targets reload), or the merged "
+    "region/<name>/<slice> entry count under --upstream-mode=collectors "
+    "(the federation tier's pane width).",
+)
+FLEET_SLICES_STALE = REGISTRY.gauge(
+    "tfd_fleet_slices_stale",
+    "Slices whose ENTIRE leadership chain is confirmed dark in the "
+    "collector's current inventory: entries served degraded-stale with "
+    "their last-known data and a staleness age, or all-null for a "
+    "target never reached since the collector started (a typo'd or "
+    "decommissioned slice — null last_seen_unix tells the two apart). "
+    "0 on a healthy fleet.",
+)
+FLEET_POLLS = REGISTRY.counter(
+    "tfd_fleet_polls_total",
+    "Collector upstream polls (/peer/snapshot in slices mode, "
+    "/fleet/snapshot under --upstream-mode=collectors) by outcome: ok "
+    "(valid snapshot or 304), error (timeout, HTTP failure, junk body, "
+    "schema mismatch), oversize (the body hit the tier's size cap and "
+    "was never parsed — a loud anomaly now that deltas make small "
+    "bodies the norm), or skipped (the round budget ran out before "
+    "this target).",
+    labelnames=("outcome",),
+)
+FLEET_SNAPSHOT_NOT_MODIFIED = REGISTRY.counter(
+    "tfd_fleet_snapshot_not_modified_total",
+    "Collector polls answered 304 Not Modified by the upstream (slice "
+    "leader or region collector — the collector's If-None-Match "
+    "matched): a header exchange, no body, no parse. On an idle fleet "
+    "this should dominate tfd_fleet_polls_total{outcome=\"ok\"}.",
+)
+FLEET_INVENTORY_NOT_MODIFIED = REGISTRY.counter(
+    "tfd_fleet_inventory_not_modified_total",
+    "Inbound /fleet/snapshot requests THIS collector answered 304 Not "
+    "Modified (the consumer's If-None-Match matched the cached inventory "
+    "ETag) — the serving-side twin of the collector's own outbound "
+    "tfd_fleet_snapshot_not_modified_total; the peer-surface counter "
+    "(tfd_peer_snapshot_not_modified_total) never moves on a collector.",
+)
+FLEET_SCRAPE_ROUNDS = REGISTRY.counter(
+    "tfd_fleet_scrape_rounds_total",
+    "Fleet scrape rounds STARTED (one bounded concurrent pass over every "
+    "configured slice's leadership chain).",
+)
+FLEET_SCRAPE_DURATION = REGISTRY.histogram(
+    "tfd_fleet_scrape_round_duration_seconds",
+    "Wall time of each fleet scrape round, whatever its outcomes (a "
+    "round against dark slices contributes its timeouts).",
+)
+FLEET_RESTORED = REGISTRY.gauge(
+    "tfd_fleet_restored",
+    "1 while the served fleet inventory still contains entries restored "
+    "from --state-dir (a collector restart serves last-good data "
+    "immediately; each entry clears on its slice's first live poll — at "
+    "the federation tier, on its region's first live scrape), else 0.",
+)
+FLEET_REGIONS = REGISTRY.gauge(
+    "tfd_fleet_regions",
+    "Upstream REGION collectors this collector is configured to scrape "
+    "(--upstream-mode=collectors, the federation tier; the targets "
+    "file's entry count there). 0 on a slices-mode collector.",
+)
+FLEET_REGIONS_STALE = REGISTRY.gauge(
+    "tfd_fleet_regions_stale",
+    "Regions whose ENTIRE collector chain is confirmed dark in the root "
+    "collector's current inventory: the region is marked degraded in "
+    "the regions meta map and every one of its merged slice entries is "
+    "served degraded-stale with last_seen_unix preserved. 0 on a "
+    "healthy federation (or in slices mode).",
+)
+FLEET_HA_ROLE = REGISTRY.gauge(
+    "tfd_fleet_ha_role",
+    "1 while this collector derives itself the ACTIVE of its --ha-peers "
+    "group (the first reachable entry of the shared ordered list — "
+    "re-derived every round, no election protocol), 0 while standby. "
+    "Meaningful only with --ha-peers set; both replicas scrape and "
+    "serve regardless of role.",
+)
+FLEET_ETAG_MISSING = REGISTRY.counter(
+    "tfd_fleet_etag_missing_total",
+    "Upstream 200 responses that carried NO ETag header (a stripping "
+    "proxy in front of the target?): every subsequent poll of that host "
+    "refetches and reparses the full body — the 304 economy is silently "
+    "lost for it. Warned once per host in the log; this counter keeps "
+    "the regression visible on a dashboard. 0 on a healthy fleet.",
+)
+FLEET_DELTA_SERVED = REGISTRY.counter(
+    "tfd_fleet_delta_served_total",
+    "GET /fleet/snapshot?since=<generation> requests this collector "
+    "answered, by outcome: delta (an O(changed) document — only entries "
+    "whose generation advanced past the client's, plus tombstones for "
+    "dropped keys) or resync (the full body instead: the client's "
+    "generation is ahead of ours — a restart artifact — or older than "
+    "the --delta-window lineage history, or its If-None-Match does not "
+    "match that generation's recorded ETag). In-sync clients answer "
+    "from tfd_fleet_inventory_not_modified_total (a 304), not here.",
+    labelnames=("outcome",),
+)
+FLEET_DELTA_POLLS = REGISTRY.counter(
+    "tfd_fleet_delta_polls_total",
+    "Bodies this collector's delta-aware /fleet/snapshot polls (the "
+    "federation scrape and the HA mirror) received, by kind: delta "
+    "(applied onto the client-side mirror and VERIFIED against the "
+    "served ETag) or full (first sync, or a forced resync). Under "
+    "steady churn delta should dominate; persistent full bodies mean "
+    "the upstream keeps refusing the client's ?since lineage.",
+    labelnames=("kind",),
+)
+FLEET_POLL_BODY_BYTES = REGISTRY.counter(
+    "tfd_fleet_poll_body_bytes_total",
+    "Response body bytes this collector's upstream polls received, by "
+    "kind (full documents vs delta documents); 304 header exchanges add "
+    "nothing. The fleet tier's bytes-on-wire: the delta protocol's win "
+    "is this counter's delta/full ratio under churn (the bench gates "
+    "it at a 1,000-slice fleet).",
+    labelnames=("kind",),
+)
+FLEET_TARGETS_RELOAD_FAILURES = REGISTRY.counter(
+    "tfd_fleet_targets_reload_failures_total",
+    "Epoch reloads of the --targets-file that failed to parse (torn "
+    "write, partial copy, invalid YAML) while a last-good target set "
+    "existed to keep serving. The collector polls the stale roster and "
+    "warns instead of erroring the epoch; only a first load with no "
+    "prior targets is fatal.",
+)
+FLEET_FILTER_VIEWS = REGISTRY.gauge(
+    "tfd_fleet_filter_views",
+    "Rendered filtered views currently held in the bounded LRU behind "
+    "GET /fleet/snapshot?<filter> (--filter-cache-size). Each view is "
+    "one canonicalized filter's serialize-once body + strong ETag; the "
+    "unfiltered pane is the collector's own publish-seam cache and "
+    "never counts here.",
+)
+FLEET_FILTER_CACHE = REGISTRY.counter(
+    "tfd_fleet_filter_cache_total",
+    "Filtered-view cache traffic, by outcome: hit (the canonical filter "
+    "already had a rendered view — possibly revalidated against a moved "
+    "generation, which is dict work, not serialization), miss (first "
+    "sight of this filter: filter + render + insert), evict (the LRU "
+    "crossed --filter-cache-size and dropped its coldest view; steady "
+    "eviction means the cache is sized below the live filter "
+    "population and every cycle re-renders).",
+    labelnames=("outcome",),
+)
+FLEET_FILTER_RENDERS = REGISTRY.counter(
+    "tfd_fleet_filter_renders_total",
+    "Filtered-view bodies actually serialized (full bodies and delta "
+    "documents). The per-filter economy's hard gate: at most one full "
+    "render per distinct filter per generation that CHANGED its "
+    "content — an idle filter re-renders nothing, ever (the bench and "
+    "the scale harness pin this at zero across idle rounds).",
+)
+FLEET_FILTERED_NOT_MODIFIED = REGISTRY.counter(
+    "tfd_fleet_filtered_not_modified_total",
+    "Filtered /fleet/snapshot requests answered 304 Not Modified (the "
+    "consumer's If-None-Match matched its view's cached ETag): no "
+    "filtering, no serialization, no body. The filtered twin of "
+    "tfd_fleet_inventory_not_modified_total — on an idle fleet this "
+    "should dominate filtered traffic (the bench gates >= 90%).",
+)
+FLEET_QUERY_REJECTED = REGISTRY.counter(
+    "tfd_fleet_query_rejected_total",
+    "GET /fleet/snapshot queries rejected 400: unknown or duplicated "
+    "params, malformed values, a non-integer or negative ?since=, or "
+    "?watch= without ?since=. A typo'd dashboard answered 400 is "
+    "LOUD; silently serving it the full pane would defeat the delta "
+    "and filter economies invisibly. Growth here is a misconfigured "
+    "consumer to hunt down.",
+)
+FLEET_WATCHERS = REGISTRY.gauge(
+    "tfd_fleet_watchers",
+    "Long-poll watch requests currently parked on "
+    "/fleet/snapshot?since=<gen>&watch=<s> waiting for their filtered "
+    "view's generation to move. Bounded by --max-watchers (the "
+    "admission cap answers 503 + Retry-After past it); parked watchers "
+    "release their --max-inflight-requests slot, so they never starve "
+    "plain GETs.",
+)
+FLEET_WATCH = REGISTRY.counter(
+    "tfd_fleet_watch_total",
+    "Completed watch requests, by outcome: delta (the view's "
+    "generation moved and the watcher was answered the O(changed) "
+    "document — the wake-to-delta push), timeout (the watch window "
+    "expired idle; answered 304 and the client re-arms), rejected "
+    "(--max-watchers admission cap full: 503 + Retry-After, the "
+    "watcher never parked).",
+    labelnames=("outcome",),
+)
+FLEET_HA_DIVERGENCE = REGISTRY.gauge(
+    "tfd_fleet_ha_divergence",
+    "Inventory entries differing between this STANDBY's own pane and "
+    "the active's mirrored /fleet/snapshot (volatile fields excluded: "
+    "the quantized freshness stamp and restore markers). 0 on the "
+    "active and on an agreeing pair; a persistently nonzero value is a "
+    "SPLIT PANE — the two collectors see different fleets and an "
+    "operator must diagnose before trusting either.",
+)
+
 # -- introspection server (obs/server.py) -----------------------------------
 
 HTTP_ERRORS = REGISTRY.counter(
@@ -393,6 +595,24 @@ HTTP_ERRORS = REGISTRY.counter(
     "request paths collapse into endpoint=\"other\" — the label is never "
     "client-chosen.",
     labelnames=("endpoint",),
+)
+
+HTTP_INFLIGHT = REGISTRY.gauge(
+    "tfd_http_inflight",
+    "Requests the introspection server is answering right now (every "
+    "method, every endpoint). ThreadingHTTPServer spawns one handler "
+    "thread per connection with no ceiling of its own; "
+    "--max-inflight-requests caps this gauge — a parked watch releases "
+    "its slot (counted in tfd_fleet_watchers instead), so the cap "
+    "governs work-in-progress, not connections held open on purpose.",
+)
+HTTP_REJECTED = REGISTRY.counter(
+    "tfd_http_rejected_total",
+    "Requests shed 503 + Retry-After at the --max-inflight-requests "
+    "admission gate before any handler ran. Steady growth means the "
+    "consumer population outruns the cap — raise it, or point "
+    "dashboards at filtered views so each request costs a header "
+    "exchange instead of a pane.",
 )
 
 # -- label engine (lm/engine.py) --------------------------------------------

@@ -1,5 +1,6 @@
-"""HTTP introspection server: /metrics, /healthz, /readyz, /debug/labels
-and POST /probe (twin: ``gpu_feature_discovery_tpu/obs/server.py``).
+"""HTTP introspection server: /metrics, /healthz, /readyz, /debug/labels,
+POST /probe and the peer and fleet surfaces (twin:
+``gpu_feature_discovery_tpu/obs/server.py``).
 
 A stdlib ``ThreadingHTTPServer`` on daemon threads, so a wedged scrape
 never holds up the daemon's shutdown. Endpoints:
@@ -34,15 +35,27 @@ never holds up the daemon's shutdown. Endpoints:
   (peering/notify.py): 404 without a notify hook (push off), 403
   without a configured ``--peer-token``, 401 on a mismatch, 400 on an
   unparseable body, 404 for a name outside the peer set, 202 accepted.
+- ``GET /fleet/snapshot``: the fleet collector's inventory
+  (fleet/inventory.py), served only by the ``fleet-collector`` mode
+  (cmd/fleet.py; 404 on a node daemon) with the same publish-time body,
+  ETag, 304 and ``--peer-token`` gate as ``/peer/snapshot``. A request
+  without a query string is the unfiltered pane; any query string goes
+  to the collector's query surface (fleet/query.py): filters, the
+  ``?since=`` delta, ``?watch=`` long-poll parking (HEAD never parks),
+  400 on anything outside the grammar, 503 + Retry-After past
+  ``--max-watchers``.
 
 ``HEAD`` answers every GET endpoint with the same status and headers
 (Content-Length states the GET body's size) and no body. A handler that
 raises answers 500 naming the error class and counts
 ``tfd_http_errors_total{endpoint}``, whose label is clamped to the known
-endpoints. The twin's ``/fleet/snapshot`` comes with the fleet module of
-this port and answers 404 here, as on a twin node daemon; the twin's
-``--max-inflight-requests`` gate, which its node daemon does not pass,
-is not ported.
+endpoints.
+
+``--max-inflight-requests`` (the collector's flag; a node daemon passes
+0) bounds concurrent handler work: past the cap a request is answered
+503 + Retry-After at once (``tfd_http_rejected_total``;
+``tfd_http_inflight`` gauges the moment). A parked fleet watcher
+releases its slot, so watchers are bounded by ``--max-watchers`` alone.
 
 cmd/main.run binds the server for daemon epochs only (oneshot never
 serves; ``--metrics-port 0`` disables it) and closes it at epoch end,
@@ -176,6 +189,37 @@ class IntrospectionState:
             return json.loads(json.dumps(self._debug))
 
 
+# What a 503 at the --max-inflight-requests gate tells the client to wait:
+# slots turn over in milliseconds on a healthy server.
+_INFLIGHT_RETRY_AFTER_S = 1
+
+
+class _InflightGate:
+    """The --max-inflight-requests admission gate: a counted semaphore
+    that rejects instead of queueing (the handler thread exists already;
+    the gate bounds concurrent work). ``limit`` 0 = unlimited: the gauge
+    still tracks, nothing is shed."""
+
+    def __init__(self, limit: int):
+        self.limit = max(0, int(limit))
+        self._lock = threading.Lock()
+        self._count = 0
+
+    def enter(self) -> bool:
+        with self._lock:
+            if self.limit and self._count >= self.limit:
+                metrics.HTTP_REJECTED.inc()
+                return False
+            self._count += 1
+            metrics.HTTP_INFLIGHT.set(self._count)
+            return True
+
+    def leave(self) -> None:
+        with self._lock:
+            self._count = max(0, self._count - 1)
+            metrics.HTTP_INFLIGHT.set(self._count)
+
+
 def _endpoint_label(path: str) -> str:
     """Clamp a requested path to the known endpoints: a client minting
     unique paths must not mint unbounded series."""
@@ -193,6 +237,9 @@ def _make_handler(
     peer_token: str = "",
     peer_notify: Optional[Callable[[str, int, str], bool]] = None,
     notify_subscribe: Optional[Callable[[str, int, str], None]] = None,
+    fleet_snapshot: Optional[Callable[[], "tuple[bytes, str]"]] = None,
+    fleet_query: Optional[Callable[..., "tuple"]] = None,
+    inflight: Optional[_InflightGate] = None,
 ):
     class _Handler(BaseHTTPRequestHandler):
         # Content-Length is always sent, so keep-alive is safe.
@@ -213,6 +260,8 @@ def _make_handler(
             the error class (the message may carry internals and stays
             in the log) instead of tearing the connection down."""
             path = urlsplit(self.path).path
+            if not self._enter_inflight():
+                return
             try:
                 dispatch(path)
             except Exception as e:  # noqa: BLE001 - handler containment
@@ -224,6 +273,39 @@ def _make_handler(
                 except OSError:
                     # The client hung up mid-reply.
                     self.close_connection = True
+            finally:
+                self._release_inflight()
+
+        def _enter_inflight(self) -> bool:
+            """Take one --max-inflight-requests slot, or answer the 503
+            shed; True = proceed. The release latch is reset per request:
+            a handler instance serves every request of a keep-alive
+            connection."""
+            self._inflight_held = False
+            if inflight is None:
+                return True
+            if not inflight.enter():
+                self._reply(503, b"server busy: inflight request cap reached\n",
+                            retry_after=_INFLIGHT_RETRY_AFTER_S)
+                return False
+            self._inflight_held = True
+            return True
+
+        def _release_inflight(self) -> None:
+            """Release the slot exactly once: at the request's end, or
+            earlier through the fleet watch hook when a watcher parks."""
+            if getattr(self, "_inflight_held", False):
+                self._inflight_held = False
+                inflight.leave()
+
+        def _reply_snapshot(self, body: bytes, etag: Optional[str], counter) -> None:
+            """A publish-time body and its strong ETag, or a 304 on a
+            matching If-None-Match counted in the surface's own series."""
+            if etag and self.headers.get("If-None-Match") == etag:
+                counter.inc()
+                self._reply(304, b"", "application/json", etag=etag)
+            else:
+                self._reply(200, body, "application/json", etag=etag)
 
         def _dispatch(self, path: str) -> None:
             if path == "/metrics":
@@ -245,12 +327,39 @@ def _make_handler(
                     return
                 # The body and ETag were rendered at publish time; this
                 # handler serializes nothing.
-                body, etag = peer_snapshot()
-                if etag and self.headers.get("If-None-Match") == etag:
-                    metrics.PEER_SNAPSHOT_NOT_MODIFIED.inc()
-                    self._reply(304, b"", "application/json", etag=etag)
+                self._reply_snapshot(
+                    *peer_snapshot(), counter=metrics.PEER_SNAPSHOT_NOT_MODIFIED
+                )
+            elif path == "/fleet/snapshot" and fleet_snapshot is not None:
+                if not self._peer_auth_ok():
+                    return
+                self._observe_notify_subscription()
+                raw_query = urlsplit(self.path).query
+                if raw_query and fleet_query is not None:
+                    # The query surface owns parsing, the view economy,
+                    # delta-vs-resync and parking; HEAD never parks.
+                    status, body, etag, retry_after, filtered = fleet_query(
+                        raw_query,
+                        self.headers.get("If-None-Match"),
+                        self.command != "HEAD",
+                        self._release_inflight,
+                    )
+                    if status == 200:
+                        self._reply_snapshot(
+                            body,
+                            etag,
+                            counter=(
+                                metrics.FLEET_FILTERED_NOT_MODIFIED
+                                if filtered
+                                else metrics.FLEET_INVENTORY_NOT_MODIFIED
+                            ),
+                        )
+                    else:
+                        self._reply(status, body, retry_after=retry_after)
                 else:
-                    self._reply(200, body, "application/json", etag=etag)
+                    self._reply_snapshot(
+                        *fleet_snapshot(), counter=metrics.FLEET_INVENTORY_NOT_MODIFIED
+                    )
             else:
                 self._reply(404, b"not found\n")
 
@@ -404,13 +513,15 @@ def _make_handler(
 
         def _reply(
             self, code: int, body: bytes, ctype: str = "text/plain",
-            etag: Optional[str] = None,
+            etag: Optional[str] = None, retry_after: Optional[int] = None,
         ) -> None:
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
             if etag:
                 self.send_header("ETag", etag)
+            if retry_after is not None:
+                self.send_header("Retry-After", str(int(retry_after)))
             self.end_headers()
             if self.command != "HEAD":
                 self.wfile.write(body)
@@ -471,6 +582,9 @@ class IntrospectionServer:
         peer_token: str = "",
         peer_notify: Optional[Callable[[str, int, str], bool]] = None,
         notify_subscribe: Optional[Callable[[str, int, str], None]] = None,
+        fleet_snapshot: Optional[Callable[[], "tuple[bytes, str]"]] = None,
+        fleet_query: Optional[Callable[..., "tuple"]] = None,
+        max_inflight: int = 0,
     ):
         self._httpd = _TrackingHTTPServer(
             (addr, port),
@@ -485,6 +599,9 @@ class IntrospectionServer:
                 peer_token=peer_token,
                 peer_notify=peer_notify,
                 notify_subscribe=notify_subscribe,
+                fleet_snapshot=fleet_snapshot,
+                fleet_query=fleet_query,
+                inflight=_InflightGate(max_inflight),
             ),
         )
         self._httpd.daemon_threads = True

@@ -52,6 +52,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gpu_feature_discovery_tpu_torch.native import nvml
 from gpu_feature_discovery_tpu_torch.ops import device_timing
 from gpu_feature_discovery_tpu_torch.ops.collectives import (
     DataParallelGrad,
@@ -762,6 +763,16 @@ def _measure_node_health_wall(devices: list, size: int, depth: int, iters: int) 
     }
 
 
+def device_uuids(devices) -> list:
+    """Each device's UUID in ``nvml.normalize_uuid``'s spelling; None for
+    a CPU device."""
+    return [
+        nvml.normalize_uuid(torch.cuda.get_device_properties(d.index).uuid)
+        if d.type == "cuda" else None
+        for d in devices
+    ]
+
+
 def measure_node_health(
     size: Optional[int] = None,
     depth: Optional[int] = None,
@@ -771,6 +782,7 @@ def measure_node_health(
     per_chip: bool = False,
     sick_chips=frozenset(),
     slow_chips=frozenset(),
+    inventory_uuids=(),
 ) -> dict:
     """Burn in EVERY local device and aggregate: a node is healthy only if
     all of its devices are, and the published rate is the worst device's.
@@ -786,6 +798,12 @@ def measure_node_health(
     failed all-reduce check forces ``ici_ok`` False. ``size`` and
     ``depth`` default by platform (2048x4 on CUDA, 512x8 on the CPU)
     unless BURNIN_GEOMETRY_ENV overrides them.
+
+    Each ``per_chip`` entry carries its device's ``uuid`` (None on the
+    CPU), which joins it to the inventory's NVML index. ``inventory_uuids``
+    lists the inventory's GPU UUIDs in NVML's order: when it has any, the
+    fault indices name NVML's GPUs, as the labels do, and a GPU that no
+    probed device joins cannot be hit.
 
     The report is plain JSON data (the broker worker ships it over a
     pipe). Its ``phases`` carry the ``hbm_stream_sum`` launches of this
@@ -818,7 +836,24 @@ def measure_node_health(
         )
     else:
         report = _measure_node_health_wall(devices, size=size, depth=depth, iters=iters)
+    for entry, uuid in zip(report["per_chip"], device_uuids(devices)):
+        entry["uuid"] = uuid
     if per_chip:
+        where = nvml.inventory_positions(
+            inventory_uuids, [e["uuid"] for e in report["per_chip"]]
+        )
+        if where is not None:
+            unlisted = sorted(
+                int(i) for i in set(sick_chips) | set(slow_chips) if int(i) not in where
+            )
+            if unlisted:
+                log.warning(
+                    "injected chip fault index(es) %s name GPUs that no probed "
+                    "device joins; the shot was consumed but cannot be enacted",
+                    unlisted,
+                )
+            sick_chips = frozenset(where[int(i)] for i in sick_chips if int(i) in where)
+            slow_chips = frozenset(where[int(i)] for i in slow_chips if int(i) in where)
         out_of_range = sorted(
             int(i)
             for i in set(sick_chips) | set(slow_chips)

@@ -65,6 +65,12 @@ class PeerSnapshotError(ValueError):
     a failed poll, exactly like not answering."""
 
 
+class OversizeBodyError(PeerSnapshotError):
+    """A body hit the poller's read sentinel (max_bytes + 1): over the
+    tier's size cap and never parsed; its own poll outcome, since under
+    deltas small bodies are the norm."""
+
+
 def strip_snapshot_labels(labels: Dict[str, str]) -> Dict[str, str]:
     """The snapshot view of a written label set: status markers out (they
     describe the cycle that wrote them), the slice coordination family

@@ -53,6 +53,7 @@ class CudaChip(Chip):
         nvml_device: Optional[nvml.DeviceInfo] = None,
     ):
         self._name = name
+        self._uuid = nvml_device.uuid if nvml_device else ""
         self._memory_mb = memory_mb
         self._generation = tuple(generation)
         self._mig_capable = bool(nvml_device and nvml_device.mig_capable)
@@ -84,6 +85,9 @@ class CudaChip(Chip):
 
     def get_generation(self) -> Tuple[int, int]:
         return self._generation
+
+    def get_uuid(self) -> str:
+        return self._uuid
 
 
 def product_name(device_name: str) -> str:

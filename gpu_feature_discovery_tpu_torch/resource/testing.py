@@ -20,6 +20,7 @@
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from collections import Counter, defaultdict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -205,7 +206,8 @@ class FakeGpu:
     (GetPciInfo answers NOT_SUPPORTED, as on some virtualised hosts);
     ``mig_mode`` None = not MIG-capable (GetMigMode answers
     NOT_SUPPORTED); ``mig`` lists the populated MIG slots' profiles, None
-    for an empty slot."""
+    for an empty slot. ``uuid`` "" = FakeNvml gives the GPU
+    ``fake_uuid`` of its position."""
 
     name: str = H100_NAME
     memory_total_bytes: int = H100_MEMORY_BYTES
@@ -213,6 +215,13 @@ class FakeGpu:
     compute_capability: Tuple[int, int] = (9, 0)
     mig_mode: Optional[int] = 0
     mig: Sequence[Optional[str]] = ()
+    uuid: str = ""
+
+
+def fake_uuid(index: int) -> str:
+    """The deterministic UUID of a FakeNvml's GPU ``index``, in NVML's
+    spelling."""
+    return f"GPU-{index:08x}-7e1d-4c3a-9b5f-{0xfa4e0000 + index:012x}"
 
 
 class _Entry:
@@ -256,7 +265,8 @@ class FakeNvml:
         cuda_driver_version: int = H100_CUDA_DRIVER_VERSION,
         fail: Optional[Dict[str, int]] = None,
     ):
-        self.gpus = list(gpus)
+        self.gpus = [g if g.uuid else dataclasses.replace(g, uuid=fake_uuid(i))
+                     for i, g in enumerate(gpus)]
         self.driver_version = driver_version
         self.cuda_driver_version = cuda_driver_version
         self.fail: Dict[str, int] = dict(fail or {})
@@ -307,6 +317,12 @@ class FakeNvml:
         if gpu is None:
             return 2
         return _put_string(buf, length, gpu.name)
+
+    def _nvmlDeviceGetUUID(self, handle, buf, length) -> int:
+        gpu = self._full_gpu(handle)
+        if gpu is None:
+            return 2
+        return _put_string(buf, length, gpu.uuid)
 
     def _nvmlDeviceGetMemoryInfo(self, handle, ptr) -> int:
         gpu = self._full_gpu(handle)

@@ -43,6 +43,11 @@ class Chip(ABC):
     @abstractmethod
     def get_generation(self) -> Tuple[int, int]: ...
 
+    def get_uuid(self) -> str:
+        """The device's UUID (NVML's ``GPU-<hex>``); "" where the backend
+        has none (mocks, partitions)."""
+        return ""
+
 
 class Manager(ABC):
     """A device backend."""

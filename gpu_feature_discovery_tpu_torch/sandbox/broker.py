@@ -255,9 +255,9 @@ class _HealthProbe:
         lock) still runs.
 
         ``req`` carries the parent-consumed per-chip options: ``per_chip``
-        (--chip-probes) and the ``chip.<i>.sick`` / ``chip.<i>.slow``
-        indices, bound into the probe THREAD at its start; and ``wait_s``,
-        the bounded wait."""
+        (--chip-probes), the ``chip.<i>.sick`` / ``chip.<i>.slow``
+        indices and the ``inventory_uuids`` they index, bound into the
+        probe THREAD at its start; and ``wait_s``, the bounded wait."""
         req = req or {}
         if self._thread is None:
             from gpu_feature_discovery_tpu_torch.lm.health import _acquire_devices
@@ -272,6 +272,8 @@ class _HealthProbe:
                 opts["sick_chips"] = frozenset(int(i) for i in req["sick_chips"])
             if req.get("slow_chips"):
                 opts["slow_chips"] = frozenset(int(i) for i in req["slow_chips"])
+            if req.get("inventory_uuids"):
+                opts["inventory_uuids"] = [str(u) for u in req["inventory_uuids"]]
             self._thread = threading.Thread(
                 target=self._run, args=(devices, opts),
                 name="tfd-broker-health", daemon=True,
@@ -871,16 +873,20 @@ class BrokerClient:
         doc = self.request("snapshot")
         return DeviceSnapshot.from_dict(doc.get("snapshot") or {})
 
-    def health(self, per_chip: bool = True, sick_chips=(), slow_chips=()) -> dict:
+    def health(self, per_chip: bool = True, sick_chips=(), slow_chips=(),
+               inventory_uuids=()) -> dict:
         """The burn-in probe, run in the worker; its outcome document
         (status ok | warming | unacquirable | probe-failed). The chip fault
         indices are consumed by the CALLER (the parent owns the fault
-        registry) and ride the request."""
+        registry) and ride the request, with the inventory's GPU UUIDs
+        that say which device each index names."""
         extra: dict = {"per_chip": bool(per_chip), "wait_s": HEALTH_WAIT_S}
         if sick_chips:
             extra["sick_chips"] = [int(i) for i in sick_chips]
         if slow_chips:
             extra["slow_chips"] = [int(i) for i in slow_chips]
+        if inventory_uuids:
+            extra["inventory_uuids"] = [str(u) for u in inventory_uuids]
         return self.request("health", extra=extra)
 
     def ping(self) -> bool:

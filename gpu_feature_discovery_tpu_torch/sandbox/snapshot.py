@@ -68,6 +68,7 @@ class ChipSnapshot:
     slice_capable: bool
     slice_enabled: bool
     slices: List[SliceSnapshot] = field(default_factory=list)
+    uuid: str = ""
 
     def to_dict(self) -> Dict[str, object]:
         return {
@@ -77,6 +78,7 @@ class ChipSnapshot:
             "slice_capable": self.slice_capable,
             "slice_enabled": self.slice_enabled,
             "slices": [s.to_dict() for s in self.slices],
+            "uuid": self.uuid,
         }
 
     @staticmethod
@@ -88,6 +90,7 @@ class ChipSnapshot:
             slice_capable=bool(d["slice_capable"]),
             slice_enabled=bool(d["slice_enabled"]),
             slices=[SliceSnapshot.from_dict(s) for s in d.get("slices") or []],
+            uuid=str(d.get("uuid") or ""),
         )
 
 
@@ -157,6 +160,7 @@ def _snapshot_chip(chip: Chip) -> ChipSnapshot:
         slice_capable=chip.is_slice_capable(),
         slice_enabled=slice_enabled,
         slices=slices,
+        uuid=chip.get_uuid(),
     )
 
 
@@ -223,6 +227,9 @@ class SnapshotChip(Chip):
 
     def get_generation(self) -> Tuple[int, int]:
         return tuple(self._snap.generation)
+
+    def get_uuid(self) -> str:
+        return self._snap.uuid
 
 
 class SnapshotManager(Manager):

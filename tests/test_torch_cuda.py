@@ -123,6 +123,33 @@ def test_node_probe_on_card_matches_cpu_report_shape(dev):
     assert got["hbm_gbps"] is not None
 
 
+def test_probe_entries_join_nvml_by_uuid_on_card(dev):
+    """Each probed device's UUID (torch's bare hex) is one of NVML's
+    GPUs (``GPU-`` prefixed), and the label index the health labeler
+    derives from it is that GPU's NVML index."""
+    from gpu_feature_discovery_tpu_torch.lm.health import _label_indices
+    from gpu_feature_discovery_tpu_torch.native import nvml
+    from gpu_feature_discovery_tpu_torch.resource.cuda_backend import nvml_chip
+
+    inv = nvml.read_inventory()
+    report = healthcheck.measure_node_health(
+        size=128, depth=2, iters=1, devices=[dev], per_chip=True,
+        inventory_uuids=[d.uuid for d in inv.devices])
+    (entry,) = report["per_chip"]
+    nvml_uuids = [nvml.normalize_uuid(d.uuid) for d in inv.devices]
+    assert entry["uuid"] in nvml_uuids
+
+    class _Inventory:
+        def get_chips(self):
+            return [nvml_chip(d) for d in inv.devices]
+
+    indices = _label_indices(_Inventory(), report["per_chip"])
+    if len(inv.devices) == 1:
+        assert indices == [0]
+    else:  # CUDA lists one device of several: no per-device label
+        assert indices is None
+
+
 def test_sick_chip_on_card(dev):
     verdicts, allreduce_ok = healthcheck.sharded_chip_verdicts(
         [dev], 128, 2, sick_chips={0}

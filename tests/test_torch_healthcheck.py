@@ -91,7 +91,10 @@ def test_measure_node_health_report_matches_twin():
     for key in ("healthy", "chips", "chips_allreduce_ok", "timing", "hbm_gbps",
                 "ici_ok", "ici_gbps"):
         assert got[key] == want[key], key
-    assert set(got["per_chip"][0]) == set(want["per_chip"][0])
+    # The port's entries also carry the device's UUID, which joins them to
+    # NVML's index (None for a CPU device).
+    assert set(got["per_chip"][0]) == set(want["per_chip"][0]) | {"uuid"}
+    assert got["per_chip"][0]["uuid"] is None
     assert got["healthy"] is True
 
 

@@ -2,13 +2,15 @@
 ``POST /peer/notify`` handler of obs/server.py and the coordinator's
 dirty/sweep targeting) against their JAX twin, on the CPU.
 
-Every scenario of the twin's tests/test_notify.py that does not need the
-fleet collector runs here through BOTH packages on the same inputs: the
-same publishes to the same recording parent, the same requests to a
-twin and a port server, the same clock steps through a twin and a port
-coordinator. The outcomes (delivered documents, status codes and bodies,
-counter deltas, target sets) must be equal, and equal to what the twin's
-own test expects. Nothing here is a float; every comparison is exact.
+Every scenario of the twin's tests/test_notify.py runs here through BOTH
+packages on the same inputs: the same publishes to the same recording
+parent, the same requests to a twin and a port server, the same clock
+steps through a twin and a port coordinator, and (the three collector
+scenarios at the end) through a twin and a port fleet collector in
+lockstep (tests/torch_fleet_pair.py). The outcomes (delivered documents,
+status codes and bodies, counter deltas, target sets) must be equal, and
+equal to what the twin's own test expects. Nothing here is a float;
+every comparison is exact.
 """
 
 import http.server
@@ -489,3 +491,97 @@ def test_delta_tracker_membership_scopes_match_the_twin():
                     ("peer_delta", "['a']"), None, ("peer_delta", "[0]"), None]
     assert events.REASON_PEER_DELTA == twin_events.REASON_PEER_DELTA
     assert events.REASON_PEER_NOTIFY == twin_events.REASON_PEER_NOTIFY
+
+
+# ---------------------------------------------------------------------------
+# the fleet collector's targeting (the fleet tier of push-on-delta)
+# ---------------------------------------------------------------------------
+
+def test_collector_round_targets_dirty_and_sweep():
+    """The fleet tier mirrors the peer tier's targeting rule over target
+    NAMES (regions/slices), with the same cold-start sweep, on both
+    collectors in lockstep."""
+    from torch_fleet_pair import fleet
+
+    now = [0.0]
+    targets = [
+        fleet.SliceTarget(name=f"s{i}", hosts=(f"127.0.0.1:{9000 + i}",))
+        for i in range(3)
+    ]
+    collector = fleet.FleetCollector(
+        targets,
+        push_notify=True,
+        sweep_interval=100.0,
+        clock=lambda: now[0],
+    )
+    try:
+        assert collector._round_targets() == ["s0", "s1", "s2"]  # cold sweep
+        for state in collector._slices.values():
+            for hstate in state.hosts:
+                hstate.ever_reached = True
+        now[0] = 1.0
+        assert collector._round_targets() == []
+        assert collector.mark_dirty("nope") is False
+        assert collector.mark_dirty("s1") is True
+        assert collector._round_targets() == ["s1"]
+        assert collector._round_targets() == []
+        collector._slices["s2"].hosts[0].consecutive_failures = 1
+        assert collector._round_targets() == ["s2"]
+        now[0] = 101.0
+        assert collector._round_targets() == ["s0", "s1", "s2"]
+    finally:
+        collector.close()
+
+
+def test_collector_chain_tail_is_not_a_perpetual_suspect():
+    """The chain walk stops at the first leader-bearing host, so members
+    past the leader are never attempted: they must not count as suspects
+    (that would re-poll every multi-host slice every round); only a
+    target with NO host ever reached is polled before its first sweep.
+    Both collectors in lockstep."""
+    from torch_fleet_pair import fleet
+
+    now = [0.0]
+    targets = [
+        fleet.SliceTarget(
+            name="multi",
+            hosts=("127.0.0.1:9100", "127.0.0.1:9101", "127.0.0.1:9102"),
+        ),
+        fleet.SliceTarget(name="fresh", hosts=("127.0.0.1:9103",)),
+    ]
+    collector = fleet.FleetCollector(
+        targets,
+        push_notify=True,
+        sweep_interval=100.0,
+        clock=lambda: now[0],
+    )
+    try:
+        assert collector._round_targets() == ["multi", "fresh"]  # cold
+        collector._slices["multi"].hosts[0].ever_reached = True
+        now[0] = 1.0
+        assert collector._round_targets() == ["fresh"]
+        collector._slices["fresh"].hosts[0].ever_reached = True
+        assert collector._round_targets() == []  # idle at last
+        # A failure streak anywhere in the chain still suspects the
+        # target.
+        collector._slices["multi"].hosts[1].consecutive_failures = 1
+        assert collector._round_targets() == ["multi"]
+    finally:
+        collector.close()
+
+
+def test_collector_pull_mode_polls_everyone():
+    from torch_fleet_pair import fleet
+
+    targets = [
+        fleet.SliceTarget(name=f"s{i}", hosts=(f"127.0.0.1:{9000 + i}",))
+        for i in range(2)
+    ]
+    collector = fleet.FleetCollector(targets)
+    try:
+        assert collector.push_notify is False
+        assert collector.notify_sender is None
+        for _ in range(3):
+            assert collector._round_targets() == ["s0", "s1"]
+    finally:
+        collector.close()

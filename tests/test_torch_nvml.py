@@ -8,6 +8,7 @@ against the twin's version grammar; the NVML path must never import
 torch."""
 
 import ctypes
+import json
 import re
 import subprocess
 import sys
@@ -173,14 +174,16 @@ def test_nvml_manager_needs_a_gpu():
 TORCH_TOTAL_MIB = 81079  # what torch's total_memory reads on the H100
 
 
-def _cuda_devices(fake):
+def _cuda_devices(fake, order=None):
     """The devices CUDA enumerates on a FakeNvml's node: each GPU outside
     MIG mode whole, fastest first (the reverse of NVML's PCI order here),
     and of the MIG devices only the first one, named after its profile
     and on its parent's bus (a CUDA process sees a single MIG device,
-    per NVIDIA's MIG user guide)."""
+    per NVIDIA's MIG user guide). ``order`` lists the NVML indices CUDA
+    lists instead, as ``CUDA_VISIBLE_DEVICES`` would."""
     devices = []
-    for gpu in reversed(fake.gpus):
+    gpus = reversed(fake.gpus) if order is None else [fake.gpus[i] for i in order]
+    for gpu in gpus:
         if gpu.mig_mode != nvml.NVML_DEVICE_MIG_ENABLE:
             devices.append((gpu.name, TORCH_TOTAL_MIB, gpu))
     mig = [(gpu, p) for gpu in fake.gpus
@@ -196,8 +199,8 @@ def fake_torch_cuda(monkeypatch):
     """torch.cuda over a FakeNvml's node, as ``_cuda_devices`` lists it."""
     import torch
 
-    def install(fake):
-        devices = _cuda_devices(fake)
+    def install(fake, order=None):
+        devices = _cuda_devices(fake, order)
 
         def props(i):
             name, memory_mib, gpu = devices[i]
@@ -208,6 +211,8 @@ def fake_torch_cuda(monkeypatch):
                 minor=gpu.compute_capability[1], total_memory=memory_mib * 2**20,
                 pci_domain_id=int(domain, 16), pci_bus_id=int(bus, 16),
                 pci_device_id=int(devfn.split(".")[0], 16),
+                # torch's _CUuuid prints the hex without NVML's prefix.
+                uuid=gpu.uuid[len("GPU-"):].upper(),
             )
 
         monkeypatch.setattr(torch.cuda, "is_available", lambda: bool(devices))
@@ -370,28 +375,46 @@ class _FakeBrokerClient:
     def snapshot(self):
         return DeviceSnapshot.from_manager(self._manager)
 
-    def health(self, per_chip=True, sick_chips=(), slow_chips=()):
+    def health(self, per_chip=True, sick_chips=(), slow_chips=(), inventory_uuids=()):
         from gpu_feature_discovery_tpu_torch.ops.healthcheck import measure_node_health
 
-        report = measure_node_health(devices=_cuda_listed_devices(), per_chip=per_chip)
-        return {"status": "ok", "report": report, "probe_ms": 1.0}
+        report = measure_node_health(
+            devices=_cuda_listed_devices(), per_chip=per_chip, sick_chips=sick_chips,
+            slow_chips=slow_chips, inventory_uuids=inventory_uuids)
+        # The report crosses the worker's pipe as JSON.
+        return json.loads(json.dumps(
+            {"status": "ok", "report": report, "probe_ms": 1.0}))
 
     def kill_child(self):
         pass
 
 
-def _health_cycle(manager, oneshot, monkeypatch):
+def _listed_uuids(devices):
+    """The UUIDs of the devices CUDA lists, for their CPU stand-ins."""
+    import torch
+
+    return [nvml.normalize_uuid(torch.cuda.get_device_properties(i).uuid)
+            for i in range(len(devices))]
+
+
+def _health_cycle(manager, oneshot, monkeypatch, cycles=1):
+    """The labels of ``cycles`` label cycles, each of them probing."""
     from gpu_feature_discovery_tpu_torch.lm import health
+    from gpu_feature_discovery_tpu_torch.ops import healthcheck
 
     monkeypatch.setattr(health, "_acquire_devices", _cuda_listed_devices)
+    monkeypatch.setattr(healthcheck, "device_uuids", _listed_uuids)
     monkeypatch.setenv("TFD_BURNIN_GEOMETRY", "64x1")
     health.reset_burnin_schedule()
     tfd_logging.reset_warn_once()
     config = new_config(cli_values={"with-burnin": "true", "oneshot": oneshot,
+                                    "burnin-interval": "1",
                                     "machine-type-file": ""}, environ={})
     try:
-        return dict(LabelEngine(parallel=False).generate(
-            new_label_sources(manager, config)))
+        engine = LabelEngine(parallel=False)
+        for _ in range(cycles):
+            labels = dict(engine.generate(new_label_sources(manager, config)))
+        return labels
     finally:
         health.reset_burnin_schedule()
         tfd_logging.reset_warn_once()
@@ -434,3 +457,155 @@ def test_health_labels_never_contradict_gpu_count_under_mig(
             f"MIG is enabled on this node: the probe measures the {len(listed)} "
             "device(s) CUDA lists, not the node's GPUs; publishing no per-device "
             "health labels"]
+
+
+# ---------------------------------------------------------------------------
+# The per-device labels are keyed by NVML's index: the probe's devices
+# are CUDA's, joined to the inventory by UUID. CUDA may list the GPUs in
+# another order (CUDA_VISIBLE_DEVICES=1,0, CUDA_DEVICE_ORDER) or only some
+# of them (CUDA_VISIBLE_DEVICES=1).
+# ---------------------------------------------------------------------------
+
+def test_uuid_normalizer_joins_torchs_and_nvmls_spellings():
+    nvml_form = "GPU-2B7F0C5A-91D3-4E8F-A2C1-6D0E9F3B4A57"
+    torch_form = "2b7f0c5a-91d3-4e8f-a2c1-6d0e9f3b4a57"  # str(_CUuuid)
+    assert nvml.normalize_uuid(nvml_form) == nvml.normalize_uuid(torch_form) == torch_form
+    assert nvml.normalize_uuid(f"  {torch_form.upper()}\n") == torch_form
+    assert nvml.normalize_uuid(None) == nvml.normalize_uuid("") == ""
+    assert nvml.inventory_positions([nvml_form, "GPU-00"], [None, torch_form]) == {0: 1}
+    assert nvml.inventory_positions(["", ""], [torch_form]) is None
+
+
+def test_fake_nvml_gives_every_gpu_a_deterministic_uuid(fake_torch_cuda):
+    uuids = [d.uuid for d in nvml.read_inventory(fake_nvml("none")).devices]
+    assert uuids == [d.uuid for d in nvml.read_inventory(fake_nvml("none")).devices]
+    assert len(set(uuids)) == 2 and all(u.startswith("GPU-") for u in uuids)
+    fake_torch_cuda(fake_nvml("none"))
+    cuda = CudaManager(nvml_lib=fake_nvml("none"))
+    assert DeviceSnapshot.from_manager(_inited(cuda)).to_dict()["chips"][1]["uuid"] == uuids[1]
+
+
+def _inited(manager):
+    manager.init()
+    return manager
+
+
+def _fault_cycle(layout_gpus, order, spec, path, fake_torch_cuda, monkeypatch, caplog,
+                 cycles=1):
+    """The labels of ``cycles`` probing cycles on a FakeNvml node whose
+    CUDA lists ``order``, under the fault ``spec``, and each probe's
+    report as the labeler received it."""
+    from gpu_feature_discovery_tpu_torch.lm import health
+    from gpu_feature_discovery_tpu_torch.utils import faults
+
+    reports = []
+    real = health._labels_from_probe
+
+    def spy(sched, manager, config, report, error, probe_ms):
+        reports.append((json.loads(json.dumps(report)), probe_ms))
+        return real(sched, manager, config, report, error, probe_ms)
+
+    monkeypatch.setattr(health, "_labels_from_probe", spy)
+    fake = FakeNvml(layout_gpus)
+    fake_torch_cuda(fake, order)
+    cuda = _inited(CudaManager(nvml_lib=fake))
+    manager = cuda if path == "in-process" else BrokerManager(_FakeBrokerClient(cuda))
+    faults.reset()
+    faults.load_fault_spec(spec)
+    try:
+        with caplog.at_level("WARNING", logger="tfd.lm"):
+            labels = _health_cycle(manager, oneshot=path == "in-process",
+                                   monkeypatch=monkeypatch, cycles=cycles)
+    finally:
+        faults.reset()
+    return labels, reports, [nvml.normalize_uuid(g.uuid) for g in fake.gpus]
+
+
+def _unhealthy_uuids(report):
+    return [e["uuid"] for e in report["per_chip"] if not e["healthy"]]
+
+
+def _h100s(n):
+    return [FakeGpu(bus_id=f"00000000:{0x19 + 0x20 * i:02X}:00.0") for i in range(n)]
+
+
+@pytest.mark.parametrize("path", ["in-process", "broker"])
+def test_permuted_cuda_order_keys_the_labels_by_nvml_index(
+        path, fake_torch_cuda, monkeypatch, caplog):
+    """CUDA lists NVML's GPUs as [1, 0] and NVML GPU 1 is sick: the label
+    and the fault site both name NVML's 1, the GPU CUDA calls 0."""
+    labels, [(report, _)], uuids = _fault_cycle(
+        _h100s(2), [1, 0], "chip.1.sick:fail:1", path, fake_torch_cuda, monkeypatch, caplog)
+    assert [e["uuid"] for e in report["per_chip"]] == [uuids[1], uuids[0]]
+    assert _unhealthy_uuids(report) == [uuids[1]]
+    assert labels["nvidia.com/gpu.count"] == "2"
+    assert labels["nvidia.com/gpu.chip.1.ok"] == "false"
+    assert labels["nvidia.com/gpu.chip.0.ok"] == "true"
+    assert (labels["nvidia.com/gpu.chips.healthy"], labels["nvidia.com/gpu.chips.sick"]) == ("1", "1")
+    assert labels["nvidia.com/gpu.health.ok"] == "false"
+
+
+@pytest.mark.parametrize("path", ["in-process", "broker"])
+def test_permuted_cuda_order_names_the_straggler_by_nvml_index(
+        path, fake_torch_cuda, monkeypatch, caplog):
+    """Three GPUs listed [1, 0, 2], NVML GPU 1 slow on two probes in a
+    row: ``straggler-chip`` names 1 (CUDA's 0)."""
+    labels, reports, uuids = _fault_cycle(
+        _h100s(3), [1, 0, 2], "chip.1.slow:fail:2", path, fake_torch_cuda, monkeypatch,
+        caplog, cycles=2)
+    for report, _ in reports:
+        slowest = min(report["per_chip"], key=lambda e: e["tflops_best"])
+        assert slowest["uuid"] == uuids[1] == report["per_chip"][0]["uuid"]
+    assert labels["nvidia.com/gpu.straggler-chip"] == "1"
+    assert all(labels[f"nvidia.com/gpu.chip.{i}.ok"] == "true" for i in range(3))
+
+
+@pytest.mark.parametrize("path", ["in-process", "broker"])
+def test_cuda_subset_publishes_no_per_device_labels(
+        path, fake_torch_cuda, monkeypatch, caplog):
+    """CUDA lists only NVML GPU 1 of two (CUDA_VISIBLE_DEVICES=1): no
+    per-device label, one warning, the node's health labels kept; the
+    fault on NVML GPU 1 still reaches the one device CUDA lists."""
+    labels, [(report, _)], uuids = _fault_cycle(
+        _h100s(2), [1], "chip.1.sick:fail:1", path, fake_torch_cuda, monkeypatch, caplog)
+    assert _unhealthy_uuids(report) == [uuids[1]]
+    assert labels["nvidia.com/gpu.count"] == "2"
+    assert not [k for k in labels if PER_DEVICE_HEALTH.match(k)]
+    assert labels["nvidia.com/gpu.health.ok"] == "false"
+    assert labels["nvidia.com/gpu.health.timing"] == "wall-clock"
+    warned = [r.getMessage() for r in caplog.records if "one to one by UUID" in r.message]
+    assert warned == [
+        "CUDA lists 1 device(s) that are not the node's 2 GPU(s) one to one by "
+        "UUID; publishing no per-device health labels"]
+
+
+@pytest.mark.parametrize("path", ["in-process", "broker"])
+def test_identity_cuda_order_gives_the_twins_labels(
+        path, fake_torch_cuda, monkeypatch, caplog):
+    """CUDA and NVML agree on the order: the health labels are the twin's
+    byte for byte, on the twin's own inputs (its labeler over the same
+    probe report, its keys under the one key rule)."""
+    from gpu_feature_discovery_tpu.lm import health as twin_health
+
+    labels, [(report, probe_ms)], uuids = _fault_cycle(
+        _h100s(2), [0, 1], "chip.1.sick:fail:1", path, fake_torch_cuda, monkeypatch, caplog)
+    assert _unhealthy_uuids(report) == [uuids[1]]
+    port_health = {k: v for k, v in labels.items() if k.startswith(
+        ("nvidia.com/gpu.health.", "nvidia.com/gpu.chip", "nvidia.com/gpu.straggler"))}
+    twin_config = _twin_burnin_config()
+    twin_health.reset_burnin_schedule()
+    try:
+        twin_labels = twin_health._labels_from_probe(
+            twin_health._BurninSchedule(), None, twin_config, report, None, probe_ms)
+    finally:
+        twin_health.reset_burnin_schedule()
+    assert port_health == {k.replace("google.com/tpu.", "nvidia.com/gpu.", 1): v
+                           for k, v in dict(twin_labels).items()}
+    assert labels["nvidia.com/gpu.chip.1.ok"] == "false"
+
+
+def _twin_burnin_config():
+    from gpu_feature_discovery_tpu.config.flags import new_config as twin_new_config
+
+    return twin_new_config(cli_values={"with-burnin": "true", "oneshot": "true",
+                                       "machine-type-file": ""}, environ={})

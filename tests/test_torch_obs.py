@@ -8,8 +8,8 @@ state and the server's answers.
   the same bytes, and both pass tests/promtool_lite.py. The float sums
   are the same additions in the same order, so no tolerance is needed.
 - Families: every port family is the twin's (name, type, label names,
-  buckets) and is named in the twin's docs/observability.md; the twin
-  families the port leaves out are pinned by name.
+  buckets) and is named in the twin's docs/observability.md; no twin
+  family is left out.
 - State: one timeline on a fake clock gives the same healthy(),
   ready() and debug_snapshot() on both.
 - Server: one request table against a twin and a port server over
@@ -39,23 +39,9 @@ from pathlib import Path
 
 DOCS = Path(__file__).resolve().parent.parent / "docs" / "observability.md"
 
-# Twin families whose layers the port does not have yet; each lands with
-# its module (ROADMAP.md queue 1).
-LEFT_OUT = {
-    # the fleet collector (fleet/) and its --max-inflight-requests gate
-    "tfd_fleet_slices", "tfd_fleet_slices_stale", "tfd_fleet_polls_total",
-    "tfd_fleet_snapshot_not_modified_total", "tfd_fleet_inventory_not_modified_total",
-    "tfd_fleet_scrape_rounds_total", "tfd_fleet_scrape_round_duration_seconds",
-    "tfd_fleet_restored", "tfd_fleet_regions", "tfd_fleet_regions_stale",
-    "tfd_fleet_ha_role", "tfd_fleet_etag_missing_total",
-    "tfd_fleet_delta_served_total", "tfd_fleet_delta_polls_total",
-    "tfd_fleet_poll_body_bytes_total", "tfd_fleet_targets_reload_failures_total",
-    "tfd_fleet_filter_views", "tfd_fleet_filter_cache_total",
-    "tfd_fleet_filter_renders_total", "tfd_fleet_filtered_not_modified_total",
-    "tfd_fleet_query_rejected_total", "tfd_fleet_watchers", "tfd_fleet_watch_total",
-    "tfd_fleet_ha_divergence",
-    "tfd_http_inflight", "tfd_http_rejected_total",
-}
+# Twin families whose layers the port does not have yet: none since the
+# fleet collector and its --max-inflight-requests gate were ported.
+LEFT_OUT: set = set()
 
 # Label values a client or a device name could carry: the escapes of
 # the exposition format, unicode, the empty string.
@@ -175,7 +161,7 @@ def test_every_port_family_is_the_twins_and_is_documented():
         assert name in twin, f"{name} is not a twin family"
         assert _signature(fam) == _signature(twin[name]), name
         assert f"`{name}`" in docs, f"{name} is not in docs/observability.md"
-    assert len(port) == 61
+    assert len(port) == 87
 
 
 def test_the_families_left_out_are_pinned():

@@ -174,6 +174,20 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert not offenders
 
 
+def test_fleet_collector_sources_import_no_torch():
+    """The collector has no device: fleet/ and cmd/fleet.py import
+    neither torch nor anything the scan above forbids."""
+    files = sorted((PORT / "fleet").rglob("*.py")) + [PORT / "cmd" / "fleet.py"]
+    assert len(files) == 7
+    offenders = [
+        f"{p.relative_to(REPO)} imports {name}"
+        for p in files
+        for name in _imported_top_level_names(p)
+        if name in {"torch", "triton", "jax", "jaxlib", "gpu_feature_discovery_tpu", "yaml"}
+    ]
+    assert not offenders
+
+
 def test_import_of_every_module_loads_no_jax_and_no_cuda():
     modules = [
         ".".join(p.relative_to(REPO).with_suffix("").parts)
