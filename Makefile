@@ -8,7 +8,7 @@ include versions.mk
 
 COV_MIN ?= 75
 
-.PHONY: all native native-selftest test coverage integration bench check-yamls lint typecheck helm-check clean stamp stamp-torch wheel docker-build docker-build-multiarch docker-push
+.PHONY: all native native-selftest test coverage integration bench check-yamls lint typecheck helm-check clean stamp stamp-torch wheel docker-build docker-build-multiarch docker-push torch-kernels docker-build-torch
 
 all: native test
 
@@ -141,3 +141,19 @@ docker-build-multiarch:
 
 docker-push:
 	docker push $(IMAGE_NAME):$(VERSION)
+
+# The PyTorch/CUDA port's kernels, built with nvcc into TORCH_KERNEL_DIR:
+# the image's build step (deployments/torch/container/Dockerfile).
+TORCH_KERNEL_DIR ?= build/torch_kernels
+torch-kernels:
+	$(PYTHON) -m gpu_feature_discovery_tpu_torch.ops.kernel_cache \
+	    --prebuild $(TORCH_KERNEL_DIR)
+
+# The port's image: CUDA 12.8 devel build stage, base runtime stage with
+# the prebuilt kernels.
+TORCH_IMAGE_NAME ?= ghcr.io/example/gpu-feature-discovery-torch
+docker-build-torch:
+	docker build -t $(TORCH_IMAGE_NAME):$(VERSION) \
+	    -f deployments/torch/container/Dockerfile \
+	    --build-arg TFD_VERSION=$(VERSION) \
+	    --build-arg TFD_GIT_COMMIT="$(GIT_COMMIT)" .

@@ -121,6 +121,24 @@ Phases, each printing one JSON line:
                   heals; every advice change moves the advice family alone
                   and no two live daemons advise at once; 1 + 3k launches in
                   each gpu worker, none in a CLI.
+12. ``deploy``  — the deployment layer (deployments/torch/) as its files
+                  state it: the image's prebuild step (``python -m
+                  gpu_feature_discovery_tpu_torch.ops.kernel_cache
+                  --prebuild``) into a fresh directory, timed, then made
+                  read-only; the static DaemonSet's container started as
+                  a process from its own command and env over the image's
+                  ``ENV`` (hostPath mounts but /sys, and /tmp, mapped to
+                  directories, the image's kernel directory to the fresh
+                  one), with no nvcc reachable: its labels, health labels
+                  from its broker worker mapping the prebuilt library,
+                  ``tfd_compile_cache_enabled 1``, each declared probe at
+                  its initial delay and again once the health labels are
+                  in, its exit within the grace period after SIGTERM; then the Job template with NODE_NAME
+                  substituted and the env the chart's withBurnin renders:
+                  exit 0, the health labels, ``hbm_stream_sum`` launched
+                  from the prebuilt library (counted at the process's exit
+                  by a start-up hook on PYTHONPATH); the directory
+                  unchanged byte for byte. One ``deploy`` line.
 
 Then a ``metrics`` line (the cost of a scrape, the exposition's size,
 restart-to-labels, first use, the broker's request histogram and the
@@ -132,6 +150,7 @@ line.
 
 from __future__ import annotations
 
+import hashlib
 import http.client
 import json
 import logging
@@ -139,8 +158,10 @@ import math
 import os
 import re
 import secrets
+import shutil
 import signal
 import socket
+import stat
 import statistics
 import subprocess
 import sys
@@ -2802,6 +2823,382 @@ def phase_actuation(entries: dict, smi: str) -> dict:
     return out
 
 
+# The deployment layer (deployments/torch/): the image's runtime stage and
+# the static manifests, run on this machine as a kubelet would run them.
+DEPLOY_DIR = os.path.join(REPO, "deployments", "torch")
+DEPLOY_DAEMONSET = os.path.join(DEPLOY_DIR, "static",
+                                "gpu-feature-discovery-torch-daemonset.yaml")
+DEPLOY_JOB = os.path.join(DEPLOY_DIR, "static",
+                          "gpu-feature-discovery-torch-job.yaml.template")
+DOCKERFILE = os.path.join(DEPLOY_DIR, "container", "Dockerfile")
+# What the chart's withBurnin=true adds to the daemon's env
+# (tests/test_torch_deployments.py renders the chart and pins it): the
+# Job runs with it beside its template's own.
+BURNIN_ENV = {"TFD_WITH_BURNIN": "true"}
+# Kubernetes' defaults where a pod spec sets none.
+DEFAULT_GRACE_S = 30
+DEFAULT_PROBE_TIMEOUT_S = 1
+PROBE_KINDS = ("startupProbe", "livenessProbe", "readinessProbe")
+DEPLOY_HEALTH_WAIT_S = 180
+JOB_TIMEOUT_S = 300
+
+# Loaded at interpreter start-up through PYTHONPATH: at exit it records
+# the process's hbm_stream_sum launches and the library it loaded (the
+# broker worker leaves through os._exit and records nothing), then runs
+# the interpreter's own sitecustomize, if any.
+_LAUNCH_HOOK = '''\
+import atexit, importlib.machinery, importlib.util, json, os, sys
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _record():
+    hbm = sys.modules.get("gpu_feature_discovery_tpu_torch.ops.hbm")
+    if hbm is None:
+        return
+    lib = getattr(hbm, "_lib", None)
+    with open(os.path.join(OUT, "%d.json" % os.getpid()), "w") as f:
+        json.dump({"launches": hbm.hbm_stream_sum.launches,
+                   "library": getattr(lib, "_name", None)}, f)
+
+
+atexit.register(_record)
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _HERE])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+'''
+
+
+def dockerfile_stages(path: str = DOCKERFILE) -> list:
+    """The Dockerfile's instructions, continuations joined and comments
+    dropped, one list per ``FROM`` stage."""
+    with open(path) as f:
+        lines = [l for l in f.read().splitlines() if not l.lstrip().startswith("#")]
+    text = re.sub(r"\s*\\\n\s*", " ", "\n".join(lines))
+    stages: list = []
+    for line in (l.strip() for l in text.splitlines()):
+        if line.split(" ", 1)[0].upper() == "FROM":
+            stages.append([])
+        if line and stages:
+            stages[-1].append(line)
+    return stages
+
+
+def image_env(path: str = DOCKERFILE) -> dict:
+    """The runtime stage's ``ENV`` but PATH: what every container of the
+    image starts with."""
+    env = {}
+    for instruction in dockerfile_stages(path)[-1]:
+        word, _, rest = instruction.partition(" ")
+        if word.upper() == "ENV":
+            key, _, value = rest.partition("=")
+            if key != "PATH":
+                env[key] = value
+    return env
+
+
+def load_manifest(path: str, node_name: str = "") -> dict:
+    """One manifest, read as the card reads YAML (config/yaml_subset.py),
+    with ``NODE_NAME`` substituted where a name is given."""
+    from gpu_feature_discovery_tpu_torch.config import yaml_subset
+
+    with open(path) as f:
+        text = f.read()
+    if node_name:
+        text = text.replace("NODE_NAME", node_name)
+    return yaml_subset.safe_load(text)
+
+
+def _mapper(mapping: dict):
+    """A function that rewrites each container path of ``mapping`` (a
+    whole path component sequence) inside a string to its directory here."""
+    paths = sorted(mapping, key=len, reverse=True)
+    pattern = re.compile(r"(?<![\w./-])(" + "|".join(map(re.escape, paths))
+                         + r")(?=/|['\"\s]|$)")
+    return lambda text: pattern.sub(lambda m: mapping[m.group(1)], text)
+
+
+def _bindable(port: int) -> bool:
+    s = socket.socket()
+    try:
+        s.bind(("", port))
+        return True
+    except OSError:
+        return False
+    finally:
+        s.close()
+
+
+def start_pod(manifest: dict, root: str, kernel_dir: str, *, extra_env=None) -> dict:
+    """Start the manifest's container as a process, as the kubelet starts
+    it in the image: its ``command`` and ``args``, the image's ``ENV``
+    under the manifest's ``env``, and ``extra_env`` last. Each hostPath
+    mount but ``/sys``, and the container's ``/tmp``, is a directory under
+    ``root``; the image's kernel directory is ``kernel_dir``; a container
+    port the host holds is moved to a free one. The package comes from
+    this checkout (PYTHONPATH), beside the launch-recording hook. nvcc is
+    unreachable: PATH keeps no directory holding one, CUDA_HOME names
+    none. ``--output-file`` goes under the mapped features.d."""
+    from gpu_feature_discovery_tpu_torch.config.flags import DEFAULT_OUTPUT_FILE
+
+    spec = manifest["spec"]["template"]["spec"]
+    (ctr,) = spec["containers"]
+    image = image_env()
+    host_volumes = {v["name"] for v in spec.get("volumes", []) if "hostPath" in v}
+    mapping = {"/tmp": os.path.join(root, "tmp"),
+               image["TFD_COMPILATION_CACHE_DIR"]: kernel_dir}
+    for mount in ctr.get("volumeMounts", []):
+        if mount["name"] in host_volumes and mount["mountPath"] != "/sys":
+            mapping[mount["mountPath"]] = os.path.join(root, "mounts", mount["name"])
+    mapped = _mapper(mapping)
+    bin_dir, hook_dir, launches_dir, work = (
+        os.path.join(root, d) for d in ("bin", "hook", "launches", "work"))
+    for d in [bin_dir, hook_dir, launches_dir, work, os.path.join(root, "home"),
+              *(v for k, v in mapping.items() if v != kernel_dir)]:
+        os.makedirs(d, exist_ok=True)
+    shim = os.path.join(bin_dir, "python3")  # the manifests' interpreter
+    with open(shim, "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(shim, 0o755)
+    with open(os.path.join(hook_dir, "sitecustomize.py"), "w") as f:
+        f.write(f"OUT = {launches_dir!r}\n" + _LAUNCH_HOOK)
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TFD_") and k not in ("CUDA_HOME", "CUDA_PATH", "HOME")}
+    path = [bin_dir] + [d for d in os.environ.get("PATH", "").split(os.pathsep)
+                        if d and not os.path.exists(os.path.join(d, "nvcc"))]
+    env.update(PATH=os.pathsep.join(path), CUDA_HOME="/nonexistent",
+               HOME=os.path.join(root, "home"),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (hook_dir, REPO, os.environ.get("PYTHONPATH")) if p))
+    env.update({k: mapped(v) for k, v in image.items()})
+    for var in ctr.get("env", []):
+        check("value" in var, f"{var['name']}: only literal env values run here")
+        env[var["name"]] = mapped(str(var["value"]))
+    env.update(extra_env or {})
+    ports = {p["containerPort"]: p["containerPort"] if _bindable(p["containerPort"])
+             else _free_port() for p in ctr.get("ports", [])}
+    if "TFD_METRICS_PORT" in env:
+        env["TFD_METRICS_PORT"] = str(ports.get(int(env["TFD_METRICS_PORT"]),
+                                                env["TFD_METRICS_PORT"]))
+    out = mapped(DEFAULT_OUTPUT_FILE)
+    argv = [*ctr["command"], *ctr.get("args", []), "--output-file", out]
+    log_path = os.path.join(root, "container.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(argv, cwd=work, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+    return {"proc": proc, "t0": time.monotonic(), "container": ctr, "env": env,
+            "ports": ports, "mapped": mapped, "out": out, "log": log_path,
+            "launches_dir": launches_dir, "work": work,
+            "grace_s": spec.get("terminationGracePeriodSeconds", DEFAULT_GRACE_S)}
+
+
+def run_probe(pod: dict, probe: dict) -> dict:
+    """One probe as the kubelet runs it: an httpGet to the container's
+    port (a name resolves through its ``ports``) passes on a status of
+    200-399, an exec on exit 0; both within ``timeoutSeconds``."""
+    timeout = probe.get("timeoutSeconds", DEFAULT_PROBE_TIMEOUT_S)
+    t0 = time.perf_counter()
+    if "httpGet" in probe:
+        get = probe["httpGet"]
+        port = get["port"]
+        if isinstance(port, str):
+            port = {p["name"]: p["containerPort"] for p in pod["container"]["ports"]}[port]
+        conn = http.client.HTTPConnection("127.0.0.1", pod["ports"].get(port, port),
+                                          timeout=timeout)
+        try:
+            conn.request("GET", get["path"])
+            status = conn.getresponse().status
+        finally:
+            conn.close()
+        result = {"httpGet": get["path"], "status": status, "ok": 200 <= status < 400}
+    elif "exec" in probe:
+        command = [pod["mapped"](a) for a in probe["exec"]["command"]]
+        rc = subprocess.run(command, env=pod["env"], cwd=pod["work"],
+                            timeout=timeout).returncode
+        result = {"exec": command[0], "rc": rc, "ok": rc == 0}
+    else:
+        raise SystemExit(f"chip_smoke: unsupported probe {sorted(probe)}")
+    result["ms"] = (time.perf_counter() - t0) * 1e3
+    return result
+
+
+def pod_launches(pod: dict) -> list:
+    """The hook's records: one per process of the pod that imported the
+    kernel's module and left through the interpreter's exit."""
+    out = []
+    for name in sorted(os.listdir(pod["launches_dir"])):
+        with open(os.path.join(pod["launches_dir"], name)) as f:
+            out.append(json.load(f))
+    return out
+
+
+def stop_pod(pod: dict) -> dict:
+    """SIGTERM, as the kubelet sends it; the process must exit within the
+    grace period. Returns the exit code and the seconds it took."""
+    proc = pod["proc"]
+    t0 = time.monotonic()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=pod["grace_s"])
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SystemExit(f"chip_smoke: check failed: the pod outlived its "
+                         f"{pod['grace_s']} s grace period after SIGTERM")
+    return {"rc": rc, "exit_s": time.monotonic() - t0}
+
+
+def tree_digest(path: str) -> dict:
+    """{relative path: (mode, sha256 of a file's bytes)} of a directory,
+    itself included."""
+    out = {".": (stat.S_IMODE(os.lstat(path).st_mode), None)}
+    for dirpath, dirnames, filenames in os.walk(path):
+        for name in dirnames + filenames:
+            full = os.path.join(dirpath, name)
+            digest = None
+            if name in filenames:
+                with open(full, "rb") as f:
+                    digest = hashlib.sha256(f.read()).hexdigest()
+            out[os.path.relpath(full, path)] = (stat.S_IMODE(os.lstat(full).st_mode), digest)
+    return out
+
+
+def phase_deploy(entries: dict, smi: str) -> dict:
+    """The deployment layer run as its files state: (a) the image's
+    prebuild into a fresh directory, made read-only; (b) the static
+    DaemonSet's container as a process with no nvcc reachable: its labels,
+    its declared probes at their initial delays and again with the health
+    labels in, ``tfd_compile_cache_enabled`` 1, its broker worker mapping
+    the prebuilt library, and its exit within the grace period after
+    SIGTERM; (c) the Job template with NODE_NAME
+    substituted and the chart's burn-in env: exit 0, the health labels,
+    ``hbm_stream_sum`` launched from the prebuilt library; the directory
+    unchanged byte for byte throughout."""
+    from gpu_feature_discovery_tpu_torch.sandbox import broker
+
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="deploy-", dir=build_dir)
+    kernel_dir = os.path.join(root, "image-kernels")
+    try:
+        # (a) The Dockerfile's build step, with this machine's nvcc.
+        t0 = time.perf_counter()
+        built = subprocess.run(
+            [sys.executable, "-m", "gpu_feature_discovery_tpu_torch.ops.kernel_cache",
+             "--prebuild", kernel_dir], cwd=REPO, capture_output=True, text=True,
+            timeout=600)
+        prebuild_s = time.perf_counter() - t0
+        check(built.returncode == 0, f"prebuild exited {built.returncode}: {built.stderr[-2000:]}")
+        libraries = dict(line.split() for line in built.stdout.splitlines())
+        check(sorted(libraries) == sorted(os.listdir(kernel_dir)),
+              f"prebuild printed {libraries}, built {os.listdir(kernel_dir)}")
+        subprocess.run(["chmod", "-R", "a-w", kernel_dir], check=True)
+        before = tree_digest(kernel_dir)
+
+        # (b) The DaemonSet.
+        ds = load_manifest(DEPLOY_DAEMONSET)
+        pod = start_pod(ds, os.path.join(root, "daemonset"), kernel_dir)
+        env = pod["env"]
+        nvcc_on_path = shutil.which("nvcc", path=env["PATH"])
+        no_nvcc = subprocess.run(
+            ["python3", "-m", "gpu_feature_discovery_tpu_torch.ops.kernel_cache",
+             "--prebuild", os.path.join(root, "nvcc-check")],
+            env=env, cwd=pod["work"], capture_output=True, text=True, timeout=120)
+        check(nvcc_on_path is None and no_nvcc.returncode != 0
+              and "no nvcc" in no_nvcc.stderr,
+              f"nvcc reachable in the pod: {nvcc_on_path} {no_nvcc.returncode} "
+              f"{no_nvcc.stderr[-500:]!r}")
+        try:
+            first_write_s = _wait_for(
+                lambda: os.path.exists(pod["out"]) and time.monotonic() - pod["t0"],
+                DEPLOY_HEALTH_WAIT_S, "the DaemonSet's first write", poll=0.05)
+            # Each declared probe at its initial delay, while the worker may
+            # still warm up, and once more when the health labels are in.
+            declared = sorted(((kind, pod["container"][kind]) for kind in PROBE_KINDS
+                               if kind in pod["container"]),
+                              key=lambda kp: kp[1].get("initialDelaySeconds", 0))
+            check(declared, "the DaemonSet declares no probe")
+            probes = {}
+            for kind, probe in declared:
+                time.sleep(max(0.0, pod["t0"] + probe.get("initialDelaySeconds", 0)
+                               - time.monotonic()))
+                probes[kind] = [{**run_probe(pod, probe), "at_s": time.monotonic() - pod["t0"]}]
+            health_s = _wait_for(
+                lambda: _has_health(_read_labels(pod["out"])) and time.monotonic() - pod["t0"],
+                DEPLOY_HEALTH_WAIT_S, "the DaemonSet's health labels", poll=0.05)
+            for kind, probe in declared:
+                probes[kind].append({**run_probe(pod, probe),
+                                     "at_s": time.monotonic() - pod["t0"]})
+                check(all(r["ok"] for r in probes[kind]), f"{kind} failed: {probes[kind]}")
+            workers = _children(pod["proc"].pid)
+            worker_maps = {w: _maps_libcuda(w, kernel_dir + os.sep) for w in workers}
+            check(any(worker_maps.values()),
+                  f"no worker of {workers} maps a library from {kernel_dir}")
+            samples = _scrape(int(env["TFD_METRICS_PORT"]))
+            check(samples.get(("tfd_compile_cache_enabled", "")) == 1.0,
+                  f"tfd_compile_cache_enabled {samples.get(('tfd_compile_cache_enabled', ''))}")
+            stopped = stop_pod(pod)
+        finally:
+            if pod["proc"].poll() is None:
+                pod["proc"].kill()
+                pod["proc"].wait()
+        with open(pod["log"]) as f:
+            tail = f.read()[-3000:]
+        check(stopped["rc"] == 0, f"the DaemonSet exited {stopped['rc']}; log tail:\n{tail}")
+        _wait_for(lambda: all(_gone(w) for w in workers), broker.GRACEFUL_CLOSE_S + 1.0,
+                  f"no broker worker of {workers} alive after the DaemonSet's exit")
+        check(pod_launches(pod) == [], f"the DaemonSet's CLI launched {pod_launches(pod)}")
+
+        # (c) The Job.
+        node = socket.gethostname()
+        job = load_manifest(DEPLOY_JOB, node_name=node)
+        check(job["spec"]["template"]["spec"]["nodeName"] == node, "NODE_NAME not substituted")
+        jpod = start_pod(job, os.path.join(root, "job"), kernel_dir, extra_env=BURNIN_ENV)
+        try:
+            rc = jpod["proc"].wait(timeout=JOB_TIMEOUT_S)
+        finally:
+            if jpod["proc"].poll() is None:
+                jpod["proc"].kill()
+                jpod["proc"].wait()
+        job_s = time.monotonic() - jpod["t0"]
+        with open(jpod["log"]) as f:
+            tail = f.read()[-3000:]
+        check(rc == 0, f"the Job exited {rc}; log tail:\n{tail}")
+        job_labels = _read_labels(jpod["out"])
+        check(job_labels.get("nvidia.com/gpu.health.ok") == "true" and _has_health(job_labels),
+              f"the Job's labels carry no health: {job_labels}")
+        records = pod_launches(jpod)
+        job_launches = sum(r["launches"] for r in records)
+        check(job_launches > 0 and all(
+            r["library"] and os.path.dirname(r["library"]) == kernel_dir
+            for r in records if r["launches"]),
+            f"the Job's hbm_stream_sum launches {records}, want the library in {kernel_dir}")
+        after = tree_digest(kernel_dir)
+        check(after == before, f"the kernel directory changed: {before} -> {after}")
+    finally:
+        subprocess.run(["chmod", "-R", "u+w", root], check=False)
+        shutil.rmtree(root, ignore_errors=True)
+    out = {
+        "nvidia_smi": smi,
+        "prebuild_s": prebuild_s,
+        "library_bytes": {name: int(size) for name, size in libraries.items()},
+        "nvcc_reachable": False,
+        "kernel_dir_unchanged": True,
+        "daemonset": {"first_write_s": first_write_s, "health_labels_s": health_s,
+                      "worker_maps_prebuilt": True, "probes": probes,
+                      "compile_cache_enabled": 1, "sigterm_exit_s": stopped["exit_s"],
+                      "grace_s": pod["grace_s"], "rc": stopped["rc"]},
+        "job": {"wall_s": job_s, "rc": rc, "hbm_stream_sum_launches": job_launches,
+                "health": {k: job_labels.get(k) for k in
+                           ("nvidia.com/gpu.health.ok", *HEALTH_KEYS)}},
+    }
+    emit("deploy", **out)
+    entries["hbm_stream_sum"]["deploy_launches"] = job_launches
+    return out
+
+
 def main() -> int:
     import importlib.util
 
@@ -2834,6 +3231,7 @@ def main() -> int:
                           info["nvidia_smi"])
     phase_slice(entries, info["nvidia_smi"])
     phase_actuation(entries, info["nvidia_smi"])
+    phase_deploy(entries, info["nvidia_smi"])
     # What serving and recording metrics cost, beside the card.
     emit("metrics", nvidia_smi=info["nvidia_smi"],
          scrape_ms_median=statistics.median(cli["scrape_ms"]),

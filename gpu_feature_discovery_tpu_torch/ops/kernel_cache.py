@@ -25,6 +25,9 @@ flag names the directory the libraries live in:
 - A build that cannot run raises ``KernelBuildError`` naming what was
   missing (no ``nvcc``, an unwritable directory, or nvcc's own errors)
   and leaves no partial file behind.
+- ``python -m gpu_feature_discovery_tpu_torch.ops.kernel_cache
+  --prebuild DIR`` builds every kernel into DIR: an image's build stage
+  runs it where nvcc is, and the image ships DIR with no toolkit.
 - ``kernel_cache_usable`` is the value of ``tfd_compile_cache_enabled``
   (obs/metrics.py), which ``cmd/main.run`` sets once per epoch where the
   twin sets it: 1 while the directory exists and is writable, or already
@@ -36,12 +39,14 @@ directory without loading CUDA.
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 from pathlib import Path
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 # The resolved directory, which this process and its children read (the
 # flag's own alias, TFD_COMPILATION_CACHE_DIR, stays the operator's).
@@ -151,3 +156,35 @@ def build_library(source: Path) -> Tuple[Path, str]:
     finally:
         tmp.unlink(missing_ok=True)
     return lib, proc.stderr
+
+
+def prebuild(directory: str) -> List[Path]:
+    """Build every kernel of KERNEL_SOURCES into ``directory`` (created if
+    missing) under the names the runtime looks for; returns the
+    libraries. Raises KernelBuildError as ``build_library`` does."""
+    configure_kernel_cache(str(Path(directory).resolve()))
+    return [build_library(source)[0] for source in KERNEL_SOURCES]
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m gpu_feature_discovery_tpu_torch.ops.kernel_cache",
+        description="build the port's CUDA kernels into a directory, as an "
+        "image's build stage does; the image then sets "
+        "TFD_COMPILATION_CACHE_DIR to it",
+    )
+    parser.add_argument("--prebuild", metavar="DIR", required=True,
+                        help="the directory to build the kernel libraries into")
+    args = parser.parse_args(argv)
+    try:
+        libraries = prebuild(args.prebuild)
+    except KernelBuildError as e:
+        print(f"prebuild failed: {e}", file=sys.stderr)
+        return 1
+    for lib in libraries:
+        print(f"{lib.name} {lib.stat().st_size}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
