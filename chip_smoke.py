@@ -139,6 +139,27 @@ Phases, each printing one JSON line:
                   from the prebuilt library (counted at the process's exit
                   by a start-up hook on PYTHONPATH); the directory
                   unchanged byte for byte. One ``deploy`` line.
+13. ``mig``     — a STAND-IN for a MIG node (the card's MIG mode is never
+                  changed): a FakeNvml inventory of one H100 in MIG mode
+                  with N 1g.10gb MIG devices, each named by the card's own
+                  ``GPU-`` UUID, so every worker pinned by
+                  ``CUDA_VISIBLE_DEVICES=<that UUID>`` runs on the card.
+                  For N = 1, 3 and 7 the daemon's label sources drive one
+                  pinned broker worker per device, spawned together: each
+                  lists one CUDA device, launches ``hbm_stream_sum`` from
+                  the kernel cache with an exact checksum, and the labels
+                  follow the MIG table under ``single`` (per MIG device)
+                  and ``none`` (one GPU, no rate); ``chip.1.sick`` flips
+                  device 1 alone; a SIGKILLed worker costs its own device
+                  only and respawns. Recorded: the spawn time per N, each
+                  worker's device memory after its probe and host VmRSS,
+                  and the UUID torch reports inside a worker. At N = 3 the
+                  in-process path's one-shot pinned children give the same
+                  verdicts. Then ``hbm_stream_sum`` on the persistent grids
+                  of the H100 MIG profiles' SM counts (16, 32, 60, 64, 132),
+                  each exact against its plain version, timed in turns.
+                  Every worker sees the whole card's L2 and HBM: none of
+                  this is a MIG measurement. One ``mig`` line.
 
 Then a ``metrics`` line (the cost of a scrape, the exposition's size,
 restart-to-labels, first use, the broker's request histogram and the
@@ -3199,6 +3220,284 @@ def phase_deploy(entries: dict, smi: str) -> dict:
     return out
 
 
+# The H100 MIG profiles' SM counts (resource/testing.py H100_MIG_PROFILES):
+# 1g.10gb and 1g.20gb, 2g.20gb, 3g.40gb, 4g.40gb, 7g.80gb.
+MIG_GRID_SMS = (16, 32, 60, 64, 132)
+MIG_WORKER_COUNTS = (1, 3, 7)
+STAND_IN_NOTE = ("stand-in: one H100 with MIG off, named by its own UUID as N "
+                 "MIG devices; every pinned worker sees the whole card's L2 and "
+                 "HBM, so no number here is a MIG measurement")
+
+
+class _SpawnCapture(logging.Handler):
+    """The pinned workers' "ready in X ms" lines."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.ready_ms = []
+
+    def emit(self, record):
+        m = re.match(r"broker worker (\d+) ready in (\d+) ms.* pinned to",
+                     record.getMessage())
+        if m:
+            self.ready_ms.append(int(m.group(2)))
+
+
+def _compute_apps() -> list:
+    """``nvidia-smi --query-compute-apps=pid,used_memory``: one row per
+    process holding the card (pid 1 for every one on a host whose pid
+    namespace hides them), used memory in MiB."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return [[int(x) for x in line.split(",")] for line in out.strip().splitlines() if line]
+
+
+def _mig_grids(entries: dict) -> dict:
+    """hbm_stream_sum at the 256 MiB probe buffer on the persistent grid a
+    MIG profile's SM count gives it: exact against the plain version at
+    every grid, timed in turns (the whole card's HBM serves each)."""
+    import torch
+
+    from gpu_feature_discovery_tpu_torch.ops import hbm
+
+    dev = torch.device("cuda", 0)
+    rows = hbm.probe_rows(256)
+    pattern = hbm.stream_pattern(rows, dev)
+    plain = hbm.hbm_stream_sum_reference(pattern).item()
+    before = hbm.hbm_stream_sum.launches
+    out = {}
+    for sms in MIG_GRID_SMS:
+        got = hbm._launch(pattern, sms).item()
+        check(got == plain == hbm.expected_stream_sum(rows),
+              f"{sms}-SM grid: kernel {got}, plain {plain}")
+        out[str(sms)] = {"blocks": hbm.grid_blocks(rows // hbm.TILE_ROWS, sms),
+                         "max_abs_err": abs(got - plain)}
+    check(hbm.hbm_stream_sum.launches - before == len(MIG_GRID_SMS),
+          "one launch per grid")
+    turns = in_turns({str(s): (lambda s=s: hbm._launch(pattern, s))
+                      for s in MIG_GRID_SMS})
+    nbytes = pattern.numel() * pattern.element_size() + 4
+    for sms, row in out.items():
+        row["ms"] = turns["median_ms"][sms]
+        row["pct_of_bound"] = 100 * entries["hbm_stream_sum"]["bound_ms"] / row["ms"]
+        row["gib_per_s"] = nbytes / (row["ms"] / 1e3) / 2**30
+    del pattern
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stand_in_node(n: int, card_uuid: str, classic, plain: bool = False):
+    """The labeling process's manager on the stand-in: the snapshot a
+    classic worker would ship of a FakeNvml H100 in MIG mode whose N
+    1g.10gb devices are named by the card's UUID, and that worker's
+    client. With ``plain`` a GPU outside MIG mode, the card itself, comes
+    first (NVML index 0), which the classic worker probes; without, no
+    health request reaches the classic worker."""
+    from gpu_feature_discovery_tpu_torch.native import nvml
+    from gpu_feature_discovery_tpu_torch.resource.nvml_backend import NvmlManager
+    from gpu_feature_discovery_tpu_torch.resource.testing import FakeGpu, FakeNvml
+    from gpu_feature_discovery_tpu_torch.sandbox.snapshot import DeviceSnapshot, SnapshotManager
+
+    gpus = [FakeGpu(bus_id=None, uuid=card_uuid)] if plain else []
+    nvml_manager = NvmlManager(FakeNvml(gpus + [FakeGpu(
+        bus_id=None, mig_mode=nvml.NVML_DEVICE_MIG_ENABLE, mig=["1g.10gb"] * n,
+        mig_uuids=[card_uuid] * n)]))
+    nvml_manager.init()
+    manager = SnapshotManager(DeviceSnapshot.from_dict(json.loads(json.dumps(
+        DeviceSnapshot.from_manager(nvml_manager).to_dict()))))
+    manager.broker = classic
+    return manager
+
+
+def phase_mig(entries: dict, smi: str) -> dict:
+    """The probe of a MIG node through a stand-in (see the module's
+    docstring, phase 13): the daemon's label sources over the stand-in's
+    inventory, one pinned broker worker per MIG device on the card."""
+    from gpu_feature_discovery_tpu_torch import sandbox
+    from gpu_feature_discovery_tpu_torch.config.flags import new_config
+    from gpu_feature_discovery_tpu_torch.lm import health
+    from gpu_feature_discovery_tpu_torch.lm.engine import LabelEngine
+    from gpu_feature_discovery_tpu_torch.lm.labelers import new_label_sources
+    from gpu_feature_discovery_tpu_torch.native import nvml
+    from gpu_feature_discovery_tpu_torch.resource.probe_targets import probe_targets
+    from gpu_feature_discovery_tpu_torch.sandbox import broker as broker_mod
+    from gpu_feature_discovery_tpu_torch.sandbox.snapshot import SnapshotManager
+    from gpu_feature_discovery_tpu_torch.utils import faults
+
+    card_uuid = nvml.read_inventory().devices[0].uuid
+    reports = []
+    real_fold = health._fold
+
+    def recording_fold(targets, classic, outcomes):
+        reports.extend(o.get("report") for o in outcomes.values())
+        return real_fold(targets, classic, outcomes)
+
+    health._fold = recording_fold
+    spawns = _SpawnCapture()
+    logging.getLogger("tfd").addHandler(spawns)
+    sandbox_log = logging.getLogger("tfd.sandbox")
+    sandbox_log.setLevel(logging.INFO)
+    faults.reset()
+
+    def config(strategy: str, **cli):
+        return new_config(cli_values={
+            "with-burnin": "true", "burnin-interval": "1", "backends": "gpu",
+            "tpu-topology-strategy": strategy, "probe-timeout": "60s",
+            "machine-type-file": "", **cli}, environ={})
+
+    def cycle(manager, cfg):
+        return dict(LabelEngine(parallel=False).generate(new_label_sources(manager, cfg)))
+
+    def until_health(manager, cfg, what, timeout=180.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            labels = cycle(manager, cfg)
+            if "nvidia.com/gpu.health.ok" in labels:
+                return labels
+            time.sleep(0.2)
+        raise SystemExit(f"chip_smoke: check failed: {what} within {timeout}s")
+
+    def per_device(labels):
+        return {k[len("nvidia.com/gpu."):]: v for k, v in labels.items()
+                if re.match(r"nvidia\.com/gpu\.(chip\.\d+\.|chips\.|health\.ok$)", k)}
+
+    def single_ok(labels, n, sick=()):
+        want = {"health.ok": "false" if sick else "true",
+                "chips.healthy": str(n - len(sick)), "chips.sick": str(len(sick))}
+        for i in range(n):
+            want[f"chip.{i}.ok"] = "false" if i in sick else "true"
+        got = {k: v for k, v in per_device(labels).items()
+               if not k.endswith((".tflops", ".hbm-gbps"))}
+        check(got == want, f"single, sick {list(sick)}: {got} != {want}")
+        for i in range(n):
+            if i not in sick:
+                check(int(labels.get(f"nvidia.com/gpu.chip.{i}.tflops", "0")) > 0,
+                      f"chip.{i}.tflops: {labels}")
+        check(labels.get("nvidia.com/gpu.health.timing") == "device-profiler", "timing")
+
+    out = {"note": STAND_IN_NOTE, "nvidia_smi": smi, "card_uuid": card_uuid, "runs": {}}
+    try:
+        for n in MIG_WORKER_COUNTS:
+            classic = broker_mod.get_broker(config("single"))
+            manager = _stand_in_node(n, card_uuid, classic)
+            targets = probe_targets(manager, "single")
+            check(len(targets.mig) == n and targets.per_mig_device, f"{n} targets")
+            health.reset_burnin_schedule()
+            del reports[:]
+            del spawns.ready_ms[:]
+            apps_before = _compute_apps()
+            used_before = _device_used_mib()
+            t0 = time.monotonic()
+            first = cycle(manager, config("single"))
+            check("nvidia.com/gpu.health.ok" not in first, "health before the spawn")
+            clients = [broker_mod._keyed[t.key] for t in targets.mig]
+            _wait_for(lambda: all(c.alive for c in clients), 240.0,
+                      f"{n} pinned workers up")
+            spawn_s = time.monotonic() - t0
+            labels = until_health(manager, config("single"), f"{n} workers' health")
+            first_health_s = time.monotonic() - t0
+            single_ok(labels, n)
+            pids = [c.pid for c in clients]
+            check(len(reports) == n, f"{len(reports)} reports for {n} devices")
+            for report in reports:
+                check(report["chips"] == 1 and len(report["per_chip"]) == 1,
+                      f"a pinned worker probed {report['chips']} devices")
+                check(report["per_chip"][0]["hbm_gbps"] is not None,
+                      "a pinned worker's checksum was not exact")
+                check(report["phases"]["hbm_stream_sum_launches"] == 3,
+                      f"launches per probe {report['phases']}")
+            for pid in pids:
+                check(_maps_libcuda(pid, "libhbm_stream_sum"),
+                      f"worker {pid} did not load the kernel from the cache")
+            torch_uuids = sorted({r["per_chip"][0]["uuid"] for r in reports})
+            run = {
+                "spawn_s": spawn_s, "first_health_s": first_health_s,
+                "ready_ms": sorted(spawns.ready_ms),
+                "launches_per_worker": [r["phases"]["hbm_stream_sum_launches_process"]
+                                        for r in reports],
+                "torch_uuid_in_worker": torch_uuids,
+                "torch_uuid_is_the_pin": torch_uuids == [nvml.normalize_uuid(card_uuid)],
+                "device_used_mib_rise": _device_used_mib() - used_before,
+                "compute_apps_before_mib": apps_before,
+                "compute_apps_after_mib": _compute_apps(),
+                "host": _host_memory({f"w{i}": pid for i, pid in enumerate(pids)}),
+            }
+            check(all(n_ == 4 for n_ in run["launches_per_worker"]),
+                  f"1 + 3 launches per worker: {run['launches_per_worker']}")
+            # The same workers under strategy none: one GPU, no rate.
+            health.reset_burnin_schedule()
+            none = until_health(manager, config("none"), "strategy none")
+            check(per_device(none) == {"health.ok": "true", "chips.healthy": "1",
+                                       "chips.sick": "0", "chip.0.ok": "true"},
+                  f"none: {per_device(none)}")
+            check("nvidia.com/gpu.health.matmul-tflops" not in none,
+                  "a MIG GPU's rate published as a GPU's")
+            check([c.pid for c in clients] == pids, "strategy none respawned workers")
+            if n > 1:
+                health.reset_burnin_schedule()
+                until_health(manager, config("single"), "single again")
+                faults.load_fault_spec("chip.1.sick:fail:1")
+                sick = cycle(manager, config("single"))
+                faults.reset()
+                single_ok(sick, n, sick=(1,))
+                single_ok(cycle(manager, config("single")), n)
+                victim = clients[-1]
+                os.kill(victim.pid, signal.SIGKILL)
+                t1 = time.monotonic()
+                killed = cycle(manager, config("single"))
+                single_ok(killed, n, sick=(n - 1,))
+                check([c.pid for c in clients[:-1]] == pids[:-1], "a sibling died")
+                labels = _wait_for(
+                    lambda: (lambda l: l if l.get("nvidia.com/gpu.health.ok") == "true"
+                             else None)(cycle(manager, config("single"))),
+                    240.0, "the killed worker's respawn")
+                single_ok(labels, n)
+                run["kill_to_healthy_s"] = time.monotonic() - t1
+            if n == 3:
+                # The in-process path: one-shot children pinned per device.
+                health.reset_burnin_schedule()
+                t2 = time.monotonic()
+                oneshot = cycle(SnapshotManager(manager.snapshot),
+                                config("single", oneshot="true", **{"probe-broker": "off"}))
+                run["in_process_s"] = time.monotonic() - t2
+                single_ok(oneshot, n)
+                # A plain GPU (the card, NVML 0) beside the MIG GPU (NVML
+                # 1): the classic worker probes the card, joined by its
+                # UUID; the pinned workers give GPU 1's verdict, unrated.
+                health.reset_burnin_schedule()
+                half = _stand_in_node(n, card_uuid, classic, plain=True)
+                t3 = time.monotonic()
+                labels = until_health(half, config("none"), "the plain GPU beside MIG")
+                run["plain_beside_mig_s"] = time.monotonic() - t3
+                verdicts = {k: v for k, v in per_device(labels).items()
+                            if not k.endswith((".tflops", ".hbm-gbps"))}
+                check(verdicts == {
+                    "health.ok": "true", "chips.healthy": "2", "chips.sick": "0",
+                    "chip.0.ok": "true", "chip.1.ok": "true"}, f"half: {per_device(labels)}")
+                check(int(labels.get("nvidia.com/gpu.chip.0.tflops", "0")) > 0
+                      and "nvidia.com/gpu.chip.1.tflops" not in labels
+                      and int(labels.get("nvidia.com/gpu.health.matmul-tflops", "0")) > 0,
+                      f"half rates: {labels}")
+            sandbox.close_broker()
+            _wait_for(lambda: all(_gone(p) for p in pids), 30.0, "workers closed")
+            out["runs"][str(n)] = run
+            emit("mig_run", workers=n, **run)
+    finally:
+        health._fold = real_fold
+        logging.getLogger("tfd").removeHandler(spawns)
+        faults.reset()
+        sandbox.close_broker()
+    out["grids"] = _mig_grids(entries)
+    entries["hbm_stream_sum"]["mig_launches"] = {
+        n: r["launches_per_worker"] for n, r in out["runs"].items()}
+    entries["hbm_stream_sum"]["mig_grids"] = out["grids"]
+    emit("mig", **{k: v for k, v in out.items() if k != "runs"},
+         spawn_s={n: r["spawn_s"] for n, r in out["runs"].items()})
+    return out
+
+
 def main() -> int:
     import importlib.util
 
@@ -3232,6 +3531,7 @@ def main() -> int:
     phase_slice(entries, info["nvidia_smi"])
     phase_actuation(entries, info["nvidia_smi"])
     phase_deploy(entries, info["nvidia_smi"])
+    phase_mig(entries, info["nvidia_smi"])
     # What serving and recording metrics cost, beside the card.
     emit("metrics", nvidia_smi=info["nvidia_smi"],
          scrape_ms_median=statistics.median(cli["scrape_ms"]),

@@ -8,9 +8,10 @@ read of a static file and device is in-memory math against the
 initialised backend, so both run inline; the health source does device
 I/O (acquisition and the burn-in probe) only with ``--with-burnin``, and
 is offloaded to the engine's pool then (lm/engine.py). Under the
-persistent broker the health source carries ``cancel=broker.kill_child``:
-a deadline miss SIGKILLs the worker running the probe instead of leaving
-a thread wedged in native code.
+persistent broker the health source carries a cancel hook: a deadline
+miss SIGKILLs the workers running the probe (the classic worker and, on
+a MIG node, the pinned ones) instead of leaving a thread wedged in native
+code.
 """
 
 from __future__ import annotations
@@ -45,6 +46,19 @@ def _device_labels(manager: Manager, config: Config) -> Labels:
     return Merge(versions, slice_capability, resources).labels()
 
 
+def _cancel_probes(broker):
+    """The health source's cancel hook on a MIG node: ``kill_child`` on
+    the classic worker and on every pinned MIG worker (each fires only
+    while a request of its own is in flight)."""
+    from gpu_feature_discovery_tpu_torch.sandbox.broker import kill_pinned_children
+
+    def cancel() -> None:
+        broker.kill_child()
+        kill_pinned_children()
+
+    return cancel
+
+
 def gpu_label_sources(manager: Manager, config: Config) -> List[LabelSource]:
     """The device-backed sources in merge order (machine-type, device,
     health), gated on devices being present: a node without GPUs
@@ -54,11 +68,10 @@ def gpu_label_sources(manager: Manager, config: Config) -> List[LabelSource]:
         return []
     machine_type_file = config.flags.tfd.machine_type_file
     broker = getattr(manager, "broker", None)
-    health_cancel = (
-        broker.kill_child
-        if broker is not None and config.flags.tfd.with_burnin
-        else None
-    )
+    health_cancel = None
+    if broker is not None and config.flags.tfd.with_burnin:
+        mig = any(chip.is_slice_enabled() for chip in manager.get_chips())
+        health_cancel = _cancel_probes(broker) if mig else broker.kill_child
     return [
         LabelSource(
             "machine-type",

@@ -16,7 +16,15 @@ and, with --chip-probes (the default), per-device fault localisation:
 ``chips.healthy``, ``chips.sick`` and a confirmed ``straggler-chip``.
 ``<i>`` is the GPU's NVML index, the inventory's (``gpu.count``), joined
 to the probed CUDA device by UUID; where CUDA lists other GPUs than the
-inventory's (a subset, MIG), no per-device label is published.
+inventory's (a subset), no per-device label is published.
+
+With GPUs in MIG mode the node's verdict still covers every device the
+inventory counts, as the twin's covers every chip: the plain GPUs are
+probed as above, and each MIG device by a worker pinned to it
+(resource/probe_targets.py says which index each verdict carries under
+each strategy). ``_fold`` joins their reports: ``health.ok`` is
+``all()`` over every probed device, the rates are the worst plain GPU's
+(under a valid ``single``, the worst MIG device's).
 A multi-GPU node also publishes ``health.ici.ok`` (the ring sweep over
 peer copies and NCCL) and, with --chip-probes, ``health.ici.allreduce-gbps``
 (the timed NCCL all-reduce, GiB/s per device).
@@ -46,8 +54,8 @@ report's ``phases.compile_ms``, or, through the broker, from the
 worker's pre-warm (``prewarm_ms``, shipped with its first report: the
 pre-warm pays first use there, so every probe reports 0),
 ``tfd_chip_ok{chip}`` and the raw, ungated
-``tfd_chip_tflops{chip}`` beside the ``chip.<i>.*`` labels (and, like
-them, never under MIG), and ``tfd_straggler_detected_total``.
+``tfd_chip_tflops{chip}`` beside the ``chip.<i>.*`` labels (with the
+label's index), and ``tfd_straggler_detected_total``.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ import statistics
 import threading
 import time
 import weakref
+from typing import Dict, Optional
 
 from gpu_feature_discovery_tpu_torch.config.flags import (
     DEFAULT_STRAGGLER_THRESHOLD,
@@ -217,10 +226,21 @@ class _BurninSchedule:
         # if the worker dies before a collect returns.
         self.broker_probe_pending = False
         self.pending_chip_faults: tuple = (frozenset(), frozenset())
+        # MIG nodes through the broker: the round whose outcomes are being
+        # collected; and a re-probe owed after a round in which a MIG
+        # device's probe failed for the first time.
+        self.mig_round: Optional[_MigRound] = None
+        self.reprobe = False
 
     def due(self, interval: int) -> bool:
         self.cycle += 1
-        return self.cached is None or self.cycle % max(1, interval) == 0
+        reprobe, self.reprobe = self.reprobe, False
+        return (
+            self.cached is None
+            or reprobe
+            or self.mig_round is not None
+            or self.cycle % max(1, interval) == 0
+        )
 
 
 _schedules: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -262,6 +282,41 @@ def _acquire_devices():
     return None
 
 
+def only_devices(devices, uuids) -> list:
+    """The devices among ``devices`` whose UUID is one of ``uuids``: a
+    MIG node's plain GPUs among those CUDA lists (a MIG device CUDA lists
+    reports its own UUID or its parent GPU's, neither a plain GPU's)."""
+    from gpu_feature_discovery_tpu_torch.ops.healthcheck import device_uuids
+
+    keep = {nvml.normalize_uuid(u) for u in uuids} - {""}
+    return [d for d, u in zip(devices, device_uuids(devices)) if u in keep]
+
+
+def pinned_devices():
+    """The one device of a process pinned to a MIG device (its
+    ``CUDA_VISIBLE_DEVICES`` names the device's UUID), or None when it
+    has none. Raises when CUDA lists more than one: the pin did not
+    hold."""
+    from gpu_feature_discovery_tpu_torch.resource.types import ResourceError
+
+    devices = _acquire_devices()
+    if devices is None:
+        return None
+    if devices[0].type == "cuda" and len(devices) != 1:
+        raise ResourceError(
+            f"a process pinned to one MIG device sees {len(devices)} CUDA devices"
+        )
+    return devices[:1]
+
+
+def _targets(manager: Manager, config: Config):
+    """The node's MIG probe plan (resource/probe_targets.py), or None
+    when no GPU is in MIG mode."""
+    from gpu_feature_discovery_tpu_torch.resource.probe_targets import probe_targets
+
+    return probe_targets(manager, config.flags.tpu_topology_strategy)
+
+
 def new_health_labeler(manager: Manager, config: Config) -> Labeler:
     """Empty unless --with-burnin and the node actually has devices. The
     probe runs every --burnin-interval cycles; in between, the last
@@ -289,15 +344,17 @@ def new_health_labeler(manager: Manager, config: Config) -> Labeler:
             "burn-in skipped: no local CUDA devices acquirable; publishing "
             "no health labels",
         )
-        # Nothing measured before the gap survives it: the cache, the
-        # failure and straggler streaks, and a pending first probe.
-        sched.cached = None
-        sched.consecutive_failures = 0
-        sched.straggler = None
-        if sched.first_probe_thread is not None:
-            sched.first_probe_thread.abandoned = True
-            sched.first_probe_thread = None
-        return Empty()
+        return _forget_health(sched)
+    targets = _targets(manager, config)
+    if targets is not None:
+        # Each MIG device is probed in a child pinned to it; this process
+        # probes the plain GPUs alone.
+        devices = only_devices(devices, targets.plain_uuids)
+        if targets.plain and not devices:
+            _warn_plain_unlisted(targets)
+            return _forget_health(sched)
+        if not targets.plain and not targets.mig:
+            return _nothing_to_probe(sched)
     interval = config.flags.tfd.burnin_interval or 1
     if not sched.due(interval):
         # A cycle that ran no probe carries no probe-ms (stored stripped).
@@ -314,6 +371,10 @@ def new_health_labeler(manager: Manager, config: Config) -> Labeler:
             sick, slow = faults.consume_chip_faults()
         else:
             sick, slow = frozenset(), frozenset()
+        if targets is not None:
+            return functools.partial(
+                _measure_mig_node, targets, config, chip_probes, sick, slow
+            )
         return functools.partial(
             measure_node_health, per_chip=chip_probes,
             sick_chips=sick, slow_chips=slow, **_inventory_kwargs(manager),
@@ -373,11 +434,196 @@ def _chip_probe_opts(config: Config) -> tuple:
     return bool(chip), float(threshold)
 
 
-def _mig_enabled(manager) -> bool:
-    """Whether any GPU of the inventory is in MIG mode."""
-    return manager is not None and any(
-        chip.is_slice_enabled() for chip in manager.get_chips()
+def _forget_health(sched: _BurninSchedule) -> Labeler:
+    """No health labels this cycle, and nothing measured before the gap
+    survives it: the cache, the failure and straggler streaks, and a
+    pending first probe."""
+    sched.cached = None
+    sched.consecutive_failures = 0
+    sched.straggler = None
+    if sched.first_probe_thread is not None:
+        sched.first_probe_thread.abandoned = True
+        sched.first_probe_thread = None
+    return Empty()
+
+
+def _warn_plain_unlisted(targets) -> None:
+    """A MIG node whose GPUs outside MIG mode CUDA does not list: their
+    verdict is unknown, so no verdict speaks for the node."""
+    warn_once(
+        log, "health:plain-unacquirable",
+        "burn-in skipped: none of the node's %d GPU(s) outside MIG mode is "
+        "acquirable; publishing no health labels", len(targets.plain),
     )
+
+
+def _nothing_to_probe(sched: _BurninSchedule) -> Labeler:
+    """A MIG node with neither a plain GPU nor a MIG device: no health."""
+    warn_once(
+        log, "health:nothing-to-probe",
+        "every GPU is in MIG mode and none exposes a MIG device; publishing "
+        "no health labels",
+    )
+    return _forget_health(sched)
+
+
+def _probe_mig_in_child(target, config: Config, request: dict) -> dict:
+    """One probe of one MIG device in a one-shot child pinned to it
+    (sandbox/probe.py ``run_probe``, the ``health`` op), for the
+    in-process path: one process cannot open a second MIG device. The
+    outcome in the broker's shape."""
+    from gpu_feature_discovery_tpu_torch.config.flags import DEFAULT_PROBE_TIMEOUT
+    from gpu_feature_discovery_tpu_torch.sandbox.probe import run_probe
+
+    timeout = config.flags.tfd.probe_timeout
+    result = run_probe(
+        "health", config,
+        timeout if timeout is not None else DEFAULT_PROBE_TIMEOUT,
+        pin=target.uuid, request=request,
+    )
+    if result.status == "ok":
+        return {"status": "ok", "report": result.payload,
+                "probe_ms": result.duration_s * 1e3}
+    detail = result.error or (
+        f"signal {result.term_signal}" if result.term_signal else result.stderr_tail[-200:]
+    )
+    return {"status": "probe-failed", "error": f"{result.status}: {detail}"}
+
+
+def _mig_request(per_chip: bool, shots) -> dict:
+    """A MIG probe's options: its fault shots land on its one device."""
+    sick, slow = shots
+    return {"per_chip": per_chip, "sick_chips": [0] if sick else [],
+            "slow_chips": [0] if slow else []}
+
+
+def _measure_mig_node(targets, config: Config, per_chip: bool, sick, slow,
+                      devices=None) -> dict:
+    """The in-process probe of a MIG node: ``devices`` (its plain GPUs)
+    in this process and every MIG device in a pinned child, all at once;
+    the folded report. A failure of the classic probe raises, as the
+    probe of a node without MIG does."""
+    from gpu_feature_discovery_tpu_torch.ops.healthcheck import measure_node_health
+
+    (c_sick, c_slow), mig_shots = targets.route_faults(sick, slow)
+    outcomes: Dict[str, dict] = {}
+    no_shots = (frozenset(), frozenset())
+
+    def probe(target):
+        if not target.uuid:
+            outcomes[target.key] = {"status": "probe-failed",
+                                    "error": "the MIG device has no UUID"}
+            return
+        outcomes[target.key] = _probe_mig_in_child(
+            target, config, _mig_request(per_chip, mig_shots.get(target.key, no_shots))
+        )
+
+    threads = [threading.Thread(target=probe, args=(t,), daemon=True,
+                                name="tfd-mig-probe") for t in targets.mig]
+    for thread in threads:
+        thread.start()
+    try:
+        classic = None
+        if devices:
+            classic = measure_node_health(
+                devices=devices, per_chip=per_chip, sick_chips=c_sick,
+                slow_chips=c_slow, inventory_uuids=targets.gpu_uuids,
+            )
+    finally:
+        for thread in threads:
+            thread.join()
+    return _fold(targets, classic, outcomes)
+
+
+_UNRATED = {"tflops": None, "tflops_best": None, "hbm_gbps": None}
+
+
+def _fold(targets, classic, outcomes: Dict[str, dict]) -> dict:
+    """One report for the whole MIG node, by the table of
+    resource/probe_targets.py: ``classic`` is the plain GPUs' report
+    (None when none was probed), ``outcomes`` each MIG device's probe
+    outcome by its key. ``per_chip`` entries carry their label ``index``
+    (``indexed``); a MIG device whose probe failed is unhealthy and
+    unrated, and counts in ``failed``."""
+    mig = []
+    failed = 0
+    for t in targets.mig:
+        outcome = outcomes.get(t.key) or {}
+        report = outcome.get("report") if outcome.get("status") == "ok" else None
+        if report is None:
+            failed += 1
+            log.warning("burn-in of MIG device %s (GPU %d) failed: %s", t.uuid,
+                        t.gpu, outcome.get("error") or outcome.get("status"))
+            mig.append((t, {"healthy": False, **_UNRATED}, None))
+            continue
+        entry = (report.get("per_chip") or [{}])[0]
+        mig.append((t, {
+            "healthy": bool(report["healthy"]) and bool(entry.get("healthy", True)),
+            "tflops": entry.get("tflops"),
+            "tflops_best": entry.get("tflops_best"),
+            "hbm_gbps": entry.get("hbm_gbps"),
+        }, report))
+    reports = [r for r in [classic] + [r for _, _, r in mig] if r is not None]
+    folded = {
+        "healthy": all(e["healthy"] for _, e, _ in mig)
+        and (classic is None or bool(classic["healthy"])),
+        "timing": next((r["timing"] for r in reports if r.get("timing")), None),
+        "phases": dict((reports[0].get("phases") or {}) if reports else {}),
+        "ici_ok": classic.get("ici_ok") if classic else None,
+        "indexed": True,
+        "failed": failed,
+    }
+    for key in ("ici_gbps", "chips_allreduce_ok"):
+        if classic and key in classic:
+            folded[key] = classic[key]
+    if targets.per_mig_device:
+        entries = [dict(e, index=t.index) for t, e, _ in mig]
+        rates = [e["tflops"] for e in entries if e["tflops"] is not None]
+        hbm = [e["hbm_gbps"] for e in entries]
+        folded["tflops"] = min(rates) if rates else None
+        folded["hbm_gbps"] = min(hbm) if hbm and None not in hbm else None
+    else:
+        folded["tflops"] = classic["tflops"] if classic else None
+        folded["hbm_gbps"] = classic.get("hbm_gbps") if classic else None
+        entries = _plain_entries(targets, classic)
+        by_gpu: Dict[int, list] = {}
+        for t, e, _ in mig:
+            by_gpu.setdefault(t.gpu, []).append(e["healthy"])
+        if entries is not None:
+            entries += [{"index": gpu, "healthy": all(oks), **_UNRATED}
+                        for gpu, oks in by_gpu.items()]
+            entries.sort(key=lambda e: e["index"])
+    if not targets.per_device:
+        warn_once(
+            log, "health:mig-invalid-single",
+            "topology strategy single is invalid on this node (%s); "
+            "publishing no per-device health labels", targets.problem,
+        )
+        entries = []
+    elif entries is None:
+        warn_once(
+            log, "health:unjoined-plain",
+            "CUDA lists %d device(s) that are not the node's %d GPU(s) "
+            "outside MIG one to one by UUID; publishing no per-device health "
+            "labels", len((classic or {}).get("per_chip") or []), len(targets.plain),
+        )
+        entries = []
+    folded["per_chip"] = entries
+    return folded
+
+
+def _plain_entries(targets, classic) -> Optional[list]:
+    """The classic report's entries, each with its GPU's NVML index; None
+    when they are not the node's plain GPUs one to one."""
+    table = (classic or {}).get("per_chip") or []
+    if len(table) != len(targets.plain):
+        return None
+    where = nvml.inventory_positions(targets.gpu_uuids, [e.get("uuid") for e in table])
+    if where is None:
+        where = dict(zip(targets.plain, range(len(table))))
+    if sorted(where) != sorted(targets.plain):
+        return None
+    return [dict(table[pos], index=i) for i, pos in where.items()]
 
 
 def _inventory_kwargs(manager) -> dict:
@@ -462,7 +708,9 @@ def _labels_from_probe(
     # below the floor is what the labels exist to surface.
     host_clock = report.get("timing") != "device-profiler"
     tflops = report["tflops"]
-    if _rate_plausible(tflops, host_clock, peak_tf):
+    if tflops is None:
+        pass  # a MIG node with no plain GPU: no GPU's rate to publish
+    elif _rate_plausible(tflops, host_clock, peak_tf):
         labels[HEALTH_TFLOPS] = str(int(tflops))
     elif host_clock and tflops < 1.0:
         warn_once(
@@ -505,21 +753,11 @@ def _labels_from_probe(
     chip_probes, threshold = _chip_probe_opts(config)
     table = report.get("per_chip") or []
     if chip_probes and table:
-        indices = _label_indices(manager, table)
-        if _mig_enabled(manager):
-            # The probe ran on the devices CUDA lists: under MIG the GPUs
-            # outside MIG plus one MIG device, not the inventory's GPUs,
-            # so a per-device label would contradict gpu.count.
-            warn_once(
-                log,
-                "health:mig-per-device",
-                "MIG is enabled on this node: the probe measures the %d "
-                "device(s) CUDA lists, not the node's GPUs; publishing no "
-                "per-device health labels",
-                len(table),
-            )
-            sched.straggler = None
-        elif indices is None:
+        if report.get("indexed"):
+            indices = [e["index"] for e in table]
+        else:
+            indices = _label_indices(manager, table)
+        if indices is None:
             warn_once(
                 log,
                 "health:unjoined-per-device",
@@ -578,7 +816,14 @@ def _labels_from_probe(
             ici_gbps = None
         if ici_gbps:
             labels[HEALTH_ICI_GBPS] = str(int(ici_gbps))
-    sched.consecutive_failures = 0
+    if report.get("failed"):
+        # A MIG device's probe failed: its verdict is false this round, and
+        # as after a failed probe the next cycle probes again, unless the
+        # failure repeats.
+        sched.consecutive_failures += 1
+        sched.reprobe = sched.consecutive_failures < 2
+    else:
+        sched.consecutive_failures = 0
     sched.cached = Labels(
         {k: v for k, v in labels.items() if k != HEALTH_PROBE_MS}
     )
@@ -601,6 +846,9 @@ def _broker_health_labels(manager, broker, config: Config) -> Labeler:
     if not sched.due(interval):
         log.debug("burn-in not due; republishing cached health labels")
         return sched.cached
+    targets = _targets(manager, config)
+    if targets is not None:
+        return _broker_mig_round(sched, manager, broker, config, targets)
     chip_probes, _ = _chip_probe_opts(config)
     # chip.<i>.* shots are consumed HERE (this process owns the registry)
     # and shipped in the RPC, but only when this RPC may START a probe:
@@ -672,3 +920,141 @@ def _broker_health_labels(manager, broker, config: Config) -> Labeler:
     return _labels_from_probe(
         sched, manager, config, outcome.get("report") or {}, None, probe_ms
     )
+
+
+class _MigRound:
+    """One probing round of a MIG node through the broker: the fault
+    shots routed at its start, the outcome of each probe as it comes
+    (``"classic"`` for the plain GPUs' worker, a MIG target's key for its
+    pinned worker), and which probes were started (and so took their
+    shots)."""
+
+    def __init__(self, targets, sick, slow):
+        self.targets = targets
+        self.classic_shots, self.mig_shots = targets.route_faults(sick, slow)
+        self.outcomes: Dict[str, dict] = {}
+        self.started: set = set()
+
+    def unpublished_shots(self, dropping: bool = False) -> tuple:
+        """The label indices of every shot whose probe has not returned,
+        and, when the round is ``dropping`` its outcomes, of every MIG
+        probe that returned ok (a failed probe's shots went back when it
+        returned)."""
+        pending = [
+            v for k, v in self.mig_shots.items()
+            if k not in self.outcomes
+            or (dropping and self.outcomes[k].get("status") == "ok")
+        ]
+        if "classic" not in self.outcomes:
+            pending.append(self.classic_shots)
+        sick = set().union(*(shots[0] for shots in pending))
+        slow = set().union(*(shots[1] for shots in pending))
+        return sick, slow
+
+
+def _broker_mig_round(sched, manager, broker, config: Config, targets) -> Labeler:
+    """The broker path on a MIG node: the classic worker probes the plain
+    GPUs, one pinned worker per MIG device probes that device, all asked
+    at once and each within its own deadline. Outcomes are collected over
+    cycles until every probe has one; meanwhile the last round's labels
+    stand (none before the first). A pinned worker that dies, hangs or
+    will not spawn is its own device's failed verdict; the classic
+    worker's death fails the cycle, as on a node without MIG."""
+    from gpu_feature_discovery_tpu_torch.sandbox import broker as broker_mod
+    from gpu_feature_discovery_tpu_torch.utils import faults
+
+    if not targets.plain and not targets.mig:
+        return _nothing_to_probe(sched)
+    chip_probes, _ = _chip_probe_opts(config)
+    broker_mod.retire_mig_brokers({t.key for t in targets.mig})
+    rnd = sched.mig_round
+    if rnd is None or rnd.targets != targets:
+        if rnd is not None:
+            faults.rearm_chip_faults(*rnd.unpublished_shots())
+        sick, slow = faults.consume_chip_faults() if chip_probes else (frozenset(), frozenset())
+        rnd = sched.mig_round = _MigRound(targets, sick, slow)
+    no_shots = (frozenset(), frozenset())
+    classic_error = []
+
+    def ask_classic():
+        shots = no_shots if "classic" in rnd.started else rnd.classic_shots
+        rnd.started.add("classic")
+        try:
+            outcome = broker.health(
+                per_chip=chip_probes, sick_chips=sorted(shots[0]),
+                slow_chips=sorted(shots[1]), inventory_uuids=targets.gpu_uuids,
+            )
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            classic_error.append(e)
+            return
+        if outcome.get("status") == "unacquirable":
+            # The worker launched no probe: its shots go back.
+            faults.rearm_chip_faults(*shots)
+        if outcome.get("status") != "warming":
+            rnd.outcomes["classic"] = outcome
+
+    def ask_mig(target):
+        shots = rnd.mig_shots.get(target.key, no_shots)
+        try:
+            if not target.uuid:
+                raise RuntimeError("the MIG device has no UUID")
+            client = broker_mod.get_mig_broker(config, target)
+            if not client.ready_or_spawning():
+                return  # spawning: warming
+            request = _mig_request(chip_probes, no_shots if target.key in rnd.started else shots)
+            rnd.started.add(target.key)
+            outcome = client.health(**request)
+        except Exception as e:  # noqa: BLE001 - this device's verdict only
+            outcome = {"status": "probe-failed", "error": str(e)}
+        if outcome.get("status") == "warming":
+            return
+        if outcome.get("status") != "ok":
+            faults.rearm_chip_faults(*shots)
+        rnd.outcomes[target.key] = outcome
+
+    threads = [threading.Thread(target=ask_mig, args=(t,), daemon=True, name="tfd-mig-health")
+               for t in targets.mig if t.key not in rnd.outcomes]
+    for thread in threads:
+        thread.start()
+    try:
+        if targets.plain and "classic" not in rnd.outcomes:
+            ask_classic()
+    finally:
+        for thread in threads:
+            thread.join()
+    if classic_error:
+        faults.rearm_chip_faults(*rnd.unpublished_shots())
+        sched.mig_round = None
+        raise classic_error[0]
+    if rnd.outcomes.get("classic", {}).get("status") == "unacquirable":
+        # As on a node without MIG: the plain GPUs' verdict is unknown, so
+        # no verdict speaks for the node; the MIG probes' shots go back.
+        faults.rearm_chip_faults(*rnd.unpublished_shots(dropping=True))
+        sched.mig_round = None
+        _warn_plain_unlisted(targets)
+        return _forget_health(sched)
+    missing = [k for k in [t.key for t in targets.mig] + (["classic"] if targets.plain else [])
+               if k not in rnd.outcomes]
+    if missing:
+        log.info(
+            "burn-in of %d of %d MIG node probe(s) still warming; republishing "
+            "the last round's health labels", len(missing),
+            len(targets.mig) + bool(targets.plain),
+        )
+        return sched.cached if sched.cached is not None else Empty()
+    sched.mig_round = None
+    classic = rnd.outcomes.get("classic")
+    probe_ms = max(float(o.get("probe_ms") or 0.0) for o in rnd.outcomes.values())
+    prewarm = [float(o["prewarm_ms"]) for o in rnd.outcomes.values() if o.get("prewarm_ms")]
+    if prewarm:
+        obs_metrics.FIRST_PROBE_COMPILE.set(max(prewarm) / 1e3)
+    if classic is not None and classic.get("status") == "probe-failed":
+        return _labels_from_probe(
+            sched, manager, config, None, classic.get("error", ""), probe_ms
+        )
+    report = _fold(
+        targets,
+        classic.get("report") if classic and classic.get("status") == "ok" else None,
+        rnd.outcomes,
+    )
+    return _labels_from_probe(sched, manager, config, report, None, probe_ms)

@@ -137,22 +137,11 @@ def _new_single_strategy_labeler(info: SliceInfo, config: Config) -> Labeler:
     if not enabled:
         return Empty()
 
-    if info.any_slice_enabled_chip_is_empty():
-        return _new_invalid_strategy_labeler(
-            enabled[0], "at least one GPU is MIG-enabled but exposes no MIG device"
-        )
-
-    if info.get_chips_with_slices_disabled():
-        return _new_invalid_strategy_labeler(
-            enabled[0], "GPUs with MIG enabled and disabled detected"
-        )
+    problem = info.single_strategy_problem()
+    if problem is not None:
+        return _new_invalid_strategy_labeler(enabled[0], problem)
 
     resources = _count_slice_resources(info, lambda profile: FULL_GPU_RESOURCE)
-    if len(resources) != 1:
-        return _new_invalid_strategy_labeler(
-            enabled[0], "more than one MIG profile present on node"
-        )
-
     return _new_slice_device_labelers(resources, config)
 
 

@@ -31,6 +31,9 @@ A GPU's UUID joins NVML's index to CUDA's device ordinal, which may
 differ (``CUDA_VISIBLE_DEVICES``, ``CUDA_DEVICE_ORDER``): NVML spells it
 ``GPU-<hex>``, torch's ``_CUuuid`` prints the bare hex, and
 :func:`normalize_uuid` is the one spelling both sides are compared in.
+A MIG device's UUID (``nvmlDeviceGetUUID`` on its MIG handle) is NVML's
+``MIG-<hex>``: the name ``CUDA_VISIBLE_DEVICES`` pins a process to that
+one device by.
 """
 
 from __future__ import annotations
@@ -167,11 +170,12 @@ def normalize_bus_id(bus_id: str) -> str:
 
 
 def normalize_uuid(value) -> str:
-    """A GPU UUID in the spelling joins compare: NVML's
-    ``GPU-2B7F...`` and the ``str()`` of torch's ``_CUuuid`` (the same
-    hex, no prefix) both become the lower-case bare hex; "" for none."""
+    """A GPU or MIG UUID in the spelling joins compare: NVML's
+    ``GPU-2B7F...`` or ``MIG-2B7F...`` and the ``str()`` of torch's
+    ``_CUuuid`` (the same hex, no prefix) all become the lower-case bare
+    hex; "" for none."""
     text = str(value or "").strip().lower()
-    return text[4:] if text.startswith("gpu-") else text
+    return text[4:] if text.startswith(("gpu-", "mig-")) else text
 
 
 def inventory_positions(
@@ -190,7 +194,8 @@ def inventory_positions(
 
 @dataclass(frozen=True)
 class MigDeviceInfo:
-    """One MIG device, from ``nvmlDeviceGetAttributes_v2`` on its handle."""
+    """One MIG device, from ``nvmlDeviceGetAttributes_v2`` and
+    ``nvmlDeviceGetUUID`` on its handle."""
 
     slot: int
     multiprocessors: int
@@ -202,6 +207,7 @@ class MigDeviceInfo:
     gi_slices: int
     ci_slices: int
     memory_mb: int
+    uuid: str = ""  # NVML's spelling, "MIG-<hex>"
 
     @property
     def profile(self) -> str:
@@ -385,6 +391,7 @@ class Nvml:
                 gi_slices=a.gpuInstanceSliceCount,
                 ci_slices=a.computeInstanceSliceCount,
                 memory_mb=a.memorySizeMB,
+                uuid=self.uuid(mig),
             ))
         return tuple(out)
 

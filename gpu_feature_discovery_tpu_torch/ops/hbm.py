@@ -126,13 +126,19 @@ def tile_ranges(num_tiles: int, num_blocks: int) -> list:
     return ranges
 
 
-@functools.lru_cache(maxsize=None)
-def _grid(device: torch.device, num_tiles: int) -> Tuple[int, int, int]:
-    """(blocks, base, extra) of the kernel's launch over ``num_tiles`` on
-    ``device``: the persistent grid and its tile_ranges partition."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def _partition(num_tiles: int, sms: int) -> Tuple[int, int, int]:
+    """(blocks, base, extra): the persistent grid for ``sms`` SMs and its
+    tile_ranges partition."""
     blocks = grid_blocks(num_tiles, sms)
     return (blocks, *divmod(num_tiles, blocks))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid(device: torch.device, num_tiles: int) -> Tuple[int, int, int]:
+    """The kernel's launch over ``num_tiles`` on ``device``: the
+    persistent grid for the device's SMs."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _partition(num_tiles, sms)
 
 
 @functools.lru_cache(maxsize=16)
@@ -181,11 +187,26 @@ def hbm_stream_sum(buf: torch.Tensor) -> torch.Tensor:
         return hbm_stream_sum_reference(buf)
     if buf.device.type != "cuda":
         raise ValueError(f"buffer must be on a CUDA device or the CPU, not {buf.device}")
+    return _launch(buf)
+
+
+def _launch(buf: torch.Tensor, sms: Optional[int] = None) -> torch.Tensor:
+    """hbm_stream_sum's launch on a checked CUDA buffer, counted in
+    ``hbm_stream_sum.launches``. ``sms`` sizes the persistent grid for
+    that many SMs instead of the device's (at most the device's): the
+    grid a MIG device of that many SMs gives the kernel, which only the
+    smoke script's grid sweep asks for."""
     if buf.data_ptr() % 16:
         raise ValueError("buffer must be 16-byte aligned (TMA bulk copies)")
-    lib = _kernel_library()
     device = buf.device
-    blocks, base, extra = _grid(device, buf.shape[0] // TILE_ROWS)
+    num_tiles = buf.shape[0] // TILE_ROWS
+    if sms is None:
+        blocks, base, extra = _grid(device, num_tiles)
+    elif 1 <= sms <= torch.cuda.get_device_properties(device).multi_processor_count:
+        blocks, base, extra = _partition(num_tiles, sms)
+    else:
+        raise ValueError(f"sms {sms} outside 1..the device's SM count")
+    lib = _kernel_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         partials, counter = launch_scratch(device, stream)

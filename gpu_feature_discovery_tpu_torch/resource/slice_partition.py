@@ -4,7 +4,8 @@
 The reference's nvml-mig-device (internal/resource/nvml-mig-device.go):
 one MIG device of a MIG-enabled GPU, named by its profile
 (``[<ci>c.]<gi>g.<gb>gb``) and described by the attribute family NVML's
-``nvmlDeviceGetAttributes_v2`` reports for it. It keeps the twin's
+``nvmlDeviceGetAttributes_v2`` reports for it; its ``MIG-`` UUID is what
+a probe worker is pinned by (resource/probe_targets.py). It keeps the twin's
 asymmetry: the attribute and parent methods work, the full-GPU methods
 raise.
 """
@@ -47,3 +48,6 @@ class MigPartition(Chip):
 
     def get_generation(self) -> Tuple[int, int]:
         return self._parent.get_generation()
+
+    def get_uuid(self) -> str:
+        return self._info.uuid

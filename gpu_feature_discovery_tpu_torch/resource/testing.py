@@ -207,7 +207,9 @@ class FakeGpu:
     ``mig_mode`` None = not MIG-capable (GetMigMode answers
     NOT_SUPPORTED); ``mig`` lists the populated MIG slots' profiles, None
     for an empty slot. ``uuid`` "" = FakeNvml gives the GPU
-    ``fake_uuid`` of its position."""
+    ``fake_uuid`` of its position; ``mig_uuids`` names slot j's MIG
+    device ``mig_uuids[j]`` where given (a stand-in may name a real card's
+    ``GPU-`` UUID there), else ``fake_mig_uuid`` of its GPU and slot."""
 
     name: str = H100_NAME
     memory_total_bytes: int = H100_MEMORY_BYTES
@@ -216,12 +218,19 @@ class FakeGpu:
     mig_mode: Optional[int] = 0
     mig: Sequence[Optional[str]] = ()
     uuid: str = ""
+    mig_uuids: Sequence[str] = ()
 
 
 def fake_uuid(index: int) -> str:
     """The deterministic UUID of a FakeNvml's GPU ``index``, in NVML's
     spelling."""
     return f"GPU-{index:08x}-7e1d-4c3a-9b5f-{0xfa4e0000 + index:012x}"
+
+
+def fake_mig_uuid(index: int, slot: int) -> str:
+    """The deterministic UUID of MIG slot ``slot`` of a FakeNvml's GPU
+    ``index``, in NVML's spelling."""
+    return f"MIG-{index:08x}-{slot:04x}-4d6e-8a2b-{0x5e1f0000 + 16 * index + slot:012x}"
 
 
 class _Entry:
@@ -319,10 +328,15 @@ class FakeNvml:
         return _put_string(buf, length, gpu.name)
 
     def _nvmlDeviceGetUUID(self, handle, buf, length) -> int:
-        gpu = self._full_gpu(handle)
+        gpu, slot = self._gpu(handle)
         if gpu is None:
             return 2
-        return _put_string(buf, length, gpu.uuid)
+        if slot is None:
+            return _put_string(buf, length, gpu.uuid)
+        if slot < len(gpu.mig_uuids):
+            return _put_string(buf, length, gpu.mig_uuids[slot])
+        index = (handle.value or 0) // 16 - 1
+        return _put_string(buf, length, fake_mig_uuid(index, slot))
 
     def _nvmlDeviceGetMemoryInfo(self, handle, ptr) -> int:
         gpu = self._full_gpu(handle)

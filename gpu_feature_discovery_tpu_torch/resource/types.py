@@ -44,8 +44,8 @@ class Chip(ABC):
     def get_generation(self) -> Tuple[int, int]: ...
 
     def get_uuid(self) -> str:
-        """The device's UUID (NVML's ``GPU-<hex>``); "" where the backend
-        has none (mocks, partitions)."""
+        """The device's UUID: NVML's ``GPU-<hex>`` for a GPU, ``MIG-<hex>``
+        for a MIG partition; "" where the backend has none (mocks)."""
         return ""
 
 

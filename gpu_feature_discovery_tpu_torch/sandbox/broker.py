@@ -30,6 +30,15 @@ gpu-family worker imports the probe, pre-warms and runs the burn-in and
 ``hbm_stream_sum``; the cpu family's never imports torch and never
 creates a CUDA context.
 
+On a node with GPUs in MIG mode, CUDA shows a process at most one MIG
+device, so each MIG device gets a worker of its own beside the classic
+one: a pinned client (``get_mig_broker``, keyed in the same map) whose
+worker starts with ``CUDA_VISIBLE_DEVICES=<MIG UUID>``, acquires that
+device, pre-warms and answers ``health``. The classic worker then probes
+only the plain GPUs. Pinned workers spawn on background threads
+(``ready_or_spawning``), all at once, and each keeps its own deadline,
+kill and respawn: a wedged MIG worker costs its own device's verdict.
+
 Fault sites (``TFD_FAULT_SPEC``): a spawn fires ``pjrt_init`` and
 consumes ``probe.timeout``/``probe.hang``/``probe.segv`` (a spawn IS an
 acquisition); requests consume ``broker.hang`` / ``broker.crash``. All
@@ -213,12 +222,31 @@ def _child_read_request(fd: int, buf: bytes) -> Tuple[Optional[bytes], bytes]:
 HEALTH_WAIT_S = 2.0
 
 
+def health_options(req: dict) -> dict:
+    """``measure_node_health``'s per-chip options from a ``health``
+    request: ``per_chip`` (--chip-probes), the ``chip.<i>.sick`` /
+    ``chip.<i>.slow`` indices and the ``inventory_uuids`` they index."""
+    opts: dict = {}
+    if "per_chip" in req:
+        opts["per_chip"] = bool(req["per_chip"])
+    if req.get("sick_chips"):
+        opts["sick_chips"] = frozenset(int(i) for i in req["sick_chips"])
+    if req.get("slow_chips"):
+        opts["slow_chips"] = frozenset(int(i) for i in req["slow_chips"])
+    if req.get("inventory_uuids"):
+        opts["inventory_uuids"] = [str(u) for u in req["inventory_uuids"]]
+    return opts
+
+
 class _HealthProbe:
     """Worker-side async burn-in: one probe thread at a time; requests
-    collect the outcome when ready and get ``warming`` in between."""
+    collect the outcome when ready and get ``warming`` in between.
+    ``acquire`` returns the devices to probe, or None (default: every
+    device the probe can acquire)."""
 
-    def __init__(self, chip_lock: threading.Lock):
+    def __init__(self, chip_lock: threading.Lock, acquire=None):
         self._chip_lock = chip_lock
+        self._acquire = acquire
         self._thread: Optional[threading.Thread] = None
         self._outcome: Optional[dict] = None
         # The pre-warm's ms: it paid first use, so the probes after it
@@ -254,28 +282,18 @@ class _HealthProbe:
         ``warming`` while the probe (or the pre-warm holding the chip
         lock) still runs.
 
-        ``req`` carries the parent-consumed per-chip options: ``per_chip``
-        (--chip-probes), the ``chip.<i>.sick`` / ``chip.<i>.slow``
-        indices and the ``inventory_uuids`` they index, bound into the
-        probe THREAD at its start; and ``wait_s``, the bounded wait."""
+        ``req`` carries the parent-consumed per-chip options
+        (``health_options``), bound into the probe THREAD at its start;
+        and ``wait_s``, the bounded wait."""
         req = req or {}
         if self._thread is None:
-            from gpu_feature_discovery_tpu_torch.lm.health import _acquire_devices
+            from gpu_feature_discovery_tpu_torch.lm import health
 
-            devices = _acquire_devices()
+            devices = (self._acquire or health._acquire_devices)()
             if devices is None:
                 return {"status": "unacquirable"}
-            opts: dict = {}
-            if "per_chip" in req:
-                opts["per_chip"] = bool(req["per_chip"])
-            if req.get("sick_chips"):
-                opts["sick_chips"] = frozenset(int(i) for i in req["sick_chips"])
-            if req.get("slow_chips"):
-                opts["slow_chips"] = frozenset(int(i) for i in req["slow_chips"])
-            if req.get("inventory_uuids"):
-                opts["inventory_uuids"] = [str(u) for u in req["inventory_uuids"]]
             self._thread = threading.Thread(
-                target=self._run, args=(devices, opts),
+                target=self._run, args=(devices, health_options(req)),
                 name="tfd-broker-health", daemon=True,
             )
             self._thread.start()
@@ -289,19 +307,21 @@ class _HealthProbe:
         return outcome or {"status": "probe-failed", "error": "probe thread died"}
 
 
-def _child_prewarm(health_probe: _HealthProbe, per_chip: bool = True) -> None:
+def _child_prewarm(health_probe: _HealthProbe, per_chip: bool = True,
+                   acquire=None) -> None:
     """Warm-start: build the kernel, capture the burn-in graph and run
     every probe once right after init, OFF the label-serving path (a
     background thread: ``snapshot`` requests serve meanwhile), so the
     first health cycle does not pay first use. It launches
     ``hbm_stream_sum`` once, and its ms ride the first ok health outcome
-    (``prewarm_ms``). Best-effort: on failure the first health request
-    warms up itself."""
+    (``prewarm_ms``). ``acquire`` gives the devices the worker probes
+    (None: the probe's default). Best-effort: on failure the first health
+    request warms up itself."""
     try:
         from gpu_feature_discovery_tpu_torch.lm.health import _acquire_devices
 
-        devices = _acquire_devices()
-        if devices is None:
+        devices = (acquire or _acquire_devices)()
+        if not devices:
             return
         from gpu_feature_discovery_tpu_torch.ops.healthcheck import (
             warm_probe_kernels_for,
@@ -316,25 +336,56 @@ def _child_prewarm(health_probe: _HealthProbe, per_chip: bool = True) -> None:
         log.debug("broker kernel pre-warm failed:", exc_info=True)
 
 
+def _classic_devices(manager):
+    """The devices a classic worker probes: every device CUDA lists, or,
+    with a GPU in MIG mode, only those that are plain GPUs of the
+    worker's inventory, None when there are none (each MIG device has a
+    pinned worker of its own)."""
+    from gpu_feature_discovery_tpu_torch.lm import health
+    from gpu_feature_discovery_tpu_torch.resource.probe_targets import probe_targets
+
+    def acquire():
+        devices = health._acquire_devices()
+        targets = probe_targets(manager)
+        if devices is None or targets is None:
+            return devices
+        return health.only_devices(devices, targets.plain_uuids) or None
+
+    return acquire
+
+
 def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"",
-                backend: Optional[str] = None) -> None:
+                backend: Optional[str] = None, pin: Optional[str] = None) -> None:
     """The worker body: select + init the backend ONCE, report ready,
     then serve requests until EOF or a shutdown request. Never returns;
     every path leaves through os._exit. ``buf`` holds request bytes read
     past the first (config) frame. ``backend`` keys the worker to one
     registry token, whose provider it builds instead of the classic
-    selection; only a gpu-family worker runs the burn-in."""
+    selection; only a gpu-family worker runs the burn-in. A worker with a
+    ``pin`` (a MIG device's UUID, which its ``CUDA_VISIBLE_DEVICES``
+    names) builds no backend: it acquires its one device and serves
+    ``health`` alone."""
     from gpu_feature_discovery_tpu_torch.resource import factory, registry
 
-    gpu_worker = backend is None or (
+    gpu_worker = pin is not None or backend is None or (
         registry.provider_for(backend).family == registry.FAMILY_GPU
     )
+    manager = acquire = None
     try:
-        if backend is None:
-            manager = factory.select_manager(config)
+        if pin is not None:
+            from gpu_feature_discovery_tpu_torch.lm.health import pinned_devices
+
+            if pinned_devices() is None:
+                raise ResourceError(f"the device pinned by {pin} is not acquirable")
+            acquire = pinned_devices
         else:
-            manager = registry.select_backend_manager(config, backend)
-        manager.init()
+            if backend is None:
+                manager = factory.select_manager(config)
+            else:
+                manager = registry.select_backend_manager(config, backend)
+            manager.init()
+            if gpu_worker:
+                acquire = _classic_devices(manager)
         if config.flags.tfd.with_burnin and gpu_worker:
             # The probe's imports (torch) belong to the spawn, under its
             # budget, not to the first health request's bounded wait.
@@ -351,7 +402,7 @@ def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"",
 
     # Serialises the devices between the pre-warm and health requests.
     chip_lock = threading.Lock()
-    health_probe = _HealthProbe(chip_lock)
+    health_probe = _HealthProbe(chip_lock, acquire)
     if config.flags.tfd.with_burnin and gpu_worker:
         from gpu_feature_discovery_tpu_torch.lm.health import _chip_probe_opts
 
@@ -359,7 +410,7 @@ def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"",
             target=_child_prewarm,
             # The parent's resolution: --chip-probes=off must not warm the
             # per-device verdict pass.
-            args=(health_probe, _chip_probe_opts(config)[0]),
+            args=(health_probe, _chip_probe_opts(config)[0], acquire),
             name="tfd-broker-prewarm",
             daemon=True,
         ).start()
@@ -386,12 +437,12 @@ def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"",
         try:
             if op == "ping":
                 resp = {"status": "ok"}
-            elif op == "snapshot":
+            elif op == "snapshot" and manager is not None:
                 resp = {
                     "status": "ok",
                     "snapshot": DeviceSnapshot.from_manager(manager).to_dict(),
                 }
-            elif op == "health" and gpu_worker:
+            elif op == "health" and acquire is not None:
                 resp = health_probe.request(req)
             elif op == "shutdown":
                 try:
@@ -424,9 +475,14 @@ class BrokerClient:
     under one lock (the engine's health thread and the run loop's
     snapshot refresh may overlap); ``kill_child`` takes only the pid lock
     so a deadline-escalation cancel can fire while a request is blocked
-    mid-read."""
+    mid-read. A client with a ``pin`` (a MIG device's UUID) runs a worker
+    that sees that one device (``CUDA_VISIBLE_DEVICES``) and serves
+    ``health`` alone; its spawn is no backend acquisition, so it fires no
+    acquisition fault site and counts no init attempt, and its requests
+    consume no ``broker.*`` shot."""
 
-    def __init__(self, config, backend: Optional[str] = None):
+    def __init__(self, config, backend: Optional[str] = None,
+                 pin: Optional[str] = None):
         from gpu_feature_discovery_tpu_torch.config.flags import (
             DEFAULT_INIT_BACKOFF_MAX,
             DEFAULT_PROBE_TIMEOUT,
@@ -436,6 +492,10 @@ class BrokerClient:
         tfd = config.flags.tfd
         self._config = config
         self._backend = backend
+        self._pin = pin
+        # ready_or_spawning's background spawn and the error it ended in.
+        self._bg_spawn: Optional[threading.Thread] = None
+        self._bg_error: Optional[BaseException] = None
         self._timeout_s = (
             tfd.probe_timeout if tfd.probe_timeout is not None else DEFAULT_PROBE_TIMEOUT
         )
@@ -502,30 +562,35 @@ class BrokerClient:
                 f"{self._next_spawn - now:.3f}s after "
                 f"{self._spawn_failures} consecutive failure(s)"
             )
-        # The spawn IS the backend acquisition: the pjrt_init site fires
-        # here, once per worker lifetime; a rebuild that reuses the live
-        # worker fires nothing.
-        obs_metrics.BACKEND_INIT_ATTEMPTS.inc()
-        try:
-            faults.maybe_inject("pjrt_init")
-            if faults.consume("probe.timeout"):
-                raise BrokerTimeout(
-                    f"injected fault at 'probe.timeout' "
-                    f"({faults.FAULT_SPEC_ENV}): broker spawn treated as "
-                    f"exceeding its {self._timeout_s:.1f}s budget"
-                )
-        except BaseException:
-            self._spawn_failed(now)
-            raise
-        hang = faults.consume("probe.hang")
-        segv = False if hang else faults.consume("probe.segv")
+        hang = segv = False
+        if self._pin is None:
+            # The spawn IS the backend acquisition: the pjrt_init site
+            # fires here, once per worker lifetime; a rebuild that reuses
+            # the live worker fires nothing.
+            obs_metrics.BACKEND_INIT_ATTEMPTS.inc()
+            try:
+                faults.maybe_inject("pjrt_init")
+                if faults.consume("probe.timeout"):
+                    raise BrokerTimeout(
+                        f"injected fault at 'probe.timeout' "
+                        f"({faults.FAULT_SPEC_ENV}): broker spawn treated as "
+                        f"exceeding its {self._timeout_s:.1f}s budget"
+                    )
+            except BaseException:
+                self._spawn_failed(now)
+                raise
+            hang = faults.consume("probe.hang")
+            segv = False if hang else faults.consume("probe.segv")
 
         stderr_file = tempfile.NamedTemporaryFile(
             prefix="tfd-broker-stderr-", delete=False
         )
         stderr_file.close()
         start = time.monotonic()
-        pid, req_w, resp_r = probe.spawn_child("broker", stderr_file.name)
+        pid, req_w, resp_r = probe.spawn_child(
+            "broker", stderr_file.name,
+            {"CUDA_VISIBLE_DEVICES": self._pin} if self._pin else None,
+        )
         # Registered like any probe child (kills go through the registry)
         # but exempt from the epoch-close sweep.
         probe._register(pid)
@@ -535,7 +600,7 @@ class BrokerClient:
         try:
             _write_frame(req_w, {
                 "config": config_to_dict(self._config), "backend": self._backend,
-                "hang": hang, "segv": segv,
+                "pin": self._pin, "hang": hang, "segv": segv,
             })
         except OSError:
             pass  # died already: the READY read sees EOF
@@ -628,10 +693,11 @@ class BrokerClient:
         self._stderr_path = stderr_file.name
         obs_metrics.BROKER_UP.set(1)
         log.info(
-            "broker worker %d ready in %.0f ms%s%s",
+            "broker worker %d ready in %.0f ms%s%s%s",
             pid,
             duration * 1e3,
             f" for backend {self._backend}" if self._backend else "",
+            f" pinned to {self._pin}" if self._pin else "",
             " (respawn)" if respawn else "",
         )
         watch_enabled, _ = _death_watch_state()
@@ -753,10 +819,11 @@ class BrokerClient:
             payload = {"op": op}
             if extra:
                 payload.update(extra)
-            if faults.consume("broker.hang"):
-                payload["hang"] = True
-            elif faults.consume("broker.crash"):
-                payload["crash"] = True
+            if self._pin is None:
+                if faults.consume("broker.hang"):
+                    payload["hang"] = True
+                elif faults.consume("broker.crash"):
+                    payload["crash"] = True
             pid = self.pid
             stderr_path = self._stderr_path
             start = time.monotonic()
@@ -888,6 +955,39 @@ class BrokerClient:
         if inventory_uuids:
             extra["inventory_uuids"] = [str(u) for u in inventory_uuids]
         return self.request("health", extra=extra)
+
+    def ready_or_spawning(self) -> bool:
+        """True when the worker is up. Otherwise its spawn runs on a
+        background thread (started here if none runs) and this returns
+        False at once, so a caller polling several workers never waits
+        out a spawn; a spawn that failed raises its error here, once."""
+        with self._pid_lock:
+            if self._pid is not None:
+                return True
+        thread = self._bg_spawn
+        if thread is not None and thread.is_alive():
+            return False
+        if thread is not None:
+            self._bg_spawn = None
+            error, self._bg_error = self._bg_error, None
+            if error is not None:
+                raise error
+            with self._pid_lock:
+                if self._pid is not None:
+                    return True
+        self._bg_spawn = threading.Thread(
+            target=self._background_spawn, name="tfd-broker-spawn", daemon=True
+        )
+        self._bg_spawn.start()
+        return False
+
+    def _background_spawn(self) -> None:
+        try:
+            with self._lock:
+                if not self._closed:
+                    self._ensure_running()
+        except BaseException as e:  # noqa: BLE001 - raised by ready_or_spawning
+            self._bg_error = e
 
     def ping(self) -> bool:
         return self.request("ping").get("status") == "ok"
@@ -1035,7 +1135,8 @@ def broker_enabled(config) -> bool:
 _active_lock = threading.Lock()
 # The classic path's client, one per config epoch.
 _active: Optional[BrokerClient] = None
-# The registry cycle's clients, one per backend token and epoch.
+# The registry cycle's clients, one per backend token and epoch, and on a
+# MIG node the pinned clients, one per MIG device (``MigTarget.key``).
 _keyed: Dict[str, BrokerClient] = {}
 
 
@@ -1053,6 +1154,37 @@ def get_broker(config, backend: Optional[str] = None) -> BrokerClient:
         if client is None:
             client = _keyed[backend] = BrokerClient(config, backend=backend)
         return client
+
+
+def get_mig_broker(config, target) -> BrokerClient:
+    """The pinned client of one MIG device (resource/probe_targets.py
+    ``MigTarget``), created on first use beside the classic client; its
+    worker sees that device alone, and its hangs, crashes and respawns
+    are its own."""
+    with _active_lock:
+        client = _keyed.get(target.key)
+        if client is None:
+            client = _keyed[target.key] = BrokerClient(config, pin=target.uuid)
+        return client
+
+
+def retire_mig_brokers(keep) -> None:
+    """Close the pinned clients whose MIG device left the inventory (its
+    key is not in ``keep``)."""
+    with _active_lock:
+        gone = [k for k, c in _keyed.items() if c._pin is not None and k not in keep]
+        clients = [_keyed.pop(k) for k in gone]
+    for client in clients:
+        client.close()
+
+
+def kill_pinned_children() -> None:
+    """``kill_child`` on every pinned client: the health source's deadline
+    escalation reaches the MIG workers probing for it."""
+    with _active_lock:
+        clients = [c for c in _keyed.values() if c._pin is not None]
+    for client in clients:
+        client.kill_child()
 
 
 def close_broker() -> None:

@@ -208,18 +208,22 @@ def _above(fd: int, floor: int = 10) -> int:
     return high
 
 
-def spawn_child(role: str, stderr_path: str) -> Tuple[int, int, int]:
+def spawn_child(role: str, stderr_path: str,
+                env_overlay: Optional[dict] = None) -> Tuple[int, int, int]:
     """Start ``python -m ...sandbox.worker_main <role>`` as a fresh
     process: requests on its CHILD_REQUEST_FD, answers on its
     CHILD_RESPONSE_FD, stdout and stderr into ``stderr_path``, stdin from
     /dev/null. Returns ``(pid, request_write_fd, response_read_fd)``, the
-    parent's ends. The child does not inherit the fault spec."""
+    parent's ends. The child does not inherit the fault spec;
+    ``env_overlay`` sets variables over this process's environment
+    (``CUDA_VISIBLE_DEVICES=<MIG UUID>`` pins a MIG probe)."""
     req_r, req_w = os.pipe()
     resp_r, resp_w = os.pipe()
     child_in, child_out = _above(req_r), _above(resp_w)
     err = _above(os.open(stderr_path, os.O_WRONLY | os.O_APPEND | os.O_CLOEXEC))
     env = dict(os.environ)
     env.pop(FAULT_SPEC_ENV, None)
+    env.update(env_overlay or {})
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (_IMPORT_ROOT, env.get("PYTHONPATH")) if p
     )
@@ -261,17 +265,25 @@ def run_probe(
     segv: bool = False,
     pid_box: Optional[list] = None,
     backend: Optional[str] = None,
+    pin: Optional[str] = None,
+    request: Optional[dict] = None,
 ) -> ProbeResult:
     """Run the named ``op`` (sandbox/worker_main.py PROBE_OPS) in a child
     under a hard deadline; the op returns a JSON-serialisable dict.
     ``hang``/``segv`` are the chaos behaviours (consumed by the caller,
     enacted in the child). ``pid_box``, when given, receives the child pid
     at spawn so a canceller can SIGKILL it mid-flight. ``backend`` keys
-    the child to one registry token (None: the classic selection)."""
+    the child to one registry token (None: the classic selection).
+    ``pin`` names the one device the child may see
+    (``CUDA_VISIBLE_DEVICES``, a MIG UUID); ``request`` carries the op's
+    options."""
     stderr_file = tempfile.NamedTemporaryFile(prefix="tfd-probe-stderr-", delete=False)
     stderr_file.close()
     start = time.monotonic()
-    pid, req_w, r_fd = spawn_child("probe", stderr_file.name)
+    pid, req_w, r_fd = spawn_child(
+        "probe", stderr_file.name,
+        {"CUDA_VISIBLE_DEVICES": pin} if pin else None,
+    )
     _register(pid)
     if pid_box is not None:
         pid_box.append(pid)
@@ -279,7 +291,7 @@ def run_probe(
         try:
             _write_frame(req_w, {
                 "op": op, "config": config_to_dict(config), "backend": backend,
-                "hang": hang, "segv": segv,
+                "hang": hang, "segv": segv, "pin": pin, "request": request or {},
             })
         except OSError:
             pass  # the child is already gone; its EOF tells how below

@@ -12,8 +12,9 @@ live manager.
 
 MIG partitions cross the pipe too, as the twin's slice partitions do:
 each GPU's ``SliceSnapshot`` list carries a partition's profile name,
-memory and attribute family, so the strategy labels of a brokered
-daemon equal those of the live manager, and the labeling process never
+memory, attribute family and ``MIG-`` UUID, so the strategy labels of a
+brokered daemon equal those of the live manager, the health labeler can
+pin a probe worker to each MIG device, and the labeling process never
 calls NVML.
 
 JSON rather than pickle: a child killed mid-write leaves a truncated
@@ -32,13 +33,14 @@ SNAPSHOT_VERSION = 1
 
 @dataclass
 class SliceSnapshot:
-    """One MIG partition: name (its profile), the attribute family, and
-    the whole-partition memory."""
+    """One MIG partition: name (its profile), the attribute family, the
+    whole-partition memory and its UUID."""
 
     name: str
     memory_mb: int
     generation: Tuple[int, int]
     attributes: Dict[str, object] = field(default_factory=dict)
+    uuid: str = ""
 
     def to_dict(self) -> Dict[str, object]:
         return {
@@ -46,6 +48,7 @@ class SliceSnapshot:
             "memory_mb": self.memory_mb,
             "generation": list(self.generation),
             "attributes": dict(self.attributes),
+            "uuid": self.uuid,
         }
 
     @staticmethod
@@ -55,6 +58,7 @@ class SliceSnapshot:
             memory_mb=int(d["memory_mb"]),
             generation=tuple(d["generation"]),  # type: ignore[arg-type]
             attributes=dict(d.get("attributes") or {}),
+            uuid=str(d.get("uuid") or ""),
         )
 
 
@@ -151,6 +155,7 @@ def _snapshot_chip(chip: Chip) -> ChipSnapshot:
                     memory_mb=sl.get_total_memory_mb(),
                     generation=tuple(sl.get_generation()),
                     attributes=dict(sl.get_attributes()),
+                    uuid=sl.get_uuid(),
                 )
             )
     return ChipSnapshot(
@@ -195,6 +200,9 @@ class SnapshotSlice(Chip):
 
     def get_generation(self) -> Tuple[int, int]:
         return tuple(self._snap.generation)
+
+    def get_uuid(self) -> str:
+        return self._snap.uuid
 
 
 class SnapshotChip(Chip):

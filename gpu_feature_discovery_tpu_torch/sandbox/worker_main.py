@@ -13,6 +13,10 @@ the classic path), the parent-consumed chaos behaviours (``hang``,
 - ``broker``: become the persistent worker (sandbox/broker.py
   ``_child_main``).
 
+A child started with a ``pin`` (a MIG device's UUID, which its
+``CUDA_VISIBLE_DEVICES`` names too) probes that one device: the
+``health`` op, or a broker worker that serves ``health`` alone.
+
 Every path leaves through ``os._exit``. Stdout and stderr go to the file
 the parent tails for a crash report.
 """
@@ -40,7 +44,7 @@ from gpu_feature_discovery_tpu_torch.sandbox.snapshot import DeviceSnapshot
 from gpu_feature_discovery_tpu_torch.utils import logging as tfd_logging
 
 
-def _select_and_snapshot(config, backend=None) -> dict:
+def _select_and_snapshot(config, doc: dict) -> dict:
     """Select the backend the config names (or the registry token the
     child is keyed to), init it, walk its inventory. A fresh interpreter
     cannot receive a live manager, so the twin's two probe callables (init
@@ -48,6 +52,7 @@ def _select_and_snapshot(config, backend=None) -> dict:
     names."""
     from gpu_feature_discovery_tpu_torch.resource import factory, registry
 
+    backend = doc.get("backend")
     if backend is None:
         manager = factory.select_manager(config)
     else:
@@ -56,15 +61,32 @@ def _select_and_snapshot(config, backend=None) -> dict:
     return DeviceSnapshot.from_manager(manager).to_dict()
 
 
+def _pinned_health(config, doc: dict) -> dict:
+    """One burn-in probe of the one device this child sees (pinned to a
+    MIG device by ``CUDA_VISIBLE_DEVICES``): the in-process health
+    labeler's MIG probe, which one process cannot run for a second MIG
+    device. The report of ``measure_node_health`` at the twin's
+    geometry."""
+    from gpu_feature_discovery_tpu_torch.lm.health import pinned_devices
+    from gpu_feature_discovery_tpu_torch.ops.healthcheck import measure_node_health
+    from gpu_feature_discovery_tpu_torch.sandbox.broker import health_options
+
+    devices = pinned_devices()
+    if devices is None:
+        raise RuntimeError("the pinned device is not acquirable")
+    return measure_node_health(devices=devices, **health_options(doc.get("request") or {}))
+
+
 PROBE_OPS = {
     "snapshot": _select_and_snapshot,
     "select+snapshot": _select_and_snapshot,
+    "health": _pinned_health,
 }
 
 
-def _probe_main(op: str, config, backend=None) -> None:
+def _probe_main(doc: dict, config) -> None:
     try:
-        payload = PROBE_OPS[op](config, backend)
+        payload = PROBE_OPS[doc["op"]](config, doc)
         data = {"status": "ok", "payload": payload}
     except BaseException as e:  # noqa: BLE001 - shipped to the parent
         data = {"status": "error", "error_type": type(e).__name__, "error": str(e)}
@@ -95,10 +117,10 @@ def main() -> None:
             signal.signal(signal.SIGSEGV, signal.SIG_DFL)
             os.kill(os.getpid(), signal.SIGSEGV)
         config = config_from_dict(doc["config"])
-        backend = doc.get("backend")
         if role == "probe":
-            _probe_main(doc["op"], config, backend)
-        _child_main(CHILD_REQUEST_FD, CHILD_RESPONSE_FD, config, buf, backend)
+            _probe_main(doc, config)
+        _child_main(CHILD_REQUEST_FD, CHILD_RESPONSE_FD, config, buf,
+                    doc.get("backend"), doc.get("pin"))
     finally:
         os._exit(1)
 

@@ -62,6 +62,20 @@ class SliceInfo:
             return True
         return any(not chip.get_slices() for chip in enabled)
 
+    def single_strategy_problem(self) -> Optional[str]:
+        """Why strategy=single is INVALID on this node, None when it is
+        valid (mig-strategy.go:181-241): a MIG-enabled GPU exposing no MIG
+        device, MIG-enabled and plain GPUs mixed, or more than one profile.
+        Meaningful only when some GPU is MIG-enabled: with none, single is
+        strategy none."""
+        if self.any_slice_enabled_chip_is_empty():
+            return "at least one GPU is MIG-enabled but exposes no MIG device"
+        if self.get_chips_with_slices_disabled():
+            return "GPUs with MIG enabled and disabled detected"
+        if len({s.get_name() for s in self.get_all_slices()}) != 1:
+            return "more than one MIG profile present on node"
+        return None
+
     def get_all_slices(self) -> List[Chip]:
         """Every MIG device across all MIG-enabled GPUs (mig.go:109-124)."""
         slices: List[Chip] = []

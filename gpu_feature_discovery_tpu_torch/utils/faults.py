@@ -53,6 +53,11 @@ Sites this port wires:
     chip.<i>.slow      device <i>'s measured rate is scaled by
                        SLOW_CHIP_FACTOR for one probe; straggler
                        confirmation takes 2 consecutive probes
+                       On a node with GPUs in MIG mode <i> is the label
+                       index (resource/probe_targets.py): a MIG device
+                       under a valid single strategy; under none/mixed a
+                       plain GPU, or on a MIG-enabled GPU that GPU's first
+                       MIG device, whose pinned worker enacts it
     peer.unreachable   slice coordination (peering/): this daemon's
                        /peer/snapshot handler drops the connection with
                        no response on the next N polls, as a dead host
@@ -90,8 +95,8 @@ countdown must live where the scenario is driven: a child-side countdown
 would count in a registry that dies with the child, re-fire in every new
 child, and no scenario could converge. ``chip.*`` is consumed by the
 health labeler (lm/health.py) once per PROBING cycle and shipped to
-wherever the probe runs: in process, or the broker worker's ``health``
-RPC. The ``peer.*`` sites and ``notify.slow``/``notify.reject`` are
+wherever the probe runs: in process, the broker worker's ``health`` RPC,
+or on a MIG node the worker or child pinned to the MIG device it names. The ``peer.*`` sites and ``notify.slow``/``notify.reject`` are
 consumed and enacted in the SERVING daemon's handler (obs/server.py; the
 two tier sites through the coordinator's gate), and ``notify.drop`` in
 the sending child's NotifySender, where each misbehaviour lives.

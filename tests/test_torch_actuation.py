@@ -640,6 +640,47 @@ def test_slice_budget_caps_advised_hosts_end_to_end(tmp_path):
             assert not advice_present(doc["labels"]) and doc["chips"]["sick"] == 1
 
 
+def test_a_sick_mig_device_reaches_slice_sick_chips_and_cordon_advice(tmp_path, monkeypatch):
+    """Three coordinated daemons on ``mixed`` MIG nodes (mock-nvml), each
+    probing its MIG devices through its own burn-in, with GPU 1's first
+    MIG device sick (the pinned probes stand in process,
+    tests/torch_mig_fakes.py): each node's own verdict reads chips.sick=1,
+    and the leader's slice.sick-chips and the budget-capped cordon advice
+    are those of three nodes with one sick GPU each."""
+    from torch_mig_fakes import MigWorkers
+
+    cli = {"actuation": "enforce", "actuation-window": "3"}
+
+    def converged(snap):
+        return ([w for w, l in snap.items() if GPU + "schedulable" in l] == [0]
+                and snap[0].get(GPU + "slice.sick-chips") == "3")
+
+    def outcome(harness):
+        snap = _wait(harness, converged, "worker 0 alone advised, 3 sick chips")
+        # slice.capable is a node fact (MIG capability), not the slice's.
+        return ({k: v for k, v in snap[0].items()
+                 if k.startswith(GPU + "slice.") and k != GPU + "slice.capable"},
+                _advice({k: v for k, v in snap[0].items()
+                         if k != GPU + "tfd.actuation-lease"}, GPU),
+                [snap[w].get(GPU + "chips.sick") for w in range(3)])
+
+    with PortSliceHarness(tmp_path / "gpu", workers=3, sick_workers=(0, 1, 2),
+                          extra_cli=cli) as gpu:
+        want = outcome(gpu)
+    monkeypatch.setenv("TFD_BURNIN_ALLOW_CPU", "1")
+    monkeypatch.setenv("TFD_BURNIN_GEOMETRY", "64x1")
+    workers = MigWorkers(monkeypatch, sick={(1, 0)})
+    with PortSliceHarness(tmp_path / "mig", workers=3, backends="mock-nvml:mixed",
+                          extra_cli={**cli, "with-burnin": "true",
+                                     "burnin-interval": "1"}) as mig:
+        got = outcome(mig)
+        labels = mig.workers[1].labels()
+    assert got == want and want[2] == ["1", "1", "1"]
+    assert (labels[GPU + "chip.0.ok"], labels[GPU + "chip.1.ok"]) == ("true", "false")
+    assert labels[GPU + "health.ok"] == "false"
+    assert (1, 0) in {w for w, _ in workers.requests}
+
+
 def test_actuation_off_writes_what_the_cycle_without_actuation_writes(tmp_path):
     """At --actuation off (the default) a confirmed verdict changes
     nothing: the daemon's file is byte for byte the oneshot cycle's (which

@@ -9,6 +9,7 @@ torch."""
 
 import ctypes
 import json
+import os
 import re
 import subprocess
 import sys
@@ -34,12 +35,15 @@ from gpu_feature_discovery_tpu_torch.resource.testing import (
     LAYOUTS,
     FakeGpu,
     FakeNvml,
+    fake_mig_uuid,
     fake_nvml,
 )
 from gpu_feature_discovery_tpu_torch.resource.types import ResourceError
 from gpu_feature_discovery_tpu_torch.sandbox.broker import BrokerManager
 from gpu_feature_discovery_tpu_torch.sandbox.snapshot import DeviceSnapshot
+from gpu_feature_discovery_tpu_torch.utils import faults
 from gpu_feature_discovery_tpu_torch.utils import logging as tfd_logging
+from torch_mig_fakes import MigWorkers
 
 REPO = Path(__file__).parent.parent
 
@@ -180,7 +184,19 @@ def _cuda_devices(fake, order=None):
     and of the MIG devices only the first one, named after its profile
     and on its parent's bus (a CUDA process sees a single MIG device,
     per NVIDIA's MIG user guide). ``order`` lists the NVML indices CUDA
-    lists instead, as ``CUDA_VISIBLE_DEVICES`` would."""
+    lists instead, as ``CUDA_VISIBLE_DEVICES`` would. A process pinned to
+    a MIG device (``CUDA_VISIBLE_DEVICES=<its MIG UUID>``) lists exactly
+    that device."""
+    pinned = os.environ.get("CUDA_VISIBLE_DEVICES", "")
+    if pinned.startswith("MIG-"):
+        for i, gpu in enumerate(fake.gpus):
+            for slot, profile in enumerate(gpu.mig):
+                uuid = gpu.mig_uuids[slot] if slot < len(gpu.mig_uuids) \
+                    else fake_mig_uuid(i, slot)
+                if profile and uuid == pinned:
+                    return [(f"{gpu.name} MIG {profile}", H100_MIG_PROFILES[profile][-1],
+                             gpu)]
+        return []
     devices = []
     gpus = reversed(fake.gpus) if order is None else [fake.gpus[i] for i in order]
     for gpu in gpus:
@@ -200,10 +216,12 @@ def fake_torch_cuda(monkeypatch):
     import torch
 
     def install(fake, order=None):
-        devices = _cuda_devices(fake, order)
+        def listed():
+            # Read per call: a pinned process lists its one MIG device.
+            return _cuda_devices(fake, order)
 
         def props(i):
-            name, memory_mib, gpu = devices[i]
+            name, memory_mib, gpu = listed()[i]
             # Where NVML has no PCI info torch still has an address.
             domain, bus, devfn = (gpu.bus_id or "0000:db:00.0").split(":")
             return SimpleNamespace(
@@ -215,12 +233,12 @@ def fake_torch_cuda(monkeypatch):
                 uuid=gpu.uuid[len("GPU-"):].upper(),
             )
 
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: bool(devices))
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: len(devices))
-        monkeypatch.setattr(torch.cuda, "get_device_name", lambda i: devices[i][0])
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: bool(listed()))
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: len(listed()))
+        monkeypatch.setattr(torch.cuda, "get_device_name", lambda i: listed()[i][0])
         monkeypatch.setattr(torch.cuda, "get_device_properties", props)
         monkeypatch.setattr(cuda_backend, "cuda_driver_api_version", lambda: 13000)
-        return devices
+        return listed()
 
     return install
 
@@ -348,9 +366,10 @@ def test_nvml_path_never_imports_torch():
 
 
 # ---------------------------------------------------------------------------
-# Health labels under MIG: the probe measures the devices CUDA lists, the
-# inventory counts NVML's GPUs. No per-device health label may contradict
-# gpu.count, on the in-process path and through the broker.
+# Health labels under MIG: the classic probe measures the plain GPUs CUDA
+# lists, a process pinned to each MIG device measures that device, and the
+# per-device labels count what gpu.count counts, on the in-process path
+# and through the broker.
 # ---------------------------------------------------------------------------
 
 PER_DEVICE_HEALTH = re.compile(r"nvidia\.com/gpu\.(chip\.\d+\.|chips\.|straggler-chip$)")
@@ -377,9 +396,14 @@ class _FakeBrokerClient:
 
     def health(self, per_chip=True, sick_chips=(), slow_chips=(), inventory_uuids=()):
         from gpu_feature_discovery_tpu_torch.ops.healthcheck import measure_node_health
+        from gpu_feature_discovery_tpu_torch.sandbox.broker import _classic_devices
 
+        # The worker's own acquisition: on a MIG node, its plain GPUs.
+        devices = _classic_devices(self._manager)()
+        if devices is None:
+            return {"status": "unacquirable"}
         report = measure_node_health(
-            devices=_cuda_listed_devices(), per_chip=per_chip, sick_chips=sick_chips,
+            devices=devices, per_chip=per_chip, sick_chips=sick_chips,
             slow_chips=slow_chips, inventory_uuids=inventory_uuids)
         # The report crosses the worker's pipe as JSON.
         return json.loads(json.dumps(
@@ -424,12 +448,14 @@ def _health_cycle(manager, oneshot, monkeypatch, cycles=1):
 @pytest.mark.parametrize("layout", ["mixed", "half", "none"])
 def test_health_labels_never_contradict_gpu_count_under_mig(
         layout, path, fake_torch_cuda, monkeypatch, caplog):
-    """``mixed``: CUDA lists one MIG device of two GPUs; ``half``: the GPU
-    outside MIG plus a MIG device of the other. Under MIG the per-device
-    labels are left out with a warning and the node's health labels stay;
-    with MIG off (``none``) every GPU has its chip.<i> labels."""
+    """``mixed``: every GPU in MIG mode; ``half``: a plain GPU beside a
+    MIG-enabled one. Every GPU gpu.count counts has its chip.<i>.ok, a
+    MIG-enabled GPU's from its MIG devices' probes, with no rate label
+    (a MIG device's rate is not its GPU's); with MIG off (``none``) the
+    classic probe alone, as before."""
     fake = fake_nvml(layout)
     listed = fake_torch_cuda(fake)
+    workers = MigWorkers(monkeypatch)
     cuda = CudaManager(nvml_lib=fake)
     cuda.init()
     manager = cuda if path == "in-process" else BrokerManager(_FakeBrokerClient(cuda))
@@ -441,22 +467,21 @@ def test_health_labels_never_contradict_gpu_count_under_mig(
     assert labels["nvidia.com/gpu.health.ok"] == "true"
     assert labels["nvidia.com/gpu.health.timing"] == "wall-clock"
     per_device = sorted(k for k in labels if PER_DEVICE_HEALTH.match(k))
-    warned = [r.getMessage() for r in caplog.records if "MIG is enabled" in r.message]
+    assert int(labels["nvidia.com/gpu.chips.healthy"]) + int(
+        labels["nvidia.com/gpu.chips.sick"]) == count
+    # Exactly these per-device keys on every layout: no rate or straggler
+    # label at this geometry, and none for a MIG-enabled GPU at all.
+    assert per_device == sorted(
+        ["nvidia.com/gpu.chips.healthy", "nvidia.com/gpu.chips.sick"]
+        + [f"nvidia.com/gpu.chip.{i}.ok" for i in range(count)])
+    mig_gpus = [i for i, g in enumerate(fake.gpus) if g.mig_mode == nvml.NVML_DEVICE_MIG_ENABLE]
+    # One probe per MIG device, none for a plain GPU.
+    assert sorted(w for w, _ in workers.requests) == sorted(
+        (i, slot) for i in mig_gpus for slot, p in enumerate(
+            [p for p in fake.gpus[i].mig if p]))
+    assert not [r for r in caplog.records if "per-device" in r.message], caplog.text
     if layout == "none":
-        assert len(listed) == count
-        assert int(labels["nvidia.com/gpu.chips.healthy"]) + int(
-            labels["nvidia.com/gpu.chips.sick"]) == count
-        assert per_device == sorted(
-            ["nvidia.com/gpu.chips.healthy", "nvidia.com/gpu.chips.sick"]
-            + [f"nvidia.com/gpu.chip.{i}.ok" for i in range(count)])
-        assert not warned
-    else:
-        assert not per_device, (
-            f"{len(listed)} device(s) probed, gpu.count {count}: {per_device}")
-        assert warned == [
-            f"MIG is enabled on this node: the probe measures the {len(listed)} "
-            "device(s) CUDA lists, not the node's GPUs; publishing no per-device "
-            "health labels"]
+        assert len(listed) == count and not workers.requests
 
 
 # ---------------------------------------------------------------------------
@@ -609,3 +634,96 @@ def _twin_burnin_config():
 
     return twin_new_config(cli_values={"with-burnin": "true", "oneshot": "true",
                                        "machine-type-file": ""}, environ={})
+
+
+# ---------------------------------------------------------------------------
+# Fault 6: under MIG the node's verdict covered one MIG device. Each MIG
+# device is now probed by a process pinned to it (tests/torch_mig_fakes.py
+# stands in for those processes here; tests/test_torch_mig_probe.py runs
+# the real ones).
+# ---------------------------------------------------------------------------
+
+def _mig_cycle(layout, path, spec, fake_torch_cuda, monkeypatch, caplog, order=None,
+               **workers_kw):
+    fake = fake_nvml(layout)
+    fake_torch_cuda(fake, order)
+    workers = MigWorkers(monkeypatch, **workers_kw)
+    cuda = _inited(CudaManager(nvml_lib=fake))
+    manager = cuda if path == "in-process" else BrokerManager(_FakeBrokerClient(cuda))
+    faults.reset()
+    faults.load_fault_spec(spec)
+    try:
+        with caplog.at_level("WARNING", logger="tfd.lm"):
+            labels = _health_cycle(manager, oneshot=path == "in-process",
+                                   monkeypatch=monkeypatch)
+    finally:
+        faults.reset()
+    return labels, workers
+
+
+@pytest.mark.parametrize("path", ["in-process", "broker"])
+def test_fault6_a_sick_mig_device_of_gpu1_turns_the_mixed_node_sick(
+        path, fake_torch_cuda, monkeypatch, caplog):
+    """Fault 6. On ``mixed`` a MIG device of GPU 1 is sick: the node reads
+    health.ok=false with chips.sick=1 and chip.1.ok=false, as the twin's
+    node with one sick chip does. A probe of the devices CUDA lists alone
+    (one MIG device, GPU 0's) reads health.ok=true with no chips.sick."""
+    labels, workers = _mig_cycle("mixed", path, "chip.1.sick:fail:1", fake_torch_cuda,
+                                 monkeypatch, caplog)
+    assert labels["nvidia.com/gpu.health.ok"] == "false"
+    assert (labels["nvidia.com/gpu.chips.healthy"], labels["nvidia.com/gpu.chips.sick"]) \
+        == ("1", "1")
+    assert (labels["nvidia.com/gpu.chip.0.ok"], labels["nvidia.com/gpu.chip.1.ok"]) \
+        == ("true", "false")
+    # The shot hit GPU 1's first MIG device, through its pinned process.
+    assert workers.asked((1, 0)) == [{"per_chip": True, "sick_chips": [0], "slow_chips": []}]
+    assert all(r["sick_chips"] == [] for w, r in workers.requests if w != (1, 0))
+
+
+@pytest.mark.parametrize("path", ["in-process", "broker"])
+def test_a_half_node_whose_plain_gpu_cuda_does_not_list_publishes_no_health(
+        path, fake_torch_cuda, monkeypatch, caplog):
+    """``half`` where CUDA lists GPU 0's MIG device alone (as
+    ``CUDA_VISIBLE_DEVICES=0`` would): the plain GPU's verdict is unknown,
+    so no health label is published, as on a node without MIG whose
+    devices are unacquirable. The MIG device's verdict never speaks for
+    the node alone."""
+    labels, _ = _mig_cycle("half", path, "", fake_torch_cuda, monkeypatch, caplog,
+                           order=[0])
+    assert labels["nvidia.com/gpu.count"] == "2"
+    assert not [k for k in labels if k.startswith("nvidia.com/gpu.health.")
+                or PER_DEVICE_HEALTH.match(k)], labels
+    assert "none of the node's 1 GPU(s) outside MIG mode is acquirable" in caplog.text
+
+
+@pytest.mark.parametrize("failure", ["hang", "crash"])
+def test_a_hung_or_crashed_mig_worker_costs_its_own_device_only(
+        failure, fake_torch_cuda, monkeypatch, caplog):
+    """Through the broker, GPU 1's second MIG device's worker is killed at
+    its deadline (a hang) or found dead (a crash): GPU 1 alone reads
+    sick, GPU 0's verdict stands, and the cycle publishes."""
+    from gpu_feature_discovery_tpu_torch.sandbox.broker import BrokerCrash, BrokerTimeout
+
+    error = BrokerTimeout("health request exceeded its budget; worker SIGKILLed") \
+        if failure == "hang" else BrokerCrash("broker worker died to SIGSEGV")
+    labels, _ = _mig_cycle("mixed", "broker", "", fake_torch_cuda, monkeypatch, caplog,
+                           fail={(1, 1): error})
+    assert labels["nvidia.com/gpu.count"] == "2"
+    assert labels["nvidia.com/gpu.health.ok"] == "false"
+    assert (labels["nvidia.com/gpu.chip.0.ok"], labels["nvidia.com/gpu.chip.1.ok"]) \
+        == ("true", "false")
+    assert str(error) in caplog.text
+
+
+@pytest.mark.parametrize("path", ["in-process", "broker"])
+def test_on_a_half_node_a_mig_gpus_shot_lands_on_its_mig_device(
+        path, fake_torch_cuda, monkeypatch, caplog):
+    """``half``: the plain GPU (NVML 1) is probed by the classic probe and
+    keeps its chip.1.ok; GPU 0's verdict comes from its MIG device; a
+    chip.0.sick shot lands on that device, not on the plain GPU."""
+    labels, workers = _mig_cycle("half", path, "chip.0.sick:fail:1", fake_torch_cuda,
+                                 monkeypatch, caplog)
+    assert (labels["nvidia.com/gpu.chip.0.ok"], labels["nvidia.com/gpu.chip.1.ok"]) \
+        == ("false", "true")
+    assert workers.asked((0, 0))[0]["sick_chips"] == [0]
+    assert labels["nvidia.com/gpu.health.ok"] == "false"

@@ -47,6 +47,7 @@ from gpu_feature_discovery_tpu_torch.resource.testing import fake_nvml
 from gpu_feature_discovery_tpu_torch.sandbox.broker import BrokerManager
 
 from test_torch_nvml import _FakeBrokerClient, _health_cycle, fake_torch_cuda  # noqa: F401
+from torch_mig_fakes import MigWorkers
 
 REPO = Path(__file__).resolve().parent.parent
 _SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)$")
@@ -340,7 +341,9 @@ def test_broker_faults_and_the_server_lifecycle_scrape_live(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# MIG: no tfd_chip_* series where no chip.<i>.* label is published
+# MIG: the tfd_chip_* series follow the chip.<i>.* labels, by the label's
+# index (each MIG device probed by a process pinned to it, which
+# tests/torch_mig_fakes.py stands in for)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("path", ["in-process", "broker"])
@@ -349,6 +352,7 @@ def test_chip_series_follow_the_chip_labels_under_mig(
         layout, path, fake_torch_cuda, monkeypatch):
     fake = fake_nvml(layout)
     listed = fake_torch_cuda(fake)
+    MigWorkers(monkeypatch)
     cuda = CudaManager(nvml_lib=fake)
     cuda.init()
     manager = cuda if path == "in-process" else BrokerManager(_FakeBrokerClient(cuda))
@@ -365,7 +369,15 @@ def test_chip_series_follow_the_chip_labels_under_mig(
             + [("tfd_chip_tflops", f'{{chip="{i}"}}') for i in range(len(listed))])
         assert all(metrics.CHIP_OK.value(chip=str(i)) == 1 for i in range(len(listed)))
     else:
-        assert chip_labels == [] and chip_series == []
+        # A MIG-enabled GPU's verdict has no rate (a MIG device's is not
+        # its GPU's): tfd_chip_ok alone.
+        count = int(labels["nvidia.com/gpu.count"])
+        mig = [i for i, g in enumerate(fake.gpus) if g.mig_mode == 1]
+        assert chip_labels == sorted(f"nvidia.com/gpu.chip.{i}.ok" for i in range(count))
+        assert chip_series == sorted(
+            [("tfd_chip_ok", f'{{chip="{i}"}}') for i in range(count)]
+            + [("tfd_chip_tflops", f'{{chip="{i}"}}') for i in range(count) if i not in mig])
+        assert all(metrics.CHIP_OK.value(chip=str(i)) == 1 for i in range(count))
     assert labels["nvidia.com/gpu.health.ok"] == "true"
 
 
