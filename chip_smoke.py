@@ -142,24 +142,61 @@ Phases, each printing one JSON line:
 13. ``mig``     — a STAND-IN for a MIG node (the card's MIG mode is never
                   changed): a FakeNvml inventory of one H100 in MIG mode
                   with N 1g.10gb MIG devices, each named by the card's own
-                  ``GPU-`` UUID, so every worker pinned by
+                  ``GPU-`` UUID, so every one-shot child pinned by
                   ``CUDA_VISIBLE_DEVICES=<that UUID>`` runs on the card.
                   For N = 1, 3 and 7 the daemon's label sources drive one
-                  pinned broker worker per device, spawned together: each
-                  lists one CUDA device, launches ``hbm_stream_sum`` from
-                  the kernel cache with an exact checksum, and the labels
-                  follow the MIG table under ``single`` (per MIG device)
-                  and ``none`` (one GPU, no rate); ``chip.1.sick`` flips
-                  device 1 alone; a SIGKILLed worker costs its own device
-                  only and respawns. Recorded: the spawn time per N, each
-                  worker's device memory after its probe and host VmRSS,
-                  and the UUID torch reports inside a worker. At N = 3 the
-                  in-process path's one-shot pinned children give the same
-                  verdicts. Then ``hbm_stream_sum`` on the persistent grids
-                  of the H100 MIG profiles' SM counts (16, 32, 60, 64, 132),
-                  each exact against its plain version, timed in turns.
-                  Every worker sees the whole card's L2 and HBM: none of
-                  this is a MIG measurement. One ``mig`` line.
+                  round through the broker path, one child per device,
+                  spawned together: each lists one CUDA device, launches
+                  ``hbm_stream_sum`` 1 + 3 times from the kernel cache (no
+                  library built) with an exact checksum, and the labels
+                  follow the MIG table under ``single``. Recorded per
+                  round: the time to its health labels, its wall and host
+                  CPU seconds (``RUSAGE_CHILDREN``), the card's
+                  ``memory.used`` at its peak (sampled every 50 ms) and
+                  after it, back at the pre-round baseline within 16 MiB,
+                  and the children's peak VmRSS. At N = 3 also three
+                  steady rounds at ``--burnin-interval 1``, a round with
+                  ``chip.1.sick`` (device 1 alone reads false), a round
+                  with a child SIGKILLed mid-probe (its device alone),
+                  ``none`` (one GPU, no rate), the in-process path's
+                  children, the card as a plain GPU beside the MIG GPU,
+                  and run()'s teardown mid-round leaving no child. Then
+                  ``hbm_stream_sum`` on the persistent grids of the H100
+                  MIG profiles' SM counts (16, 32, 60, 64, 132), each
+                  exact against its plain version, timed in turns. Every
+                  child sees the whole card's L2 and HBM: none of this is
+                  a MIG measurement. One ``mig_run`` line per N and one
+                  ``mig`` line.
+14. ``busy``    — a busy card. First the footprint of a pinned child's
+                  first probe, split in the warm-up's order (``total -
+                  free`` after the context, the kernel library, the
+                  burn-in inputs, the 256 MiB buffer, the burn-in's side
+                  stream, cuBLAS's first pass, the graph capture, NCCL's
+                  communicator, the kernel's first launch and the probe;
+                  reserved against allocated). Then a holder process
+                  takes the card's free memory less a margin: 64 MiB (no
+                  CUDA context fits), and one chosen from the split for
+                  each step where the probe can fail: the buffer, the
+                  side stream, cuBLAS, the capture and NCCL. At each: a
+                  fresh classic broker worker's probe answers
+                  ``unacquirable`` with the error it met and publishes no
+                  ``health.*`` label, and the worker stays up; a worker up
+                  before the holder still probes ok; the MIG stand-in at
+                  N = 3 in process publishes no health label; after the
+                  holder exits the busy worker holds at most its context
+                  and the code its attempt loaded (the split's use at
+                  the step where the attempt stops, less the caching
+                  allocator's share; read against a steady baseline, with every other
+                  process of the card back at it once the worker is
+                  gone), and health labels return through it (1 + 3
+                  launches: the busy attempts launched nothing). At the
+                  context and buffer margins also: the stand-in through
+                  the broker; a CLI with ``--actuation enforce`` that
+                  publishes no health label, ``chips.sick``, advice or
+                  ``slice.sick-chips`` and logs the busy device; and, at
+                  the buffer margin, the stand-in's health after the
+                  holder. One ``busy_run`` line per margin and one
+                  ``busy`` line.
 
 Then a ``metrics`` line (the cost of a scrape, the exposition's size,
 restart-to-labels, first use, the broker's request histogram and the
@@ -3223,35 +3260,96 @@ def phase_deploy(entries: dict, smi: str) -> dict:
 # The H100 MIG profiles' SM counts (resource/testing.py H100_MIG_PROFILES):
 # 1g.10gb and 1g.20gb, 2g.20gb, 3g.40gb, 4g.40gb, 7g.80gb.
 MIG_GRID_SMS = (16, 32, 60, 64, 132)
-MIG_WORKER_COUNTS = (1, 3, 7)
+MIG_CHILD_COUNTS = (1, 3, 7)
+# The stand-in node on which the steady rounds, the fault shot, the kill,
+# strategy none, the in-process path and the plain GPU beside MIG run.
+MIG_FULL_N = 3
+MIG_STEADY_ROUNDS = 3
+# After a round the card's memory.used must be back at its baseline
+# within this many MiB: the daemon holds nothing of a MIG device between
+# rounds.
+MIG_AFTER_ROUND_MIB = 16
+# How often the card's memory.used is sampled during a round.
+MEMORY_SAMPLE_MS = 50
 STAND_IN_NOTE = ("stand-in: one H100 with MIG off, named by its own UUID as N "
-                 "MIG devices; every pinned worker sees the whole card's L2 and "
+                 "MIG devices; every pinned child sees the whole card's L2 and "
                  "HBM, so no number here is a MIG measurement")
 
 
-class _SpawnCapture(logging.Handler):
-    """The pinned workers' "ready in X ms" lines."""
+class _CardMemory:
+    """The card's memory.used (MiB), sampled every MEMORY_SAMPLE_MS by one
+    ``nvidia-smi -lms`` process, with the host's monotonic clock."""
 
     def __init__(self):
-        super().__init__(logging.INFO)
-        self.ready_ms = []
+        self.samples = []
+        self._proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits",
+             "-lms", str(MEMORY_SAMPLE_MS)],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
 
-    def emit(self, record):
-        m = re.match(r"broker worker (\d+) ready in (\d+) ms.* pinned to",
-                     record.getMessage())
-        if m:
-            self.ready_ms.append(int(m.group(2)))
+    def _read(self):
+        for line in self._proc.stdout:
+            if line.strip().isdigit():
+                self.samples.append((time.monotonic(), int(line)))
+
+    def peak(self, t0: float, t1: float):
+        inside = [v for t, v in self.samples if t0 <= t <= t1]
+        return max(inside) if inside else None
+
+    def stop(self):
+        self._proc.terminate()
+        self._proc.wait(timeout=10)
+        self._reader.join(timeout=5)
 
 
-def _compute_apps() -> list:
-    """``nvidia-smi --query-compute-apps=pid,used_memory``: one row per
-    process holding the card (pid 1 for every one on a host whose pid
-    namespace hides them), used memory in MiB."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout
-    return [[int(x) for x in line.split(",")] for line in out.strip().splitlines() if line]
+class _ChildRss:
+    """The summed VmRSS (KiB) of a MIG round's live children, sampled on a
+    thread every MEMORY_SAMPLE_MS; its peak."""
+
+    def __init__(self, pids):
+        self._pids = pids
+        self.peak_kib = 0
+        self.peak_each_kib = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(MEMORY_SAMPLE_MS / 1e3):
+            total = 0
+            for pid in list(self._pids):
+                try:
+                    with open(f"/proc/{pid}/status") as f:
+                        rss = next((int(l.split()[1]) for l in f if l.startswith("VmRSS:")), 0)
+                except OSError:
+                    continue
+                total += rss
+                self.peak_each_kib = max(self.peak_each_kib, rss)
+            self.peak_kib = max(self.peak_kib, total)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+def _environ(pid: int) -> dict:
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        return dict(kv.split(b"=", 1) for kv in f.read().split(b"\0") if b"=" in kv)
+
+
+def _worker_children() -> list:
+    """This process's children that are probe or broker processes."""
+    out = []
+    for pid in _children(os.getpid()):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if b"sandbox.worker_main" in f.read() and not _gone(pid):
+                    out.append(pid)
+        except OSError:
+            continue
+    return out
 
 
 def _mig_grids(entries: dict) -> dict:
@@ -3311,15 +3409,136 @@ def _stand_in_node(n: int, card_uuid: str, classic, plain: bool = False):
     return manager
 
 
+class _MigStandIn:
+    """The daemon's label sources over a stand-in MIG node, with the MIG
+    round's children watched: each round is one cycle that starts it and
+    the cycles that collect it."""
+
+    def __init__(self, card_uuid: str):
+        from gpu_feature_discovery_tpu_torch.lm import health
+
+        self.card_uuid = card_uuid
+        self.reports = []
+        # Each MIG device's outcome status in the last fold, by label index.
+        self.statuses = {}
+        self._health = health
+        self._real_fold = health._fold
+
+        def recording_fold(targets, classic, outcomes):
+            self.reports.extend(o.get("report") for k, o in outcomes.items()
+                                if k != "classic" and o.get("report"))
+            self.statuses = {t.index: outcomes[t.key].get("status") for t in targets.mig}
+            return self._real_fold(targets, classic, outcomes)
+
+        health._fold = recording_fold
+
+    def close(self):
+        self._health._fold = self._real_fold
+
+    @staticmethod
+    def config(strategy: str, **cli):
+        from gpu_feature_discovery_tpu_torch.config.flags import new_config
+
+        return new_config(cli_values={
+            "with-burnin": "true", "burnin-interval": "1", "backends": "gpu",
+            "tpu-topology-strategy": strategy, "probe-timeout": "120s",
+            "machine-type-file": "", **cli}, environ={})
+
+    @staticmethod
+    def cycle(manager, cfg) -> dict:
+        from gpu_feature_discovery_tpu_torch.lm.engine import LabelEngine
+        from gpu_feature_discovery_tpu_torch.lm.labelers import new_label_sources
+
+        return dict(LabelEngine(parallel=False).generate(new_label_sources(manager, cfg)))
+
+    def pids(self, manager, n: int, timeout: float = 60.0) -> list:
+        """The running round's n children, once spawned."""
+        sched = self._health._schedule_for(manager)
+        rnd = _wait_for(lambda: (lambda r: r if r is not None and len(r.pids) == n
+                                 else None)(sched.mig_round), timeout, f"{n} children spawned")
+        return list(rnd.pids)
+
+    def round(self, manager, cfg, n: int, memory=None, during=None) -> dict:
+        """One whole round through the broker path: the cycle that starts
+        it, ``during(pids)`` while its children run, and the cycles until
+        it publishes. Its labels, wall and host CPU seconds, the card's
+        peak and after-round memory.used, the children's peak VmRSS."""
+        import resource
+
+        sched = self._health._schedule_for(manager)
+        check(sched.mig_round is None, "a round still running")
+        del self.reports[:]
+        cpu0 = resource.getrusage(resource.RUSAGE_CHILDREN)
+        t0 = time.monotonic()
+        labels = self.cycle(manager, cfg)
+        pids = list(sched.mig_round.pids) if sched.mig_round is not None else []
+        rss = _ChildRss(pids) if sched.mig_round is not None else None
+        if sched.mig_round is not None:
+            pids[:] = self.pids(manager, n)
+            env = sorted(_environ(p).get(b"CUDA_VISIBLE_DEVICES", b"").decode() for p in pids)
+            check(env == [self.card_uuid] * n, f"children pinned to {env}")
+            if during is not None:
+                during(pids)
+        while sched.mig_round is not None:
+            time.sleep(0.05)
+            labels = self.cycle(manager, cfg)
+        wall_s = time.monotonic() - t0
+        if rss is not None:
+            rss.stop()
+        cpu1 = resource.getrusage(resource.RUSAGE_CHILDREN)
+        _wait_for(lambda: all(_gone(p) for p in pids), 10.0, "the round's children exited")
+        out = {"labels": labels, "wall_s": wall_s, "pids": pids,
+               "cpu_s": (cpu1.ru_utime + cpu1.ru_stime) - (cpu0.ru_utime + cpu0.ru_stime),
+               "children_peak_vmrss_kib": rss.peak_kib if rss else None,
+               "child_peak_vmrss_kib": rss.peak_each_kib if rss else None}
+        if memory is not None:
+            time.sleep(2 * MEMORY_SAMPLE_MS / 1e3)
+            out["device_peak_mib"] = memory.peak(t0, time.monotonic())
+            out["device_after_mib"] = _device_used_mib()
+        return out
+
+
+def _per_device(labels: dict) -> dict:
+    return {k[len("nvidia.com/gpu."):]: v for k, v in labels.items()
+            if re.match(r"nvidia\.com/gpu\.(chip\.\d+\.|chips\.|health\.ok$)", k)}
+
+
+def _single_ok(labels: dict, n: int, sick=()) -> None:
+    """The labels under a valid single on n MIG devices, ``sick`` false."""
+    want = {"health.ok": "false" if sick else "true",
+            "chips.healthy": str(n - len(sick)), "chips.sick": str(len(sick))}
+    for i in range(n):
+        want[f"chip.{i}.ok"] = "false" if i in sick else "true"
+    got = {k: v for k, v in _per_device(labels).items()
+           if not k.endswith((".tflops", ".hbm-gbps"))}
+    check(got == want, f"single, sick {list(sick)}: {got} != {want}")
+    for i in range(n):
+        if i not in sick:
+            check(int(labels.get(f"nvidia.com/gpu.chip.{i}.tflops", "0")) > 0,
+                  f"chip.{i}.tflops: {labels}")
+    check(labels.get("nvidia.com/gpu.health.timing") == "device-profiler", "timing")
+
+
+def _no_health(labels: dict, what: str) -> None:
+    bad = [k for k in labels if k.startswith(("nvidia.com/gpu.health.",
+                                              "nvidia.com/gpu.chip"))]
+    check(not bad, f"{what}: health labels {bad}")
+
+
+def _kernel_cache_files() -> dict:
+    from gpu_feature_discovery_tpu_torch.ops import kernel_cache
+
+    root = kernel_cache.kernel_cache_dir()
+    return {p.name: p.stat().st_mtime_ns for p in root.glob("*.so")}
+
+
 def phase_mig(entries: dict, smi: str) -> dict:
     """The probe of a MIG node through a stand-in (see the module's
     docstring, phase 13): the daemon's label sources over the stand-in's
-    inventory, one pinned broker worker per MIG device on the card."""
+    inventory, one one-shot pinned child per MIG device on the card per
+    round."""
     from gpu_feature_discovery_tpu_torch import sandbox
-    from gpu_feature_discovery_tpu_torch.config.flags import new_config
     from gpu_feature_discovery_tpu_torch.lm import health
-    from gpu_feature_discovery_tpu_torch.lm.engine import LabelEngine
-    from gpu_feature_discovery_tpu_torch.lm.labelers import new_label_sources
     from gpu_feature_discovery_tpu_torch.native import nvml
     from gpu_feature_discovery_tpu_torch.resource.probe_targets import probe_targets
     from gpu_feature_discovery_tpu_torch.sandbox import broker as broker_mod
@@ -3327,174 +3546,582 @@ def phase_mig(entries: dict, smi: str) -> dict:
     from gpu_feature_discovery_tpu_torch.utils import faults
 
     card_uuid = nvml.read_inventory().devices[0].uuid
-    reports = []
-    real_fold = health._fold
-
-    def recording_fold(targets, classic, outcomes):
-        reports.extend(o.get("report") for o in outcomes.values())
-        return real_fold(targets, classic, outcomes)
-
-    health._fold = recording_fold
-    spawns = _SpawnCapture()
-    logging.getLogger("tfd").addHandler(spawns)
-    sandbox_log = logging.getLogger("tfd.sandbox")
-    sandbox_log.setLevel(logging.INFO)
+    stand_in = _MigStandIn(card_uuid)
+    config = stand_in.config
     faults.reset()
-
-    def config(strategy: str, **cli):
-        return new_config(cli_values={
-            "with-burnin": "true", "burnin-interval": "1", "backends": "gpu",
-            "tpu-topology-strategy": strategy, "probe-timeout": "60s",
-            "machine-type-file": "", **cli}, environ={})
-
-    def cycle(manager, cfg):
-        return dict(LabelEngine(parallel=False).generate(new_label_sources(manager, cfg)))
-
-    def until_health(manager, cfg, what, timeout=180.0):
-        deadline = time.monotonic() + timeout
-        while time.monotonic() < deadline:
-            labels = cycle(manager, cfg)
-            if "nvidia.com/gpu.health.ok" in labels:
-                return labels
-            time.sleep(0.2)
-        raise SystemExit(f"chip_smoke: check failed: {what} within {timeout}s")
-
-    def per_device(labels):
-        return {k[len("nvidia.com/gpu."):]: v for k, v in labels.items()
-                if re.match(r"nvidia\.com/gpu\.(chip\.\d+\.|chips\.|health\.ok$)", k)}
-
-    def single_ok(labels, n, sick=()):
-        want = {"health.ok": "false" if sick else "true",
-                "chips.healthy": str(n - len(sick)), "chips.sick": str(len(sick))}
-        for i in range(n):
-            want[f"chip.{i}.ok"] = "false" if i in sick else "true"
-        got = {k: v for k, v in per_device(labels).items()
-               if not k.endswith((".tflops", ".hbm-gbps"))}
-        check(got == want, f"single, sick {list(sick)}: {got} != {want}")
-        for i in range(n):
-            if i not in sick:
-                check(int(labels.get(f"nvidia.com/gpu.chip.{i}.tflops", "0")) > 0,
-                      f"chip.{i}.tflops: {labels}")
-        check(labels.get("nvidia.com/gpu.health.timing") == "device-profiler", "timing")
-
+    cache_before = _kernel_cache_files()
+    check(cache_before, "no kernel in the cache before the mig phase")
+    memory = _CardMemory()
     out = {"note": STAND_IN_NOTE, "nvidia_smi": smi, "card_uuid": card_uuid, "runs": {}}
+
+    def held_by_round(run: dict, baseline: int) -> None:
+        check(run["device_after_mib"] - baseline <= MIG_AFTER_ROUND_MIB,
+              f"after the round the card holds {run['device_after_mib']} MiB, "
+              f"baseline {baseline} MiB")
+
     try:
-        for n in MIG_WORKER_COUNTS:
+        for n in MIG_CHILD_COUNTS:
             classic = broker_mod.get_broker(config("single"))
             manager = _stand_in_node(n, card_uuid, classic)
             targets = probe_targets(manager, "single")
             check(len(targets.mig) == n and targets.per_mig_device, f"{n} targets")
             health.reset_burnin_schedule()
-            del reports[:]
-            del spawns.ready_ms[:]
-            apps_before = _compute_apps()
-            used_before = _device_used_mib()
-            t0 = time.monotonic()
-            first = cycle(manager, config("single"))
-            check("nvidia.com/gpu.health.ok" not in first, "health before the spawn")
-            clients = [broker_mod._keyed[t.key] for t in targets.mig]
-            _wait_for(lambda: all(c.alive for c in clients), 240.0,
-                      f"{n} pinned workers up")
-            spawn_s = time.monotonic() - t0
-            labels = until_health(manager, config("single"), f"{n} workers' health")
-            first_health_s = time.monotonic() - t0
-            single_ok(labels, n)
-            pids = [c.pid for c in clients]
+            baseline = _device_used_mib()
+            first = stand_in.round(manager, config("single"), n, memory)
+            held_by_round(first, baseline)
+            labels = first["labels"]
+            _single_ok(labels, n)
+            reports = list(stand_in.reports)
             check(len(reports) == n, f"{len(reports)} reports for {n} devices")
             for report in reports:
                 check(report["chips"] == 1 and len(report["per_chip"]) == 1,
-                      f"a pinned worker probed {report['chips']} devices")
+                      f"a pinned child probed {report['chips']} devices")
                 check(report["per_chip"][0]["hbm_gbps"] is not None,
-                      "a pinned worker's checksum was not exact")
-                check(report["phases"]["hbm_stream_sum_launches"] == 3,
+                      "a pinned child's checksum was not exact")
+                # A child's one probe pays its own warm-up: 1 + 3 launches.
+                check(report["phases"]["hbm_stream_sum_launches"] == 4,
                       f"launches per probe {report['phases']}")
-            for pid in pids:
-                check(_maps_libcuda(pid, "libhbm_stream_sum"),
-                      f"worker {pid} did not load the kernel from the cache")
             torch_uuids = sorted({r["per_chip"][0]["uuid"] for r in reports})
             run = {
-                "spawn_s": spawn_s, "first_health_s": first_health_s,
-                "ready_ms": sorted(spawns.ready_ms),
-                "launches_per_worker": [r["phases"]["hbm_stream_sum_launches_process"]
-                                        for r in reports],
-                "torch_uuid_in_worker": torch_uuids,
+                "first_health_s": first["wall_s"], "round_wall_s": first["wall_s"],
+                "round_cpu_s": first["cpu_s"],
+                "device_baseline_mib": baseline,
+                "device_peak_mib": first["device_peak_mib"],
+                "device_peak_rise_mib": first["device_peak_mib"] - baseline,
+                "device_after_mib": first["device_after_mib"],
+                "children_peak_vmrss_kib": first["children_peak_vmrss_kib"],
+                "child_peak_vmrss_kib": first["child_peak_vmrss_kib"],
+                "launches_per_child": [r["phases"]["hbm_stream_sum_launches_process"]
+                                       for r in reports],
+                "torch_uuid_in_child": torch_uuids,
                 "torch_uuid_is_the_pin": torch_uuids == [nvml.normalize_uuid(card_uuid)],
-                "device_used_mib_rise": _device_used_mib() - used_before,
-                "compute_apps_before_mib": apps_before,
-                "compute_apps_after_mib": _compute_apps(),
-                "host": _host_memory({f"w{i}": pid for i, pid in enumerate(pids)}),
             }
-            check(all(n_ == 4 for n_ in run["launches_per_worker"]),
-                  f"1 + 3 launches per worker: {run['launches_per_worker']}")
-            # The same workers under strategy none: one GPU, no rate.
-            health.reset_burnin_schedule()
-            none = until_health(manager, config("none"), "strategy none")
-            check(per_device(none) == {"health.ok": "true", "chips.healthy": "1",
-                                       "chips.sick": "0", "chip.0.ok": "true"},
-                  f"none: {per_device(none)}")
-            check("nvidia.com/gpu.health.matmul-tflops" not in none,
-                  "a MIG GPU's rate published as a GPU's")
-            check([c.pid for c in clients] == pids, "strategy none respawned workers")
-            if n > 1:
-                health.reset_burnin_schedule()
-                until_health(manager, config("single"), "single again")
+            check(all(n_ == 4 for n_ in run["launches_per_child"]),
+                  f"1 + 3 launches per child: {run['launches_per_child']}")
+            if n == MIG_FULL_N:
+                # Steady rounds at --burnin-interval 1: each starts on the
+                # cycle after the last one published.
+                steady = [stand_in.round(manager, config("single"), n, memory)
+                          for _ in range(MIG_STEADY_ROUNDS)]
+                for r in steady:
+                    _single_ok(r["labels"], n)
+                    held_by_round(r, baseline)
+                run["steady_round_wall_s"] = [r["wall_s"] for r in steady]
+                run["steady_round_cpu_s"] = [r["cpu_s"] for r in steady]
+                run["steady_device_peak_mib"] = [r["device_peak_mib"] for r in steady]
+                run["steady_device_after_mib"] = [r["device_after_mib"] for r in steady]
+                # chip.1.sick flips device 1 alone.
                 faults.load_fault_spec("chip.1.sick:fail:1")
-                sick = cycle(manager, config("single"))
+                sick = stand_in.round(manager, config("single"), n, memory)
                 faults.reset()
-                single_ok(sick, n, sick=(1,))
-                single_ok(cycle(manager, config("single")), n)
-                victim = clients[-1]
-                os.kill(victim.pid, signal.SIGKILL)
-                t1 = time.monotonic()
-                killed = cycle(manager, config("single"))
-                single_ok(killed, n, sick=(n - 1,))
-                check([c.pid for c in clients[:-1]] == pids[:-1], "a sibling died")
-                labels = _wait_for(
-                    lambda: (lambda l: l if l.get("nvidia.com/gpu.health.ok") == "true"
-                             else None)(cycle(manager, config("single"))),
-                    240.0, "the killed worker's respawn")
-                single_ok(labels, n)
-                run["kill_to_healthy_s"] = time.monotonic() - t1
-            if n == 3:
-                # The in-process path: one-shot children pinned per device.
+                _single_ok(sick["labels"], n, sick={1})
+                # A child SIGKILLed mid-probe costs its own device alone,
+                # and the next round, probed at once, is healthy.
+                killed = stand_in.round(manager, config("single"), n, memory,
+                                        lambda pids: os.kill(pids[-1], signal.SIGKILL))
+                lost = [i for i, status in stand_in.statuses.items() if status != "ok"]
+                check(len(lost) == 1, f"one killed child: {stand_in.statuses}")
+                _single_ok(killed["labels"], n, sick=set(lost))
+                run["killed_device"] = lost[0]
+                _single_ok(stand_in.round(manager, config("single"), n, memory)["labels"], n)
+                # The same children under strategy none: one GPU, no rate.
+                none = stand_in.round(manager, config("none"), n, memory)["labels"]
+                check(_per_device(none) == {"health.ok": "true", "chips.healthy": "1",
+                                            "chips.sick": "0", "chip.0.ok": "true"},
+                      f"none: {_per_device(none)}")
+                check("nvidia.com/gpu.health.matmul-tflops" not in none,
+                      "a MIG GPU's rate published as a GPU's")
+                # The in-process path: the same one-shot children, waited for.
                 health.reset_burnin_schedule()
                 t2 = time.monotonic()
-                oneshot = cycle(SnapshotManager(manager.snapshot),
-                                config("single", oneshot="true", **{"probe-broker": "off"}))
+                oneshot = stand_in.cycle(SnapshotManager(manager.snapshot), config(
+                    "single", oneshot="true", **{"probe-broker": "off"}))
                 run["in_process_s"] = time.monotonic() - t2
-                single_ok(oneshot, n)
+                _single_ok(oneshot, n)
                 # A plain GPU (the card, NVML 0) beside the MIG GPU (NVML
                 # 1): the classic worker probes the card, joined by its
-                # UUID; the pinned workers give GPU 1's verdict, unrated.
+                # UUID; the children give GPU 1's verdict, unrated.
                 health.reset_burnin_schedule()
                 half = _stand_in_node(n, card_uuid, classic, plain=True)
                 t3 = time.monotonic()
-                labels = until_health(half, config("none"), "the plain GPU beside MIG")
+                labels = _wait_for(lambda: (lambda l: l if "nvidia.com/gpu.health.ok" in l
+                                            else None)(stand_in.cycle(half, config("none"))),
+                                   240.0, "the plain GPU beside MIG", poll=0.2)
                 run["plain_beside_mig_s"] = time.monotonic() - t3
-                verdicts = {k: v for k, v in per_device(labels).items()
+                verdicts = {k: v for k, v in _per_device(labels).items()
                             if not k.endswith((".tflops", ".hbm-gbps"))}
                 check(verdicts == {
                     "health.ok": "true", "chips.healthy": "2", "chips.sick": "0",
-                    "chip.0.ok": "true", "chip.1.ok": "true"}, f"half: {per_device(labels)}")
+                    "chip.0.ok": "true", "chip.1.ok": "true"}, f"half: {_per_device(labels)}")
                 check(int(labels.get("nvidia.com/gpu.chip.0.tflops", "0")) > 0
                       and "nvidia.com/gpu.chip.1.tflops" not in labels
                       and int(labels.get("nvidia.com/gpu.health.matmul-tflops", "0")) > 0,
                       f"half rates: {labels}")
+                # The daemon's exit mid-round (run()'s teardown): no child
+                # is left.
+                health.reset_burnin_schedule()
+                stand_in.cycle(manager, config("single"))
+                stand_in.pids(manager, n)
+                sandbox.close_broker()
+                sandbox.kill_stray_children()
+                check(not _worker_children(), f"children left: {_worker_children()}")
+                health.reset_burnin_schedule()
             sandbox.close_broker()
-            _wait_for(lambda: all(_gone(p) for p in pids), 30.0, "workers closed")
             out["runs"][str(n)] = run
-            emit("mig_run", workers=n, **run)
+            emit("mig_run", children=n, **run)
     finally:
-        health._fold = real_fold
-        logging.getLogger("tfd").removeHandler(spawns)
+        memory.stop()
+        stand_in.close()
         faults.reset()
         sandbox.close_broker()
+        health.reset_burnin_schedule()
+    check(_kernel_cache_files() == cache_before,
+          "a child built the kernel instead of loading it from the cache")
     out["grids"] = _mig_grids(entries)
     entries["hbm_stream_sum"]["mig_launches"] = {
-        n: r["launches_per_worker"] for n, r in out["runs"].items()}
+        n: r["launches_per_child"] for n, r in out["runs"].items()}
     entries["hbm_stream_sum"]["mig_grids"] = out["grids"]
     emit("mig", **{k: v for k, v in out.items() if k != "runs"},
-         spawn_s={n: r["spawn_s"] for n, r in out["runs"].items()})
+         first_health_s={n: r["first_health_s"] for n, r in out["runs"].items()},
+         round_cpu_s={n: r["round_cpu_s"] for n, r in out["runs"].items()},
+         device_peak_rise_mib={n: r["device_peak_rise_mib"] for n, r in out["runs"].items()})
+    return out
+
+
+# The busy phase: a holder process takes the card's free memory less a
+# margin. The context margin is below a CUDA context, so a new process
+# cannot create one; each other margin is chosen from the footprint split
+# so that the probe's attempt fails at one step: the 256 MiB buffer, the
+# burn-in's side stream, cuBLAS's handle, the graph capture and NCCL's
+# communicator (``_busy_margins``). Every check runs at the margins of
+# BUSY_FULL; at the others, a fresh worker, the early worker and the MIG
+# stand-in in process.
+BUSY_LOW_MARGIN_MIB = 64
+# The capture's margin, this far short of the split's use after the
+# capture: torch.cuda.graph empties the allocator's cache before it
+# captures, so the capture ends below the side pass's peak on a card with
+# room, while on a full card the side pass reuses freed blocks and fits in
+# less than the capture (tools/torch_busy_margins.py shows where each
+# margin fails).
+BUSY_CAPTURE_SHORT_MIB = 16
+# margin -> the split's step whose use less the caching allocator's share
+# bounds what a busy worker keeps: the step that failed, of which a failed
+# creation may keep a part; for NCCL the step before it, since the probe
+# checks NCCL's room before it builds the communicator. Nothing at the
+# context margin.
+BUSY_KEEPS = {
+    "context": None,
+    "allocation": "stream_buffer_256mib",
+    "stream": "side_stream",
+    "cublas": "cublas_first_pass",
+    "capture": "graph_capture",
+    "nccl": "graph_capture",
+}
+BUSY_FULL = ("context", "allocation")
+# The card's memory.used is steady once two readings this far apart agree
+# within BUSY_STEADY_MIB.
+BUSY_STEADY_S = 0.5
+BUSY_STEADY_MIB = 2
+# What the card may drift by, all other processes, across one margin.
+BUSY_DRIFT_MIB = 16
+BUSY_CLI_CYCLES = 6
+BUSY_CLI_SLEEP_S = 0.5
+PARENT_BUSY_NOTE = ("the parent tree maps every exception of the probe to "
+                    "probe-failed (sandbox/broker.py _HealthProbe._run, and a "
+                    "pinned child's error in lm/health.py _probe_mig_in_child): "
+                    "health.ok=false, chip.<i>.ok=false, chips.sick, hence "
+                    "slice.sick-chips and cordon advice")
+
+_FOOTPRINT_CHILD = r"""
+import json, sys, torch
+from gpu_feature_discovery_tpu_torch.ops import hbm, healthcheck as hc
+
+dev = torch.device("cuda", 0)
+steps, reserved = {}, {}
+
+def used(step):
+    torch.cuda.synchronize(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    steps[step] = (total - free) / 2**20
+    reserved[step] = torch.cuda.memory_reserved(dev) / 2**20
+
+used("context")
+hbm._kernel_library()
+used("kernel_library")
+# In the warm-up's order (ops/healthcheck.py _warm_probe_kernels).
+xb, wsb = hc._burnin_workspace(dev, hc.CUDA_PROBE_SIZE, hc.CUDA_PROBE_DEPTH, hc.PROBE_DTYPE)
+used("burnin_inputs")
+buf = hbm.stream_workspace(dev, hbm.probe_rows(hc.PROBE_HBM_MIB))
+used("stream_buffer_256mib")
+# The burn-in graph's capture (hc._burnin_graph) step by step, its entry
+# then registered so that the probe below captures no second graph.
+current = torch.cuda.current_stream(dev)
+side = torch.cuda.Stream(dev)
+used("side_stream")
+side.wait_stream(current)
+with torch.cuda.stream(side):
+    hc.burnin_step(xb, wsb)
+current.wait_stream(side)
+used("cublas_first_pass")
+graph = torch.cuda.CUDAGraph()
+with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+    cs, rms = hc.burnin_step(xb, wsb)
+hc._burnin_graphs[(dev, hc.CUDA_PROBE_SIZE, hc.CUDA_PROBE_DEPTH)] = (graph, cs, rms)
+used("graph_capture")
+hc.sharded_chip_verdicts((dev,), hc.VERDICT_MAX_SIZE, hc.VERDICT_MAX_DEPTH)
+used("verdicts_nccl_one_device")
+hbm.hbm_stream_sum(buf)
+used("stream_kernel_first_launch")
+del buf, xb, wsb, graph, cs, rms
+report = hc.measure_node_health(devices=[dev], per_chip=True)
+used("first_probe")
+at_end = {"reserved_mib": torch.cuda.memory_reserved(dev) / 2**20,
+          "allocated_mib": torch.cuda.memory_allocated(dev) / 2**20}
+# What a worker keeps after a busy attempt that got this far.
+hc.release_probe_memory()
+used("after_release")
+print(json.dumps({"steps": steps, "allocator_reserved_mib": reserved, **at_end,
+                  "healthy": report["healthy"],
+                  "launches": report["phases"]["hbm_stream_sum_launches_process"]}))
+"""
+
+_HOLDER = r"""
+import json, sys, torch
+margin = int(sys.argv[1]) << 20
+free, total = torch.cuda.mem_get_info()
+held = torch.empty(free - margin, dtype=torch.uint8, device="cuda")
+torch.cuda.synchronize()
+after, _ = torch.cuda.mem_get_info()
+print(json.dumps({"held_mib": held.numel() / 2**20, "free_mib": after / 2**20}), flush=True)
+sys.stdin.read()
+"""
+
+
+def _child_env(**extra) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+    env.update(extra)
+    return env
+
+
+def _footprint(card_uuid: str) -> dict:
+    """What a pinned child holds of the card after each step of its first
+    probe: ``total - free`` (cudaMemGetInfo) less the card's use without
+    the child, and the caching allocator's reserve against what is
+    allocated at the end. The use without the child is the lesser of two
+    steady readings, before the child and after it: a process of an
+    earlier phase that is still giving its memory back, or this process's
+    own share shrinking, must not count as the child's."""
+    before = _steady_used_mib()
+    proc = subprocess.run([sys.executable, "-c", _FOOTPRINT_CHILD], cwd=REPO,
+                          env=_child_env(CUDA_VISIBLE_DEVICES=card_uuid),
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"footprint child failed: {proc.stderr[-2000:]}")
+    after = _steady_used_mib()
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(doc["healthy"] and doc["launches"] == 5, f"footprint child's probe: {doc}")
+    without = min(before, after)
+    doc["steps_mib"] = {k: v - without for k, v in doc.pop("steps").items()}
+    doc["card_before_mib"], doc["card_after_mib"] = before, after
+    return doc
+
+
+class _Holder:
+    """A process that takes the card's free memory less ``margin_mib`` and
+    keeps it until stopped."""
+
+    def __init__(self, margin_mib: int):
+        self.proc = subprocess.Popen([sys.executable, "-c", _HOLDER, str(margin_mib)],
+                                     stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                     text=True, env=_child_env())
+        line = self.proc.stdout.readline()
+        check(line.startswith("{"), f"the holder did not take the memory: {line!r}")
+        self.doc = json.loads(line)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.stdin.close()
+            self.proc.wait(timeout=30)
+
+
+def _health_outcome(client, **request) -> dict:
+    """The client's health RPCs until one is not ``warming``."""
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        outcome = client.health(**request)
+        if outcome.get("status") != "warming":
+            return outcome
+        time.sleep(0.2)
+    raise SystemExit("chip_smoke: check failed: a health outcome within 120 s")
+
+
+def _busy_cli(tmp: str, name: str):
+    """The CLI at its defaults with actuation on and a probe every cycle."""
+    out = os.path.join(tmp, f"{name}-tfd")
+    log_path = os.path.join(tmp, f"{name}-log")
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gpu_feature_discovery_tpu_torch", "--backends", "gpu",
+         "--with-burnin", "--burnin-interval", "1", "--sleep-interval",
+         f"{BUSY_CLI_SLEEP_S}s", "--probe-timeout", "60s", "--metrics-port", "0",
+         "--actuation", "enforce", "--actuation-window", "2",
+         "--state-dir", os.path.join(tmp, f"{name}-state"), "--output-file", out],
+        cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return proc, out, log_path
+
+
+def _steady_used_mib(timeout: float = 20.0) -> int:
+    """The card's memory.used once two readings BUSY_STEADY_S apart agree
+    within BUSY_STEADY_MIB: no process is still taking or freeing."""
+    deadline = time.monotonic() + timeout
+    last = _device_used_mib()
+    while True:
+        time.sleep(BUSY_STEADY_S)
+        now = _device_used_mib()
+        if abs(now - last) <= BUSY_STEADY_MIB:
+            return now
+        check(time.monotonic() < deadline, f"the card's memory.used steady within {timeout}s")
+        last = now
+
+
+def _live_children() -> set:
+    """This process's children that are not zombies."""
+    return {p for p in _children(os.getpid()) if not _gone(p)}
+
+
+def _busy_worker(cfg, health, broker_mod, run: dict):
+    """(a) A fresh classic worker under the holder: its first probe
+    answers ``unacquirable`` with the error it met, the labels carry no
+    health, and the worker stays up. Returns the client, its manager and
+    the outcomes it answered."""
+    t0 = time.monotonic()
+    w1 = broker_mod.BrokerClient(cfg)
+    try:
+        w1_manager = broker_mod.BrokerManager(w1)
+    except Exception as e:  # noqa: BLE001 - reported as the failed check
+        w1.close()
+        raise SystemExit(f"chip_smoke: check failed: a fresh worker's spawn under the "
+                         f"holder: {e}")
+    run["fresh_worker_spawn_s"] = time.monotonic() - t0
+    w1_pid = w1.pid
+    seen = []
+    real_health = w1.health
+
+    def recording(**request):
+        seen.append(real_health(**request))
+        return seen[-1]
+
+    w1.health = recording
+    labels = {}
+    deadline = time.monotonic() + 120
+    while (not seen or seen[-1]["status"] == "warming") and time.monotonic() < deadline:
+        labels = dict(health.new_health_labeler(w1_manager, cfg).labels())
+    outcome = seen[-1]
+    check(outcome["status"] == "unacquirable" and outcome.get("error"),
+          f"a fresh worker under the holder: {outcome}")
+    _no_health(labels, "a fresh worker under the holder")
+    run["fresh_worker_error"] = outcome["error"]
+    run["fresh_worker_labels"] = labels
+    check(w1.alive and w1.pid == w1_pid and not _gone(w1_pid),
+          "the busy worker did not stay up")
+    return w1, w1_manager, seen
+
+
+def _busy_cli_checks(cli, cli_out: str, cli_log: str, run: dict) -> None:
+    """(c) The CLI with actuation under the holder: a write per cycle,
+    never a health label, chips.sick or advice; the busy device logged."""
+    snaps = []
+
+    def cycles_seen():
+        labels = _read_labels(cli_out)
+        if labels and (not snaps or labels != snaps[-1]):
+            snaps.append(labels)
+        with open(cli_log) as f:
+            return f.read().count("Cycle timings: ") >= BUSY_CLI_CYCLES
+
+    _wait_for(cycles_seen, 120.0, f"{BUSY_CLI_CYCLES} CLI cycles", poll=0.05)
+    for labels in snaps + [_read_labels(cli_out)]:
+        _no_health(labels, "the CLI under the holder")
+        bad = [k for k in labels if k.endswith(
+            ("schedulable", "cordon-advice", "slice.sick-chips"))]
+        check(not bad, f"the CLI under the holder: {bad}")
+    with open(cli_log) as f:
+        busy_lines = [l.strip() for l in f if "a device is busy" in l]
+    check(busy_lines, "the CLI logged no busy device")
+    run["cli_busy_line"] = busy_lines[0][-400:]
+    cli_workers = _children(cli.pid)
+    check(len(cli_workers) == 1, f"CLI workers {cli_workers}")
+    cli.send_signal(signal.SIGTERM)
+    check(cli.wait(timeout=30) == 0, "the CLI did not exit 0")
+
+
+def _busy_margins(steps: dict) -> dict:
+    """Each margin of the busy phase in MiB, by the step of the probe it
+    makes fail: half way between two steps of the split, or, for the
+    capture, BUSY_CAPTURE_SHORT_MIB short of its end."""
+    def mid(below, above):
+        return int(round((steps[below] + steps[above]) / 2))
+
+    return {
+        "context": BUSY_LOW_MARGIN_MIB,
+        "allocation": mid("burnin_inputs", "stream_buffer_256mib"),
+        "stream": mid("stream_buffer_256mib", "side_stream"),
+        "cublas": mid("side_stream", "cublas_first_pass"),
+        "capture": int(round(steps["graph_capture"])) - BUSY_CAPTURE_SHORT_MIB,
+        "nccl": mid("graph_capture", "verdicts_nccl_one_device"),
+    }
+
+
+def _kept_allowed(steps: dict, reserved: dict, name: str) -> float:
+    """What a busy worker may keep after its attempt at the margin
+    ``name``: nothing when no context fitted; else the card's use at the
+    margin's BUSY_KEEPS step of the split less the caching allocator's
+    share there, its CUDA context and the code and library state its
+    attempt loaded, which no torch call frees."""
+    step = BUSY_KEEPS[name]
+    return 0.0 if step is None else steps[step] - reserved[step]
+
+
+def phase_busy(entries: dict, smi: str) -> dict:
+    """A busy card (see the module's docstring, phase 14): at each margin
+    a fresh classic worker and the MIG stand-in at N = 3 in process (at
+    the margins of BUSY_FULL also a CLI with actuation and the stand-in
+    through the broker) publish no health label; the worker stays up
+    holding at most its context and the code its attempt loaded; a worker
+    that was up before the holder still probes ok; after the holder
+    exits, health labels return."""
+    from gpu_feature_discovery_tpu_torch import sandbox
+    from gpu_feature_discovery_tpu_torch.lm import health
+    from gpu_feature_discovery_tpu_torch.native import nvml
+    from gpu_feature_discovery_tpu_torch.ops.healthcheck import release_probe_memory
+    from gpu_feature_discovery_tpu_torch.sandbox import broker as broker_mod
+    from gpu_feature_discovery_tpu_torch.sandbox.snapshot import SnapshotManager
+
+    card_uuid = nvml.read_inventory().devices[0].uuid
+    footprint = _footprint(card_uuid)
+    emit("footprint", nvidia_smi=smi, **footprint)
+    steps = footprint["steps_mib"]
+    reserved = footprint["allocator_reserved_mib"]
+    margins = _busy_margins(steps)
+    check(BUSY_LOW_MARGIN_MIB < steps["context"] < margins["allocation"],
+          f"margins {margins} against the split {steps}")
+    stand_in = _MigStandIn(card_uuid)
+    config = stand_in.config
+    cfg = config("none")
+    build_dir = os.path.join(REPO, "build")
+    out = {"nvidia_smi": smi, "parent_note": PARENT_BUSY_NOTE, "margins_mib": margins,
+           "runs": {}}
+    # This process's own probe caches go first, so that its share of the
+    # card stays put under every reading below.
+    release_probe_memory()
+    # (e) A worker up before the holder: it keeps its own memory.
+    w0 = broker_mod.BrokerClient(cfg)
+    try:
+        first = _health_outcome(w0, per_chip=True)
+        check(first["status"] == "ok", f"the early worker: {first}")
+        for name, margin in margins.items():
+            full = name in BUSY_FULL
+            run = {"margin_mib": margin, "full": full}
+            launches = {}
+            health.reset_burnin_schedule()
+            others = _live_children()
+            check(w0.pid in others, f"the early worker among {others}")
+            baseline = _steady_used_mib()
+            holder = _Holder(margin)
+            run["holder"] = holder.doc
+            cli = w1 = None
+            try:
+                with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+                    w1, w1_manager, seen = _busy_worker(cfg, health, broker_mod, run)
+                    # (e) The early worker still probes.
+                    early = _health_outcome(w0, per_chip=True)
+                    check(early["status"] == "ok" and early["report"]["healthy"],
+                          f"the early worker under the holder: {early}")
+                    run["early_worker"] = early["status"]
+                    launches["early_worker"] = \
+                        early["report"]["phases"]["hbm_stream_sum_launches_process"]
+                    manager = _stand_in_node(MIG_FULL_N, card_uuid, w0)
+                    if full:
+                        cli, cli_out, cli_log = _busy_cli(tmp, name)
+                        # (b) The MIG stand-in through the broker.
+                        mig = stand_in.round(manager, config("single"), MIG_FULL_N)
+                        _no_health(mig["labels"], "the MIG stand-in through the broker")
+                        run["mig_broker_round_s"] = mig["wall_s"]
+                        health.reset_burnin_schedule()
+                    # (b) The MIG stand-in in process.
+                    t1 = time.monotonic()
+                    oneshot = stand_in.cycle(SnapshotManager(manager.snapshot), config(
+                        "single", oneshot="true", **{"probe-broker": "off"}))
+                    run["mig_in_process_s"] = time.monotonic() - t1
+                    _no_health(oneshot, "the MIG stand-in in process")
+                    if full:
+                        _busy_cli_checks(cli, cli_out, cli_log, run)
+                        cli = None
+                    holder.stop()
+                    # (c) What the busy worker keeps: every other process
+                    # of the card is where it was at the baseline (checked
+                    # again once the worker is gone, below).
+                    check(_live_children() == others | {w1.pid},
+                          f"children {_live_children()} at the reading, {others} and "
+                          f"{w1.pid} at the baseline")
+                    run["busy_worker_holds_mib"] = _steady_used_mib() - baseline
+                    # (d) After the holder: health labels, through the same
+                    # worker, and for the MIG stand-in.
+                    t2 = time.monotonic()
+                    labels = _wait_for(lambda: (lambda l: l if l.get(
+                        "nvidia.com/gpu.health.ok") == "true" else None)(dict(
+                            health.new_health_labeler(w1_manager, cfg).labels())),
+                        120.0, "health labels after the holder", poll=0.2)
+                    run["holder_exit_to_health_s"] = time.monotonic() - t2
+                    check(_has_health(labels), f"after the holder: {labels}")
+                    recovered = [o for o in seen if o["status"] == "ok"][-1]
+                    launches["fresh_worker"] = \
+                        recovered["report"]["phases"]["hbm_stream_sum_launches_process"]
+                    check(launches["fresh_worker"] == 4,
+                          f"the busy attempts launched the kernel: {launches}")
+                    if name == "allocation":
+                        health.reset_burnin_schedule()
+                        mig = stand_in.round(manager, config("single"), MIG_FULL_N)
+                        _single_ok(mig["labels"], MIG_FULL_N)
+                        run["mig_after_holder_round_s"] = mig["wall_s"]
+                        launches["mig_children_after"] = [
+                            r["phases"]["hbm_stream_sum_launches_process"]
+                            for r in stand_in.reports]
+            finally:
+                if cli is not None and cli.poll() is None:
+                    cli.kill()
+                    cli.wait()
+                holder.stop()
+                if w1 is not None:
+                    w1_pid = w1.pid
+                    w1.close()
+                    _wait_for(lambda: _gone(w1_pid), 30.0, "the busy worker's exit")
+                health.reset_burnin_schedule()
+            run["card_drift_mib"] = _steady_used_mib() - baseline
+            run["launches"] = launches
+            out["runs"][name] = run
+            emit("busy_run", margin=name, **run)
+            held = run["busy_worker_holds_mib"]
+            allowed = _kept_allowed(steps, reserved, name)
+            check(abs(run["card_drift_mib"]) <= BUSY_DRIFT_MIB,
+                  f"at the {name} margin the card's other processes moved by "
+                  f"{run['card_drift_mib']} MiB")
+            check(-BUSY_DRIFT_MIB <= held <= allowed + BUSY_DRIFT_MIB,
+                  f"at the {name} margin the busy worker holds {held} MiB, its context "
+                  f"and code {allowed} MiB")
+    finally:
+        w0.close()
+        stand_in.close()
+        sandbox.close_broker()
+        health.reset_burnin_schedule()
+    entries["hbm_stream_sum"]["busy_launches"] = {
+        name: r["launches"] for name, r in out["runs"].items()}
+    emit("busy", **{k: v for k, v in out.items() if k != "runs"},
+         errors={name: r["fresh_worker_error"][:300] for name, r in out["runs"].items()},
+         busy_worker_holds_mib={name: r["busy_worker_holds_mib"]
+                                for name, r in out["runs"].items()},
+         allowed_mib={name: _kept_allowed(steps, reserved, name) for name in margins})
     return out
 
 
@@ -3532,6 +4159,7 @@ def main() -> int:
     phase_actuation(entries, info["nvidia_smi"])
     phase_deploy(entries, info["nvidia_smi"])
     phase_mig(entries, info["nvidia_smi"])
+    phase_busy(entries, info["nvidia_smi"])
     # What serving and recording metrics cost, beside the card.
     emit("metrics", nvidia_smi=info["nvidia_smi"],
          scrape_ms_median=statistics.median(cli["scrape_ms"]),

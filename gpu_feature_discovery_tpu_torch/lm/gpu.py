@@ -9,9 +9,9 @@ initialised backend, so both run inline; the health source does device
 I/O (acquisition and the burn-in probe) only with ``--with-burnin``, and
 is offloaded to the engine's pool then (lm/engine.py). Under the
 persistent broker the health source carries a cancel hook: a deadline
-miss SIGKILLs the workers running the probe (the classic worker and, on
-a MIG node, the pinned ones) instead of leaving a thread wedged in native
-code.
+miss SIGKILLs the processes running the probe (the classic worker and, on
+a MIG node, the running round's pinned children) instead of leaving a
+thread wedged in native code.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import List
 
 from gpu_feature_discovery_tpu_torch.config.spec import Config
 from gpu_feature_discovery_tpu_torch.lm.engine import LabelSource
-from gpu_feature_discovery_tpu_torch.lm.health import new_health_labeler
+from gpu_feature_discovery_tpu_torch.lm.health import cancel_mig_round, new_health_labeler
 from gpu_feature_discovery_tpu_torch.lm.labeler import Merge
 from gpu_feature_discovery_tpu_torch.lm.labels import Labels
 from gpu_feature_discovery_tpu_torch.lm.machine_type import new_machine_type_labeler
@@ -46,15 +46,14 @@ def _device_labels(manager: Manager, config: Config) -> Labels:
     return Merge(versions, slice_capability, resources).labels()
 
 
-def _cancel_probes(broker):
+def _cancel_probes(broker, manager: Manager):
     """The health source's cancel hook on a MIG node: ``kill_child`` on
-    the classic worker and on every pinned MIG worker (each fires only
-    while a request of its own is in flight)."""
-    from gpu_feature_discovery_tpu_torch.sandbox.broker import kill_pinned_children
+    the classic worker (it fires only while a request is in flight), and
+    the children of the running MIG round killed, which ends the round."""
 
     def cancel() -> None:
         broker.kill_child()
-        kill_pinned_children()
+        cancel_mig_round(manager)
 
     return cancel
 
@@ -71,7 +70,7 @@ def gpu_label_sources(manager: Manager, config: Config) -> List[LabelSource]:
     health_cancel = None
     if broker is not None and config.flags.tfd.with_burnin:
         mig = any(chip.is_slice_enabled() for chip in manager.get_chips())
-        health_cancel = _cancel_probes(broker) if mig else broker.kill_child
+        health_cancel = _cancel_probes(broker, manager) if mig else broker.kill_child
     return [
         LabelSource(
             "machine-type",

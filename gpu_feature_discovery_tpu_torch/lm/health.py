@@ -20,11 +20,12 @@ inventory's (a subset), no per-device label is published.
 
 With GPUs in MIG mode the node's verdict still covers every device the
 inventory counts, as the twin's covers every chip: the plain GPUs are
-probed as above, and each MIG device by a worker pinned to it
-(resource/probe_targets.py says which index each verdict carries under
-each strategy). ``_fold`` joins their reports: ``health.ok`` is
-``all()`` over every probed device, the rates are the worst plain GPU's
-(under a valid ``single``, the worst MIG device's).
+probed as above, and each MIG device by a one-shot child pinned to it,
+which frees the device when it exits (resource/probe_targets.py says
+which index each verdict carries under each strategy). ``_fold`` joins
+their reports: ``health.ok`` is ``all()`` over every probed device, the
+rates are the worst plain GPU's (under a valid ``single``, the worst MIG
+device's).
 A multi-GPU node also publishes ``health.ici.ok`` (the ring sweep over
 peer copies and NCCL) and, with --chip-probes, ``health.ici.allreduce-gbps``
 (the timed NCCL all-reduce, GiB/s per device).
@@ -33,6 +34,14 @@ translation to ``nvidia.com/gpu.``.
 
 The probe runs every ``--burnin-interval`` cycles; cycles in between
 republish the cached labels without ``probe-ms``.
+
+A device the probe cannot get memory on is busy, not sick: on a GPU the
+daemon shares the device with the node's workloads, which may hold
+almost all of its memory. A probe that fails for want of device memory
+(ops/healthcheck.py ``is_busy_error``) takes the twin's unacquirable
+branch on every path: no health label, the cache and the failure and
+straggler streaks dropped, its fault shots given back. Any other
+failure of the probe is ``health.ok=false``, as in the twin.
 
 Where the probe runs follows the manager. Under the persistent broker
 (sandbox/broker.py, the supervised daemon's default) it is one
@@ -331,7 +340,11 @@ def new_health_labeler(manager: Manager, config: Config) -> Labeler:
         # The probe runs in the broker worker, which holds the devices;
         # this process imports no torch for it.
         return _broker_health_labels(manager, broker, config)
-    from gpu_feature_discovery_tpu_torch.ops.healthcheck import measure_node_health
+    from gpu_feature_discovery_tpu_torch.ops.healthcheck import (
+        is_busy_error,
+        measure_node_health,
+        release_probe_memory,
+    )
 
     # Acquisition is checked EVERY cycle, so cached health labels never
     # outlive the devices being acquirable; only the probe is scheduled.
@@ -372,13 +385,25 @@ def new_health_labeler(manager: Manager, config: Config) -> Labeler:
         else:
             sick, slow = frozenset(), frozenset()
         if targets is not None:
-            return functools.partial(
+            measure = functools.partial(
                 _measure_mig_node, targets, config, chip_probes, sick, slow
             )
-        return functools.partial(
-            measure_node_health, per_chip=chip_probes,
-            sick_chips=sick, slow_chips=slow, **_inventory_kwargs(manager),
-        )
+        else:
+            measure = functools.partial(
+                measure_node_health, per_chip=chip_probes,
+                sick_chips=sick, slow_chips=slow, **_inventory_kwargs(manager),
+            )
+
+        def armed(devices):
+            try:
+                return measure(devices=devices)
+            except Exception as e:
+                if is_busy_error(e):
+                    # Nothing of a busy probe is published: its shots go back.
+                    faults.rearm_chip_faults(sick, slow)
+                raise
+
+        return armed
 
     first_probe = sched.cached is None and sched.consecutive_failures == 0
     if first_probe and not config.flags.tfd.oneshot:
@@ -419,6 +444,12 @@ def new_health_labeler(manager: Manager, config: Config) -> Labeler:
             log.debug("burn-in probe failed:", exc_info=True)
             report, error = None, e
         probe_ms = (time.perf_counter() - t0) * 1e3
+    if error is not None and is_busy_error(error):
+        if targets is None:
+            # This process's own probe could not get memory: drop what
+            # the attempt allocated (_measure_mig_node drops its own).
+            release_probe_memory(error)
+        return _busy(sched, error)
     return _labels_from_probe(sched, manager, config, report, error, probe_ms)
 
 
@@ -457,6 +488,19 @@ def _warn_plain_unlisted(targets) -> None:
     )
 
 
+def _busy(sched: _BurninSchedule, error) -> Labeler:
+    """A probe that could not get device memory: the device is busy, not
+    sick. The twin's unacquirable branch: no health labels, and nothing
+    measured before the gap survives it."""
+    text = str(error).strip()
+    warn_once(
+        log, "health:busy",
+        "burn-in skipped: a device is busy, the probe could not get its memory "
+        "(%s); publishing no health labels", text.splitlines()[0] if text else "",
+    )
+    return _forget_health(sched)
+
+
 def _nothing_to_probe(sched: _BurninSchedule) -> Labeler:
     """A MIG node with neither a plain GPU nor a MIG device: no health."""
     warn_once(
@@ -467,11 +511,14 @@ def _nothing_to_probe(sched: _BurninSchedule) -> Labeler:
     return _forget_health(sched)
 
 
-def _probe_mig_in_child(target, config: Config, request: dict) -> dict:
+def _probe_mig_in_child(target, config: Config, request: dict, pid_box=None) -> dict:
     """One probe of one MIG device in a one-shot child pinned to it
-    (sandbox/probe.py ``run_probe``, the ``health`` op), for the
-    in-process path: one process cannot open a second MIG device. The
-    outcome in the broker's shape."""
+    (sandbox/probe.py ``run_probe``, the ``health`` op): one process
+    cannot open a second MIG device, and the child frees the device when
+    it exits. The outcome in the broker's shape: ``unacquirable`` when
+    the child could not get device memory (busy), ``probe-failed`` for
+    any other failure. The child's pid lands in ``pid_box`` at its
+    spawn."""
     from gpu_feature_discovery_tpu_torch.config.flags import DEFAULT_PROBE_TIMEOUT
     from gpu_feature_discovery_tpu_torch.sandbox.probe import run_probe
 
@@ -479,11 +526,13 @@ def _probe_mig_in_child(target, config: Config, request: dict) -> dict:
     result = run_probe(
         "health", config,
         timeout if timeout is not None else DEFAULT_PROBE_TIMEOUT,
-        pin=target.uuid, request=request,
+        pid_box=pid_box, pin=target.uuid, request=request,
     )
     if result.status == "ok":
         return {"status": "ok", "report": result.payload,
                 "probe_ms": result.duration_s * 1e3}
+    if result.status == "busy":
+        return {"status": "unacquirable", "error": result.error}
     detail = result.error or (
         f"signal {result.term_signal}" if result.term_signal else result.stderr_tail[-200:]
     )
@@ -497,41 +546,82 @@ def _mig_request(per_chip: bool, shots) -> dict:
             "slow_chips": [0] if slow else []}
 
 
-def _measure_mig_node(targets, config: Config, per_chip: bool, sick, slow,
-                      devices=None) -> dict:
-    """The in-process probe of a MIG node: ``devices`` (its plain GPUs)
-    in this process and every MIG device in a pinned child, all at once;
-    the folded report. A failure of the classic probe raises, as the
-    probe of a node without MIG does."""
-    from gpu_feature_discovery_tpu_torch.ops.healthcheck import measure_node_health
-
-    (c_sick, c_slow), mig_shots = targets.route_faults(sick, slow)
-    outcomes: Dict[str, dict] = {}
+def _start_mig_probes(targets, config: Config, per_chip: bool, shots: dict,
+                      outcomes: Dict[str, dict], pids: list) -> list:
+    """Probe every MIG device of ``targets`` at once, each in its one-shot
+    pinned child on a thread started here: the device's fault ``shots``
+    (by its key) ride the request, its outcome lands in ``outcomes`` by
+    its key, its child's pid in ``pids``. The threads, which the caller
+    owns: both MIG paths probe so, in process waiting for them, through
+    the broker collecting them over cycles (``_MigRound``)."""
     no_shots = (frozenset(), frozenset())
 
     def probe(target):
-        if not target.uuid:
-            outcomes[target.key] = {"status": "probe-failed",
-                                    "error": "the MIG device has no UUID"}
-            return
-        outcomes[target.key] = _probe_mig_in_child(
-            target, config, _mig_request(per_chip, mig_shots.get(target.key, no_shots))
-        )
+        try:
+            if not target.uuid:
+                raise RuntimeError("the MIG device has no UUID")
+            outcome = _probe_mig_in_child(
+                target, config, _mig_request(per_chip, shots.get(target.key, no_shots)),
+                pids,
+            )
+        except Exception as e:  # noqa: BLE001 - this device's verdict only
+            outcome = {"status": "probe-failed", "error": str(e)}
+        outcomes[target.key] = outcome
 
     threads = [threading.Thread(target=probe, args=(t,), daemon=True,
                                 name="tfd-mig-probe") for t in targets.mig]
     for thread in threads:
         thread.start()
+    return threads
+
+
+def _busy_devices(targets, outcomes: Dict[str, dict]) -> list:
+    """The MIG devices whose probe could not get device memory, each as
+    ``uuid: error``."""
+    return [f"{t.uuid}: {outcomes[t.key].get('error', '')}" for t in targets.mig
+            if (outcomes.get(t.key) or {}).get("status") == "unacquirable"]
+
+
+def _measure_mig_node(targets, config: Config, per_chip: bool, sick, slow,
+                      devices=None) -> dict:
+    """The in-process probe of a MIG node: ``devices`` (its plain GPUs)
+    in this process and every MIG device in a pinned child, all at once;
+    the folded report. A failure of the classic probe raises, as the
+    probe of a node without MIG does, and so does a busy MIG device
+    (DeviceBusy): its verdict is unknown, so none speaks for the node.
+    A busy device wins over a failure of the plain GPUs' probe, as on the
+    broker path (``_broker_mig_round``)."""
+    from gpu_feature_discovery_tpu_torch.ops.healthcheck import (
+        DeviceBusy,
+        is_busy_error,
+        measure_node_health,
+        release_probe_memory,
+    )
+
+    (c_sick, c_slow), mig_shots = targets.route_faults(sick, slow)
+    outcomes: Dict[str, dict] = {}
+    threads = _start_mig_probes(targets, config, per_chip, mig_shots, outcomes, [])
+    classic = error = None
     try:
-        classic = None
         if devices:
             classic = measure_node_health(
                 devices=devices, per_chip=per_chip, sick_chips=c_sick,
                 slow_chips=c_slow, inventory_uuids=targets.gpu_uuids,
             )
+    except Exception as e:  # noqa: BLE001 - raised below, after the busy check
+        error = e
     finally:
         for thread in threads:
             thread.join()
+    if error is not None and is_busy_error(error):
+        # This process's own probe could not get memory.
+        release_probe_memory(error)
+        raise error
+    busy = _busy_devices(targets, outcomes)
+    if busy:
+        raise DeviceBusy(f"MIG device(s) busy: {'; '.join(busy)}") from error
+    if error is not None:
+        raise error
     return _fold(targets, classic, outcomes)
 
 
@@ -886,20 +976,20 @@ def _broker_health_labels(manager, broker, config: Config) -> Labeler:
         else (frozenset(), frozenset())
     )
     if status == "unacquirable":
-        # The worker launched no probe: re-arm everything in flight.
+        # The worker launched no probe, or its probe could not get device
+        # memory: re-arm everything in flight. As _acquire_devices
+        # returning None in process: nothing about device health, publish
+        # nothing, drop the cache.
         faults.rearm_chip_faults(sick_in_flight, slow_in_flight)
-        # As _acquire_devices returning None in process: nothing about
-        # device health, publish nothing, drop the cache.
+        if outcome.get("error"):
+            return _busy(sched, outcome["error"])
         warn_once(
             log,
             "health:unacquirable",
             "burn-in skipped: no local CUDA devices acquirable in the broker "
             "worker; publishing no health labels",
         )
-        sched.cached = None
-        sched.consecutive_failures = 0
-        sched.straggler = None
-        return Empty()
+        return _forget_health(sched)
     if status == "warming":
         # The worker's probe (or its pre-warm) still runs: base labels
         # without health this cycle, collected on a later one (cached
@@ -924,130 +1014,140 @@ def _broker_health_labels(manager, broker, config: Config) -> Labeler:
 
 class _MigRound:
     """One probing round of a MIG node through the broker: the fault
-    shots routed at its start, the outcome of each probe as it comes
-    (``"classic"`` for the plain GPUs' worker, a MIG target's key for its
-    pinned worker), and which probes were started (and so took their
-    shots)."""
+    shots routed at its start, by probe (``"classic"`` for the plain
+    GPUs' worker, a MIG target's key for its child), each probe's outcome
+    as it comes, and the MIG devices' one-shot pinned children, started
+    once with the round on threads it owns (``start``)."""
 
     def __init__(self, targets, sick, slow):
         self.targets = targets
-        self.classic_shots, self.mig_shots = targets.route_faults(sick, slow)
+        classic, mig = targets.route_faults(sick, slow)
+        self.shots = dict(mig, classic=classic)
         self.outcomes: Dict[str, dict] = {}
-        self.started: set = set()
+        self.classic_asked = False
+        # Set by the cancel hook: the round is over, its outcomes unused.
+        self.cancelled = False
+        self.pids: list = []
+        self._threads: list = []
+        self._given_back: set = set()
 
-    def unpublished_shots(self, dropping: bool = False) -> tuple:
-        """The label indices of every shot whose probe has not returned,
-        and, when the round is ``dropping`` its outcomes, of every MIG
-        probe that returned ok (a failed probe's shots went back when it
-        returned)."""
-        pending = [
-            v for k, v in self.mig_shots.items()
-            if k not in self.outcomes
-            or (dropping and self.outcomes[k].get("status") == "ok")
-        ]
-        if "classic" not in self.outcomes:
-            pending.append(self.classic_shots)
-        sick = set().union(*(shots[0] for shots in pending))
-        slow = set().union(*(shots[1] for shots in pending))
-        return sick, slow
+    def start(self, config: Config, per_chip: bool) -> None:
+        self._threads = _start_mig_probes(
+            self.targets, config, per_chip, self.shots, self.outcomes, self.pids
+        )
+
+    def wait(self, deadline: float) -> None:
+        """Wait for the children until ``deadline`` (monotonic)."""
+        for thread in self._threads:
+            thread.join(max(0.0, deadline - time.monotonic()))
+
+    def give_back(self, keys=None) -> None:
+        """Re-arm the fault shots of the probes ``keys`` (None: every
+        probe's), each at most once: shots that no published verdict
+        enacted."""
+        from gpu_feature_discovery_tpu_torch.utils import faults
+
+        for key in self.shots if keys is None else keys:
+            if key in self.shots and key not in self._given_back:
+                self._given_back.add(key)
+                faults.rearm_chip_faults(*self.shots[key])
+
+    def kill(self) -> None:
+        """SIGKILL the running children (the health source's cancel
+        hook): the round is over, and the next cycle starts another."""
+        from gpu_feature_discovery_tpu_torch.sandbox.probe import kill_if_live
+
+        self.cancelled = True
+        for pid in list(self.pids):
+            kill_if_live(pid)
+
+    def drop(self) -> None:
+        """End the round unpublished: its children killed, every shot
+        given back."""
+        self.kill()
+        self.give_back()
+
+
+def cancel_mig_round(manager: Manager) -> None:
+    """Kill the running children of ``manager``'s MIG round, if any (the
+    broker-routed health source's cancel hook, lm/gpu.py)."""
+    sched = _schedules.get(manager)
+    rnd = sched.mig_round if sched is not None else None
+    if rnd is not None:
+        rnd.kill()
 
 
 def _broker_mig_round(sched, manager, broker, config: Config, targets) -> Labeler:
     """The broker path on a MIG node: the classic worker probes the plain
-    GPUs, one pinned worker per MIG device probes that device, all asked
-    at once and each within its own deadline. Outcomes are collected over
-    cycles until every probe has one; meanwhile the last round's labels
-    stand (none before the first). A pinned worker that dies, hangs or
-    will not spawn is its own device's failed verdict; the classic
-    worker's death fails the cycle, as on a node without MIG."""
+    GPUs, and each MIG device is probed in a one-shot pinned child, as in
+    process, all at once. The children run in the background: a round's
+    outcomes are collected over cycles until every probe has one, each
+    cycle waiting for them no longer than the worker's health wait;
+    meanwhile the last round's labels stand (none before the first). A
+    child that dies or hangs is its own device's failed verdict; a busy
+    device leaves the round without a verdict; the classic worker's
+    death fails the cycle, as on a node without MIG."""
     from gpu_feature_discovery_tpu_torch.sandbox import broker as broker_mod
     from gpu_feature_discovery_tpu_torch.utils import faults
 
     if not targets.plain and not targets.mig:
         return _nothing_to_probe(sched)
     chip_probes, _ = _chip_probe_opts(config)
-    broker_mod.retire_mig_brokers({t.key for t in targets.mig})
     rnd = sched.mig_round
-    if rnd is None or rnd.targets != targets:
-        if rnd is not None:
-            faults.rearm_chip_faults(*rnd.unpublished_shots())
+    if rnd is not None and (rnd.cancelled or rnd.targets != targets):
+        rnd.drop()
+        rnd = sched.mig_round = None
+    if rnd is None:
         sick, slow = faults.consume_chip_faults() if chip_probes else (frozenset(), frozenset())
         rnd = sched.mig_round = _MigRound(targets, sick, slow)
-    no_shots = (frozenset(), frozenset())
-    classic_error = []
-
-    def ask_classic():
-        shots = no_shots if "classic" in rnd.started else rnd.classic_shots
-        rnd.started.add("classic")
+        rnd.start(config, chip_probes)
+    deadline = time.monotonic() + broker_mod.HEALTH_WAIT_S
+    if targets.plain and "classic" not in rnd.outcomes:
+        shots = (frozenset(), frozenset()) if rnd.classic_asked else rnd.shots["classic"]
+        rnd.classic_asked = True
         try:
             outcome = broker.health(
                 per_chip=chip_probes, sick_chips=sorted(shots[0]),
                 slow_chips=sorted(shots[1]), inventory_uuids=targets.gpu_uuids,
             )
-        except Exception as e:  # noqa: BLE001 - re-raised below
-            classic_error.append(e)
-            return
-        if outcome.get("status") == "unacquirable":
-            # The worker launched no probe: its shots go back.
-            faults.rearm_chip_faults(*shots)
+        except Exception:
+            # The request died with the worker: the round ends unpublished.
+            rnd.drop()
+            sched.mig_round = None
+            raise
         if outcome.get("status") != "warming":
             rnd.outcomes["classic"] = outcome
-
-    def ask_mig(target):
-        shots = rnd.mig_shots.get(target.key, no_shots)
-        try:
-            if not target.uuid:
-                raise RuntimeError("the MIG device has no UUID")
-            client = broker_mod.get_mig_broker(config, target)
-            if not client.ready_or_spawning():
-                return  # spawning: warming
-            request = _mig_request(chip_probes, no_shots if target.key in rnd.started else shots)
-            rnd.started.add(target.key)
-            outcome = client.health(**request)
-        except Exception as e:  # noqa: BLE001 - this device's verdict only
-            outcome = {"status": "probe-failed", "error": str(e)}
-        if outcome.get("status") == "warming":
-            return
-        if outcome.get("status") != "ok":
-            faults.rearm_chip_faults(*shots)
-        rnd.outcomes[target.key] = outcome
-
-    threads = [threading.Thread(target=ask_mig, args=(t,), daemon=True, name="tfd-mig-health")
-               for t in targets.mig if t.key not in rnd.outcomes]
-    for thread in threads:
-        thread.start()
-    try:
-        if targets.plain and "classic" not in rnd.outcomes:
-            ask_classic()
-    finally:
-        for thread in threads:
-            thread.join()
-    if classic_error:
-        faults.rearm_chip_faults(*rnd.unpublished_shots())
-        sched.mig_round = None
-        raise classic_error[0]
-    if rnd.outcomes.get("classic", {}).get("status") == "unacquirable":
+    classic = rnd.outcomes.get("classic")
+    if classic is not None and classic.get("status") == "unacquirable":
         # As on a node without MIG: the plain GPUs' verdict is unknown, so
-        # no verdict speaks for the node; the MIG probes' shots go back.
-        faults.rearm_chip_faults(*rnd.unpublished_shots(dropping=True))
+        # no verdict speaks for the node.
+        rnd.drop()
         sched.mig_round = None
+        if classic.get("error"):
+            return _busy(sched, classic["error"])
         _warn_plain_unlisted(targets)
         return _forget_health(sched)
+    rnd.wait(deadline)
     missing = [k for k in [t.key for t in targets.mig] + (["classic"] if targets.plain else [])
                if k not in rnd.outcomes]
     if missing:
         log.info(
-            "burn-in of %d of %d MIG node probe(s) still warming; republishing "
+            "burn-in of %d of %d MIG node probe(s) still running; republishing "
             "the last round's health labels", len(missing),
             len(targets.mig) + bool(targets.plain),
         )
         return sched.cached if sched.cached is not None else Empty()
     sched.mig_round = None
-    classic = rnd.outcomes.get("classic")
+    busy = _busy_devices(targets, rnd.outcomes)
+    if busy:
+        # A busy device's verdict is unknown, so none speaks for the node.
+        rnd.give_back()
+        return _busy(sched, f"MIG device(s) busy: {'; '.join(busy)}")
+    # A failed probe enacted nothing that will be published.
+    rnd.give_back([t.key for t in targets.mig if rnd.outcomes[t.key].get("status") != "ok"])
     probe_ms = max(float(o.get("probe_ms") or 0.0) for o in rnd.outcomes.values())
-    prewarm = [float(o["prewarm_ms"]) for o in rnd.outcomes.values() if o.get("prewarm_ms")]
-    if prewarm:
-        obs_metrics.FIRST_PROBE_COMPILE.set(max(prewarm) / 1e3)
+    if classic is not None and classic.get("prewarm_ms"):
+        obs_metrics.FIRST_PROBE_COMPILE.set(float(classic["prewarm_ms"]) / 1e3)
     if classic is not None and classic.get("status") == "probe-failed":
         return _labels_from_probe(
             sched, manager, config, None, classic.get("error", ""), probe_ms

@@ -45,6 +45,7 @@ import functools
 import logging
 import math
 import os
+import re
 import statistics
 import time
 from typing import Optional, Tuple
@@ -259,8 +260,15 @@ def _burnin_graph(device: torch.device, size: int, depth: int) -> tuple:
             burnin_step(xb, wsb)
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            cs, rms = burnin_step(xb, wsb)
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                cs, rms = burnin_step(xb, wsb)
+        except BaseException:
+            # torch.cuda.graph leaves this thread on its capture stream
+            # when ending a failed capture raises: the thread's own stream
+            # comes back before anything else runs on it.
+            torch.cuda.set_stream(current)
+            raise
     entry = (graph, cs, rms)
     _burnin_graphs[key] = entry
     return entry
@@ -280,6 +288,65 @@ def reset_probe_workspaces() -> None:
     device_timing.gate_sizes.clear()
 
 
+# What a probe's error says when it could not get device memory: the
+# device is busy (a workload holds its memory), not sick. Besides
+# torch.OutOfMemoryError (the caching allocator's) and DeviceBusy, only
+# an error whose message holds one of these counts as busy:
+BUSY_ERROR_TEXTS = (
+    # A CUDA call's cudaErrorMemoryAllocation as torch words it; the
+    # CUDA context's creation on a full device fails so.
+    "CUDA error: out of memory",
+    # The same error by its name.
+    "cudaErrorMemoryAllocation",
+    # cuBLAS could not allocate its handle or workspace.
+    "CUBLAS_STATUS_ALLOC_FAILED",
+    # The stream kernel's launch (ops/hbm.py) returned
+    # cudaErrorMemoryAllocation.
+    "hbm_stream_sum kernel launch failed: cudaError 2",
+)
+# A text must not run on into a digit ("cudaError 2" is not "cudaError 20").
+_BUSY_ERROR = re.compile("|".join(re.escape(t) + r"(?!\d)" for t in BUSY_ERROR_TEXTS))
+
+
+class DeviceBusy(RuntimeError):
+    """A probe could not get the memory it needs on a device."""
+
+
+def is_busy_error(exc) -> bool:
+    """True when ``exc`` (an exception, or the text a probe process
+    shipped of one), or an exception it was raised from or while
+    handling, says the probe could not get device memory."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        if isinstance(exc, (DeviceBusy, torch.OutOfMemoryError)):
+            return True
+        if _BUSY_ERROR.search(str(exc)):
+            return True
+        exc = getattr(exc, "__cause__", None) or getattr(exc, "__context__", None)
+    return False
+
+
+def release_probe_memory(error: Optional[BaseException] = None) -> None:
+    """After a probe that could not get device memory: the failed
+    attempt's tensors go back to the device, so the process holds little
+    more than its CUDA context until the next attempt, which starts
+    clean. ``error``'s tracebacks are cut first (their frames hold the
+    attempt's tensors); then every probe cache is dropped, and cuBLAS's
+    workspaces and the caching allocator's free blocks are released."""
+    seen = set()
+    while error is not None and id(error) not in seen:
+        seen.add(id(error))
+        error.__traceback__ = None
+        error = error.__cause__ or error.__context__
+    reset_probe_workspaces()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear_workspaces is not None:
+            clear_workspaces()
+        torch.cuda.empty_cache()
+
+
 def _warm_probe_kernels(devices: tuple, size: int, depth: int, per_chip: bool) -> float:
     """Build the HBM kernel, capture the burn-in graph and run every probe
     once outside the timed window; returns the wall ms spent (0.0 when
@@ -294,22 +361,80 @@ def _warm_probe_kernels(devices: tuple, size: int, depth: int, per_chip: bool) -
         return 0.0
     t0 = time.perf_counter()
     rows = probe_rows(PROBE_HBM_MIB)
+    # What takes device memory first, the buffers before cuBLAS, the graph
+    # and NCCL load what no call frees, and the kernels last: on a device
+    # a workload holds, an attempt that fails for want of memory launched
+    # nothing, and the commonest failure (no room for the buffers) leaves
+    # this process little more than its CUDA context once
+    # release_probe_memory has run.
     for d in devices:
-        graph, cs, rms = _burnin_graph(d, size, depth)
+        _burnin_workspace(d, size, depth, PROBE_DTYPE)
+        stream_workspace(d, rows)
+    graphs = [_burnin_graph(d, size, depth) for d in devices]
+    _warm_collectives(devices, size, depth, per_chip)
+    for d, (graph, cs, rms) in zip(devices, graphs):
         with torch.cuda.device(d):
             graph.replay()
         total = hbm_stream_sum(stream_workspace(d, rows))
         health_pack(cs, rms, total).cpu()
-    if per_chip:
-        sharded_chip_verdicts(
-            devices, min(size, VERDICT_MAX_SIZE), min(depth, VERDICT_MAX_DEPTH)
-        )
-        if len(devices) > 1:
-            ici_allreduce_probe(devices, iters=1)
-    if len(devices) > 1:
-        ici_ring_sweep(chip_mesh(devices))
     _warmed_probe_keys.add(key)
     return (time.perf_counter() - t0) * 1e3
+
+
+# The device memory NCCL's communicator took when the probe first built
+# it over one device (chip_smoke.py busy, the footprint split's verdicts
+# step less the verdicts' own inputs: 492-494 MiB on an NVIDIA H100 80GB
+# HBM3, 700 W).
+NCCL_COMM_MIB = 492
+# What NCCL says when a CUDA call of its own fails, its allocations
+# included: busy only while a device has less than NCCL_COMM_MIB free.
+NCCL_CUDA_ERROR = "NCCL Error 1: unhandled cuda error"
+# The device tuples whose communicator this process has built (torch
+# keeps it for the process's life).
+_nccl_built: set = set()
+
+
+def _short_of_nccl(devices) -> list:
+    """The CUDA devices with less than NCCL_COMM_MIB free, each as
+    ``device: N MiB free`` (on the CPU the collectives are host sums)."""
+    short = []
+    for d in devices:
+        if d.type != "cuda":
+            continue
+        free = torch.cuda.mem_get_info(d)[0] / 2**20
+        if free < NCCL_COMM_MIB:
+            short.append(f"{d}: {free:.0f} MiB free")
+    return short
+
+
+def _warm_collectives(devices: tuple, size: int, depth: int, per_chip: bool) -> None:
+    """The probe's NCCL calls, once each: the first builds the
+    communicator over ``devices``. A device without room for it is busy,
+    checked before the first build, since a build that fails for want of
+    memory keeps what it had allocated, and again when NCCL's own CUDA
+    call fails, since its error does not say why."""
+    if not per_chip and len(devices) == 1:
+        return
+    if devices not in _nccl_built:
+        short = _short_of_nccl(devices)
+        if short:
+            raise DeviceBusy(f"no room for NCCL's communicator (about {NCCL_COMM_MIB} "
+                             f"MiB): {'; '.join(short)}")
+    try:
+        if per_chip:
+            sharded_chip_verdicts(
+                devices, min(size, VERDICT_MAX_SIZE), min(depth, VERDICT_MAX_DEPTH)
+            )
+            if len(devices) > 1:
+                ici_allreduce_probe(devices, iters=1)
+        if len(devices) > 1:
+            ici_ring_sweep(chip_mesh(devices))
+    except RuntimeError as e:
+        short = _short_of_nccl(devices) if NCCL_CUDA_ERROR in str(e) else []
+        if short:
+            raise DeviceBusy(f"NCCL could not get device memory: {'; '.join(short)}") from e
+        raise
+    _nccl_built.add(devices)
 
 
 def warm_probe_kernels_for(devices: tuple, per_chip: bool = True) -> float:

@@ -10,7 +10,8 @@ reach the inventory's devices. Here the node splits into:
 - the plain GPUs (MIG off), which the classic probe measures, joined to
   NVML's index by UUID as on any node;
 - one target per MIG device, keyed by its NVML ``MIG-`` UUID, which a
-  worker pinned by ``CUDA_VISIBLE_DEVICES=<that UUID>`` measures alone.
+  one-shot child pinned by ``CUDA_VISIBLE_DEVICES=<that UUID>`` measures
+  alone.
 
 The label index ``i`` of ``chip.<i>.*`` counts what the strategy's
 ``gpu.count`` counts (lm/topology_strategy.py), so ``chips.healthy +
@@ -24,6 +25,13 @@ chips.sick == gpu.count``:
 - ``single``, valid: the MIG devices in NVML order (GPU index, then MIG
   slot), each with its own verdict and rates.
 - ``single``, INVALID (``gpu.count=0``): no per-device label.
+- Any strategy, a device whose probe could not get device memory (busy:
+  a workload holds it), or plain GPUs that CUDA does not list: that
+  device's verdict is unknown, so no verdict speaks for the node that
+  round. No health label is published, the cached labels are dropped and
+  the round's fault shots given back; a busy device never counts as
+  sick, so it never reaches ``chips.sick``, ``slice.sick-chips`` or
+  cordon advice.
 
 A node with no GPU in MIG mode has no targets (``probe_targets`` returns
 None) and keeps the classic probe alone.

@@ -30,14 +30,15 @@ gpu-family worker imports the probe, pre-warms and runs the burn-in and
 ``hbm_stream_sum``; the cpu family's never imports torch and never
 creates a CUDA context.
 
-On a node with GPUs in MIG mode, CUDA shows a process at most one MIG
-device, so each MIG device gets a worker of its own beside the classic
-one: a pinned client (``get_mig_broker``, keyed in the same map) whose
-worker starts with ``CUDA_VISIBLE_DEVICES=<MIG UUID>``, acquires that
-device, pre-warms and answers ``health``. The classic worker then probes
-only the plain GPUs. Pinned workers spawn on background threads
-(``ready_or_spawning``), all at once, and each keeps its own deadline,
-kill and respawn: a wedged MIG worker costs its own device's verdict.
+On a node with GPUs in MIG mode the classic worker probes only the
+plain GPUs; each MIG device is probed in a one-shot child pinned to it
+(lm/health.py ``_probe_mig_in_child``), which holds nothing of the
+device between probes.
+
+A probe that could not get device memory (a workload holds the device,
+``ops.healthcheck.is_busy_error``) answers ``unacquirable``, the twin's
+outcome for a chip it could not acquire, and drops what the attempt
+allocated; the worker stays up.
 
 Fault sites (``TFD_FAULT_SPEC``): a spawn fires ``pjrt_init`` and
 consumes ``probe.timeout``/``probe.hang``/``probe.segv`` (a spawn IS an
@@ -255,17 +256,26 @@ class _HealthProbe:
 
     def _run(self, devices, opts: dict) -> None:
         from gpu_feature_discovery_tpu_torch.ops.healthcheck import (
+            is_busy_error,
             measure_node_health,
+            release_probe_memory,
         )
 
         t0 = time.perf_counter()
-        try:
-            with self._chip_lock:
+        error = None
+        with self._chip_lock:
+            try:
                 report = measure_node_health(devices=devices, **opts)
-        except Exception as e:  # noqa: BLE001 - shipped to the parent
+            except Exception as e:  # noqa: BLE001 - shipped to the parent
+                error = e
+            busy = error is not None and is_busy_error(error)
+            if busy:
+                release_probe_memory(error)
+        if error is not None:
             self._outcome = {
-                "status": "probe-failed",
-                "error": str(e),
+                # A busy device is not a sick one: no verdict this time.
+                "status": "unacquirable" if busy else "probe-failed",
+                "error": str(error),
                 "probe_ms": (time.perf_counter() - t0) * 1e3,
             }
             return
@@ -276,9 +286,10 @@ class _HealthProbe:
         }
 
     def request(self, req: Optional[dict] = None) -> dict:
-        """One ``health`` RPC. Outcomes: ``unacquirable`` (says nothing
-        about device health), ``probe-failed`` (devices acquired, the
-        computation failed: health.ok=false), ``ok`` with the report, and
+        """One ``health`` RPC. Outcomes: ``unacquirable`` (no device, or
+        the probe could not get device memory, with its ``error``: says
+        nothing about device health), ``probe-failed`` (devices acquired,
+        the computation failed: health.ok=false), ``ok`` with the report, and
         ``warming`` while the probe (or the pre-warm holding the chip
         lock) still runs.
 
@@ -316,7 +327,8 @@ def _child_prewarm(health_probe: _HealthProbe, per_chip: bool = True,
     ``hbm_stream_sum`` once, and its ms ride the first ok health outcome
     (``prewarm_ms``). ``acquire`` gives the devices the worker probes
     (None: the probe's default). Best-effort: on failure the first health
-    request warms up itself."""
+    request warms up itself; a pre-warm that could not get device memory
+    first drops what it allocated."""
     try:
         from gpu_feature_discovery_tpu_torch.lm.health import _acquire_devices
 
@@ -324,11 +336,20 @@ def _child_prewarm(health_probe: _HealthProbe, per_chip: bool = True,
         if not devices:
             return
         from gpu_feature_discovery_tpu_torch.ops.healthcheck import (
+            is_busy_error,
+            release_probe_memory,
             warm_probe_kernels_for,
         )
 
         with health_probe._chip_lock:
-            warm_ms = warm_probe_kernels_for(tuple(devices), per_chip=per_chip)
+            try:
+                warm_ms = warm_probe_kernels_for(tuple(devices), per_chip=per_chip)
+            except Exception as e:  # noqa: BLE001 - the device may be busy
+                if not is_busy_error(e):
+                    raise
+                release_probe_memory(e)
+                log.info("broker worker pre-warm skipped: a device is busy: %s", e)
+                return
             # Under the lock: no probe can finish before it is recorded.
             health_probe.prewarm_ms = warm_ms
         log.info("broker worker pre-warmed probe kernels in %.0f ms", warm_ms)
@@ -339,8 +360,8 @@ def _child_prewarm(health_probe: _HealthProbe, per_chip: bool = True,
 def _classic_devices(manager):
     """The devices a classic worker probes: every device CUDA lists, or,
     with a GPU in MIG mode, only those that are plain GPUs of the
-    worker's inventory, None when there are none (each MIG device has a
-    pinned worker of its own)."""
+    worker's inventory, None when there are none (each MIG device is
+    probed in a pinned child of its own)."""
     from gpu_feature_discovery_tpu_torch.lm import health
     from gpu_feature_discovery_tpu_torch.resource.probe_targets import probe_targets
 
@@ -355,37 +376,27 @@ def _classic_devices(manager):
 
 
 def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"",
-                backend: Optional[str] = None, pin: Optional[str] = None) -> None:
+                backend: Optional[str] = None) -> None:
     """The worker body: select + init the backend ONCE, report ready,
     then serve requests until EOF or a shutdown request. Never returns;
     every path leaves through os._exit. ``buf`` holds request bytes read
     past the first (config) frame. ``backend`` keys the worker to one
     registry token, whose provider it builds instead of the classic
-    selection; only a gpu-family worker runs the burn-in. A worker with a
-    ``pin`` (a MIG device's UUID, which its ``CUDA_VISIBLE_DEVICES``
-    names) builds no backend: it acquires its one device and serves
-    ``health`` alone."""
+    selection; only a gpu-family worker runs the burn-in."""
     from gpu_feature_discovery_tpu_torch.resource import factory, registry
 
-    gpu_worker = pin is not None or backend is None or (
+    gpu_worker = backend is None or (
         registry.provider_for(backend).family == registry.FAMILY_GPU
     )
-    manager = acquire = None
+    acquire = None
     try:
-        if pin is not None:
-            from gpu_feature_discovery_tpu_torch.lm.health import pinned_devices
-
-            if pinned_devices() is None:
-                raise ResourceError(f"the device pinned by {pin} is not acquirable")
-            acquire = pinned_devices
+        if backend is None:
+            manager = factory.select_manager(config)
         else:
-            if backend is None:
-                manager = factory.select_manager(config)
-            else:
-                manager = registry.select_backend_manager(config, backend)
-            manager.init()
-            if gpu_worker:
-                acquire = _classic_devices(manager)
+            manager = registry.select_backend_manager(config, backend)
+        manager.init()
+        if gpu_worker:
+            acquire = _classic_devices(manager)
         if config.flags.tfd.with_burnin and gpu_worker:
             # The probe's imports (torch) belong to the spawn, under its
             # budget, not to the first health request's bounded wait.
@@ -437,12 +448,12 @@ def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"",
         try:
             if op == "ping":
                 resp = {"status": "ok"}
-            elif op == "snapshot" and manager is not None:
+            elif op == "snapshot":
                 resp = {
                     "status": "ok",
                     "snapshot": DeviceSnapshot.from_manager(manager).to_dict(),
                 }
-            elif op == "health" and acquire is not None:
+            elif op == "health" and gpu_worker:
                 resp = health_probe.request(req)
             elif op == "shutdown":
                 try:
@@ -475,14 +486,9 @@ class BrokerClient:
     under one lock (the engine's health thread and the run loop's
     snapshot refresh may overlap); ``kill_child`` takes only the pid lock
     so a deadline-escalation cancel can fire while a request is blocked
-    mid-read. A client with a ``pin`` (a MIG device's UUID) runs a worker
-    that sees that one device (``CUDA_VISIBLE_DEVICES``) and serves
-    ``health`` alone; its spawn is no backend acquisition, so it fires no
-    acquisition fault site and counts no init attempt, and its requests
-    consume no ``broker.*`` shot."""
+    mid-read."""
 
-    def __init__(self, config, backend: Optional[str] = None,
-                 pin: Optional[str] = None):
+    def __init__(self, config, backend: Optional[str] = None):
         from gpu_feature_discovery_tpu_torch.config.flags import (
             DEFAULT_INIT_BACKOFF_MAX,
             DEFAULT_PROBE_TIMEOUT,
@@ -492,10 +498,6 @@ class BrokerClient:
         tfd = config.flags.tfd
         self._config = config
         self._backend = backend
-        self._pin = pin
-        # ready_or_spawning's background spawn and the error it ended in.
-        self._bg_spawn: Optional[threading.Thread] = None
-        self._bg_error: Optional[BaseException] = None
         self._timeout_s = (
             tfd.probe_timeout if tfd.probe_timeout is not None else DEFAULT_PROBE_TIMEOUT
         )
@@ -562,35 +564,30 @@ class BrokerClient:
                 f"{self._next_spawn - now:.3f}s after "
                 f"{self._spawn_failures} consecutive failure(s)"
             )
-        hang = segv = False
-        if self._pin is None:
-            # The spawn IS the backend acquisition: the pjrt_init site
-            # fires here, once per worker lifetime; a rebuild that reuses
-            # the live worker fires nothing.
-            obs_metrics.BACKEND_INIT_ATTEMPTS.inc()
-            try:
-                faults.maybe_inject("pjrt_init")
-                if faults.consume("probe.timeout"):
-                    raise BrokerTimeout(
-                        f"injected fault at 'probe.timeout' "
-                        f"({faults.FAULT_SPEC_ENV}): broker spawn treated as "
-                        f"exceeding its {self._timeout_s:.1f}s budget"
-                    )
-            except BaseException:
-                self._spawn_failed(now)
-                raise
-            hang = faults.consume("probe.hang")
-            segv = False if hang else faults.consume("probe.segv")
+        # The spawn IS the backend acquisition: the pjrt_init site fires
+        # here, once per worker lifetime; a rebuild that reuses the live
+        # worker fires nothing.
+        obs_metrics.BACKEND_INIT_ATTEMPTS.inc()
+        try:
+            faults.maybe_inject("pjrt_init")
+            if faults.consume("probe.timeout"):
+                raise BrokerTimeout(
+                    f"injected fault at 'probe.timeout' "
+                    f"({faults.FAULT_SPEC_ENV}): broker spawn treated as "
+                    f"exceeding its {self._timeout_s:.1f}s budget"
+                )
+        except BaseException:
+            self._spawn_failed(now)
+            raise
+        hang = faults.consume("probe.hang")
+        segv = False if hang else faults.consume("probe.segv")
 
         stderr_file = tempfile.NamedTemporaryFile(
             prefix="tfd-broker-stderr-", delete=False
         )
         stderr_file.close()
         start = time.monotonic()
-        pid, req_w, resp_r = probe.spawn_child(
-            "broker", stderr_file.name,
-            {"CUDA_VISIBLE_DEVICES": self._pin} if self._pin else None,
-        )
+        pid, req_w, resp_r = probe.spawn_child("broker", stderr_file.name)
         # Registered like any probe child (kills go through the registry)
         # but exempt from the epoch-close sweep.
         probe._register(pid)
@@ -600,7 +597,7 @@ class BrokerClient:
         try:
             _write_frame(req_w, {
                 "config": config_to_dict(self._config), "backend": self._backend,
-                "pin": self._pin, "hang": hang, "segv": segv,
+                "hang": hang, "segv": segv,
             })
         except OSError:
             pass  # died already: the READY read sees EOF
@@ -693,11 +690,10 @@ class BrokerClient:
         self._stderr_path = stderr_file.name
         obs_metrics.BROKER_UP.set(1)
         log.info(
-            "broker worker %d ready in %.0f ms%s%s%s",
+            "broker worker %d ready in %.0f ms%s%s",
             pid,
             duration * 1e3,
             f" for backend {self._backend}" if self._backend else "",
-            f" pinned to {self._pin}" if self._pin else "",
             " (respawn)" if respawn else "",
         )
         watch_enabled, _ = _death_watch_state()
@@ -819,11 +815,10 @@ class BrokerClient:
             payload = {"op": op}
             if extra:
                 payload.update(extra)
-            if self._pin is None:
-                if faults.consume("broker.hang"):
-                    payload["hang"] = True
-                elif faults.consume("broker.crash"):
-                    payload["crash"] = True
+            if faults.consume("broker.hang"):
+                payload["hang"] = True
+            elif faults.consume("broker.crash"):
+                payload["crash"] = True
             pid = self.pid
             stderr_path = self._stderr_path
             start = time.monotonic()
@@ -955,39 +950,6 @@ class BrokerClient:
         if inventory_uuids:
             extra["inventory_uuids"] = [str(u) for u in inventory_uuids]
         return self.request("health", extra=extra)
-
-    def ready_or_spawning(self) -> bool:
-        """True when the worker is up. Otherwise its spawn runs on a
-        background thread (started here if none runs) and this returns
-        False at once, so a caller polling several workers never waits
-        out a spawn; a spawn that failed raises its error here, once."""
-        with self._pid_lock:
-            if self._pid is not None:
-                return True
-        thread = self._bg_spawn
-        if thread is not None and thread.is_alive():
-            return False
-        if thread is not None:
-            self._bg_spawn = None
-            error, self._bg_error = self._bg_error, None
-            if error is not None:
-                raise error
-            with self._pid_lock:
-                if self._pid is not None:
-                    return True
-        self._bg_spawn = threading.Thread(
-            target=self._background_spawn, name="tfd-broker-spawn", daemon=True
-        )
-        self._bg_spawn.start()
-        return False
-
-    def _background_spawn(self) -> None:
-        try:
-            with self._lock:
-                if not self._closed:
-                    self._ensure_running()
-        except BaseException as e:  # noqa: BLE001 - raised by ready_or_spawning
-            self._bg_error = e
 
     def ping(self) -> bool:
         return self.request("ping").get("status") == "ok"
@@ -1135,8 +1097,7 @@ def broker_enabled(config) -> bool:
 _active_lock = threading.Lock()
 # The classic path's client, one per config epoch.
 _active: Optional[BrokerClient] = None
-# The registry cycle's clients, one per backend token and epoch, and on a
-# MIG node the pinned clients, one per MIG device (``MigTarget.key``).
+# The registry cycle's clients, one per backend token and epoch.
 _keyed: Dict[str, BrokerClient] = {}
 
 
@@ -1154,37 +1115,6 @@ def get_broker(config, backend: Optional[str] = None) -> BrokerClient:
         if client is None:
             client = _keyed[backend] = BrokerClient(config, backend=backend)
         return client
-
-
-def get_mig_broker(config, target) -> BrokerClient:
-    """The pinned client of one MIG device (resource/probe_targets.py
-    ``MigTarget``), created on first use beside the classic client; its
-    worker sees that device alone, and its hangs, crashes and respawns
-    are its own."""
-    with _active_lock:
-        client = _keyed.get(target.key)
-        if client is None:
-            client = _keyed[target.key] = BrokerClient(config, pin=target.uuid)
-        return client
-
-
-def retire_mig_brokers(keep) -> None:
-    """Close the pinned clients whose MIG device left the inventory (its
-    key is not in ``keep``)."""
-    with _active_lock:
-        gone = [k for k, c in _keyed.items() if c._pin is not None and k not in keep]
-        clients = [_keyed.pop(k) for k in gone]
-    for client in clients:
-        client.close()
-
-
-def kill_pinned_children() -> None:
-    """``kill_child`` on every pinned client: the health source's deadline
-    escalation reaches the MIG workers probing for it."""
-    with _active_lock:
-        clients = [c for c in _keyed.values() if c._pin is not None]
-    for client in clients:
-        client.kill_child()
 
 
 def close_broker() -> None:

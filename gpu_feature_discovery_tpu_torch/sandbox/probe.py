@@ -124,7 +124,8 @@ class ProbeCrash(ProbeError):
 @dataclass
 class ProbeResult:
     """What one child run produced. ``status`` is ok | timeout | crash |
-    error; exactly one of payload / error detail is meaningful."""
+    error | busy (the op could not get device memory); exactly one of
+    payload / error detail is meaningful."""
 
     status: str
     duration_s: float
@@ -291,7 +292,7 @@ def run_probe(
         try:
             _write_frame(req_w, {
                 "op": op, "config": config_to_dict(config), "backend": backend,
-                "hang": hang, "segv": segv, "pin": pin, "request": request or {},
+                "hang": hang, "segv": segv, "request": request or {},
             })
         except OSError:
             pass  # the child is already gone; its EOF tells how below
@@ -343,7 +344,8 @@ def run_probe(
             return ProbeResult(status="ok", duration_s=duration,
                                payload=doc.get("payload"))
         return ProbeResult(
-            status="error", duration_s=duration,
+            status="busy" if doc.get("status") == "busy" else "error",
+            duration_s=duration,
             error_type=str(doc.get("error_type", "Exception")),
             error=str(doc.get("error", "")),
             stderr_tail=_stderr_tail(stderr_file.name),

@@ -13,9 +13,10 @@ the classic path), the parent-consumed chaos behaviours (``hang``,
 - ``broker``: become the persistent worker (sandbox/broker.py
   ``_child_main``).
 
-A child started with a ``pin`` (a MIG device's UUID, which its
-``CUDA_VISIBLE_DEVICES`` names too) probes that one device: the
-``health`` op, or a broker worker that serves ``health`` alone.
+A probe child pinned to a MIG device (its ``CUDA_VISIBLE_DEVICES``
+names the device's UUID) runs the ``health`` op on that one device. An
+op that could not get device memory answers ``busy``, not ``error``:
+the device is held by a workload, not sick.
 
 Every path leaves through ``os._exit``. Stdout and stderr go to the file
 the parent tails for a crash report.
@@ -73,6 +74,7 @@ def _pinned_health(config, doc: dict) -> dict:
 
     devices = pinned_devices()
     if devices is None:
+        # The pin did not hold (CUDA lists no device): a fault, not busy.
         raise RuntimeError("the pinned device is not acquirable")
     return measure_node_health(devices=devices, **health_options(doc.get("request") or {}))
 
@@ -89,7 +91,15 @@ def _probe_main(doc: dict, config) -> None:
         payload = PROBE_OPS[doc["op"]](config, doc)
         data = {"status": "ok", "payload": payload}
     except BaseException as e:  # noqa: BLE001 - shipped to the parent
-        data = {"status": "error", "error_type": type(e).__name__, "error": str(e)}
+        busy = False
+        if "torch" in sys.modules:
+            # Only an op that loaded torch can have met a busy device (a
+            # cpu-family child never imports it).
+            from gpu_feature_discovery_tpu_torch.ops.healthcheck import is_busy_error
+
+            busy = is_busy_error(e)
+        data = {"status": "busy" if busy else "error",
+                "error_type": type(e).__name__, "error": str(e)}
     try:
         _write_frame(CHILD_RESPONSE_FD, data)
     except OSError:
@@ -120,7 +130,7 @@ def main() -> None:
         if role == "probe":
             _probe_main(doc, config)
         _child_main(CHILD_REQUEST_FD, CHILD_RESPONSE_FD, config, buf,
-                    doc.get("backend"), doc.get("pin"))
+                    doc.get("backend"))
     finally:
         os._exit(1)
 

@@ -13,8 +13,9 @@ over them and the per-device labels count what ``gpu.count`` counts
   ``_labels_from_probe`` on the same seeded per-device tables (numpy),
   and under ``none``/``mixed`` the plain GPUs' labels against the twin's
   beside MIG GPUs that follow the table;
-- the real pinned processes: broker workers and one-shot children, each
+- the real pinned processes: one-shot children on both paths, each
   seeing one device, their hang and crash costing their own device only,
+  none outliving its round, the cancel hook killing a round's children,
   and the two paths giving the same labels;
 - no label key, metric family or flag that the twin lacks.
 
@@ -349,7 +350,7 @@ def test_invalid_single_publishes_the_verdict_without_per_device_labels(caplog):
 def test_a_full_node_of_56_mig_devices_folds_every_verdict_under_thread_switching(
         monkeypatch):
     """Eight H100s of seven MIG devices each through the broker path: 56
-    request threads (more than this host's cores) write one round's
+    child threads (more than this host's cores) write one round's
     outcomes at once, the interpreter switching threads every
     microsecond; every device's verdict lands, device 13's sick."""
     import sys
@@ -361,19 +362,12 @@ def test_a_full_node_of_56_mig_devices_folds_every_verdict_under_thread_switchin
                zip(targets.mig, _seeded_entries(7, 56))}
     asked = []
 
-    class Client:
-        def __init__(self, target):
-            self.target = target
+    def child(target, config, request, pid_box=None):
+        asked.append(target.key)
+        time.sleep(0.001)
+        return _pinned_outcome(entries[target.key], target.uuid)
 
-        def ready_or_spawning(self):
-            return True
-
-        def health(self, **request):
-            asked.append(self.target.key)
-            time.sleep(0.001)
-            return _pinned_outcome(entries[self.target.key], self.target.uuid)
-
-    monkeypatch.setattr(broker_mod, "get_mig_broker", lambda config, t: Client(t))
+    monkeypatch.setattr(health, "_probe_mig_in_child", child)
     before = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -389,7 +383,7 @@ def test_a_full_node_of_56_mig_devices_folds_every_verdict_under_thread_switchin
     finally:
         sys.setswitchinterval(before)
         health.reset_burnin_schedule()
-    assert threading.active_count() < 20, "a request thread outlived its round"
+    assert threading.active_count() < 20, "a child thread outlived its round"
 
 
 # ---------------------------------------------------------------------------
@@ -460,8 +454,10 @@ class _MigNode(SnapshotManager):
 
 @pytest.fixture
 def cpu_probe_env(monkeypatch):
-    """Pinned processes probe one CPU device at a small geometry; faults,
-    schedules and brokers are left clean."""
+    """Pinned processes probe one CPU device at a small geometry; a broker
+    path cycle does not wait for its children; faults, schedules and
+    brokers are left clean."""
+    monkeypatch.setattr(broker_mod, "HEALTH_WAIT_S", 0.0)
     monkeypatch.setenv("TFD_BURNIN_ALLOW_CPU", "1")
     monkeypatch.setenv("TFD_BURNIN_GEOMETRY", "64x1")
     monkeypatch.delenv("TFD_FAULT_SPEC", raising=False)
@@ -498,51 +494,144 @@ def _two_mig_node():
     return FakeNvml([_mig_gpu(2, "3g.40gb")])
 
 
+def _round_pids(manager, count, timeout=30.0):
+    """The pids of the running MIG round's children, once all ``count``
+    are spawned."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        rnd = health._schedule_for(manager).mig_round
+        if rnd is not None and not rnd.cancelled and len(rnd.pids) == count:
+            return list(rnd.pids)
+        time.sleep(0.01)
+    raise AssertionError(f"{count} children of the round not spawned")
+
+
+def _gone(pid):
+    """The pid is reaped (or a zombie nobody will wait for)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return ") Z " in f.read()
+    except OSError:
+        return True
+
+
+def _environ(pid):
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        return dict(kv.split(b"=", 1) for kv in f.read().split(b"\0") if b"=" in kv)
+
+
+def _spawned_at(pid):
+    """When the process started, on this process's monotonic clock (its
+    start time in /proc against the system's uptime)."""
+    with open(f"/proc/{pid}/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return time.monotonic() - (uptime - start_ticks / os.sysconf("SC_CLK_TCK"))
+
+
 def test_pinned_broker_workers_see_one_device_and_contain_a_hang_and_a_crash(
         cpu_probe_env):
-    """Two MIG devices, one pinned worker each (real processes). A worker
-    stopped mid-probe is killed at --probe-timeout and a killed one is
-    seen dead at its next request: each time its own device's verdict
-    is false, the other's stays true, and the daemon's cycle goes on."""
+    """The broker path's one-shot children (real processes), two MIG
+    devices, one pinned child each per round. A child stopped mid-probe
+    is killed at --probe-timeout and a child killed mid-probe is found
+    dead: each time its own device's verdict is false, the other's stays
+    true, and the daemon's cycles go on."""
     manager = _MigNode(_two_mig_node())
-    config = _config("single", **{"probe-timeout": "4s", "probe-broker": "on"})
+    config = _config("single", **{"probe-timeout": "10s", "probe-broker": "on"})
     engine = LabelEngine(parallel=False)
     targets = probe_targets(manager, "single")
     first = _cycle(engine, manager, config)
-    assert "nvidia.com/gpu.health.ok" not in first, "workers spawn in the background"
+    assert "nvidia.com/gpu.health.ok" not in first, "children run in the background"
+    pids = _round_pids(manager, 2)
+    assert len(set(pids)) == 2
+    # Each child is pinned by its device's UUID (the round spawns them in
+    # target order, each on its own thread: match by the environment).
+    assert sorted(_environ(pid)[b"CUDA_VISIBLE_DEVICES"] for pid in pids) == \
+        sorted(t.uuid.encode() for t in targets.mig)
     healthy = _until(engine, manager, config,
                      lambda l: l.get("nvidia.com/gpu.health.ok") == "true", "health labels")
     assert _per_device(healthy) == {
         "nvidia.com/gpu.health.ok": "true", "nvidia.com/gpu.chips.healthy": "2",
         "nvidia.com/gpu.chips.sick": "0", "nvidia.com/gpu.chip.0.ok": "true",
         "nvidia.com/gpu.chip.1.ok": "true"}
-    clients = [broker_mod._keyed[t.key] for t in targets.mig]
-    pids = [c.pid for c in clients]
-    assert None not in pids and len(set(pids)) == 2
-    for pid, target in zip(pids, targets.mig):
-        with open(f"/proc/{pid}/environ", "rb") as f:
-            env = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0") if b"=" in kv)
-        assert env[b"CUDA_VISIBLE_DEVICES"] == target.uuid.encode()
 
-    os.kill(pids[1], signal.SIGSTOP)  # a wedged probe
-    t0 = time.monotonic()
-    hung = _cycle(engine, manager, config)
-    assert 3.5 < time.monotonic() - t0 < 15.0
+    def faulted(sig, what):
+        """The next round with device 1's child hit by ``sig``: its labels
+        and how long after its spawn the child was gone."""
+        _cycle(engine, manager, config)
+        victim = next(pid for pid in _round_pids(manager, 2) if _environ(pid)[
+            b"CUDA_VISIBLE_DEVICES"] == targets.mig[1].uuid.encode())
+        spawned = _spawned_at(victim)
+        os.kill(victim, sig)
+        deadline = time.monotonic() + 30.0
+        while not _gone(victim) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        lived = time.monotonic() - spawned
+        labels = _until(engine, manager, config,
+                        lambda l: l.get("nvidia.com/gpu.health.ok") == "false", what)
+        return labels, lived
+
+    hung, lived = faulted(signal.SIGSTOP, "the hung child's verdict")
+    # Killed at its --probe-timeout (10 s from its spawn), not before.
+    assert 9.5 < lived < 20.0, lived
     assert _per_device(hung) == {
         "nvidia.com/gpu.health.ok": "false", "nvidia.com/gpu.chips.healthy": "1",
         "nvidia.com/gpu.chips.sick": "1", "nvidia.com/gpu.chip.0.ok": "true",
         "nvidia.com/gpu.chip.1.ok": "false"}
-    assert clients[0].pid == pids[0] and clients[1].pid is None
-    # The respawn runs in the background: the failure round stands meanwhile.
-    healthy = _until(engine, manager, config,
-                     lambda l: l.get("nvidia.com/gpu.health.ok") == "true", "the respawn")
-    assert clients[0].pid == pids[0] and clients[1].pid not in (None, pids[1])
+    # A first failure is probed again at once: the next round is healthy.
+    _until(engine, manager, config,
+           lambda l: l.get("nvidia.com/gpu.health.ok") == "true", "the next round")
 
-    os.kill(clients[0].pid, signal.SIGKILL)  # a crash between requests
-    crashed = _cycle(engine, manager, config)
-    assert _per_device(crashed)["nvidia.com/gpu.chip.0.ok"] == "false"
-    assert _per_device(crashed)["nvidia.com/gpu.chip.1.ok"] == "true"
+    crashed, _ = faulted(signal.SIGKILL, "the crashed child's verdict")
+    assert _per_device(crashed)["nvidia.com/gpu.chip.1.ok"] == "false"
+    assert _per_device(crashed)["nvidia.com/gpu.chip.0.ok"] == "true"
     assert crashed["nvidia.com/gpu.count"] == "2"
+
+
+def test_a_round_leaves_no_child_alive(cpu_probe_env):
+    """Each MIG device's child exits with its probe: once the round's
+    labels are published, none of its children is alive, and nothing
+    holds the device until the next round."""
+    manager = _MigNode(_two_mig_node())
+    config = _config("single", **{"probe-broker": "on"})
+    engine = LabelEngine(parallel=False)
+    _cycle(engine, manager, config)
+    pids = _round_pids(manager, 2)
+    labels = _until(engine, manager, config,
+                    lambda l: l.get("nvidia.com/gpu.health.ok") == "true", "health labels")
+    assert labels["nvidia.com/gpu.chips.healthy"] == "2"
+    assert health._schedule_for(manager).mig_round is None
+    assert all(_gone(pid) for pid in pids), [p for p in pids if not _gone(p)]
+
+
+def test_the_cancel_hook_kills_a_rounds_running_children(cpu_probe_env):
+    """The broker-routed health source's cancel hook (a missed labeler
+    deadline, a reload) kills the running round's children; that round
+    publishes nothing and gives its fault shots back, and the next cycle
+    starts another, which delivers the shot."""
+    manager = _MigNode(_two_mig_node())
+    config = _config("single", **{"probe-broker": "on"})
+    engine = LabelEngine(parallel=False)
+    faults.load_fault_spec("chip.1.sick:fail:1")
+    _cycle(engine, manager, config)
+    pids = _round_pids(manager, 2)
+    (health_source,) = [s for s in new_label_sources(manager, config) if s.name == "health"]
+    assert health_source.cancel is not None
+    health_source.cancel()
+    deadline = time.monotonic() + 10
+    while not all(_gone(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert all(_gone(p) for p in pids)
+    assert health._schedule_for(manager).mig_round.cancelled
+    _cycle(engine, manager, config)
+    assert not set(_round_pids(manager, 2)) & set(pids), "a new round, new children"
+    labels = _until(engine, manager, config,
+                    lambda l: "nvidia.com/gpu.health.ok" in l, "the next round")
+    assert _per_device(labels) == {
+        "nvidia.com/gpu.health.ok": "false", "nvidia.com/gpu.chips.healthy": "1",
+        "nvidia.com/gpu.chips.sick": "1", "nvidia.com/gpu.chip.0.ok": "true",
+        "nvidia.com/gpu.chip.1.ok": "false"}, "the shot came back for the next round"
 
 
 def test_in_process_children_and_broker_workers_give_the_same_labels(cpu_probe_env):

@@ -696,6 +696,32 @@ def test_a_half_node_whose_plain_gpu_cuda_does_not_list_publishes_no_health(
     assert "none of the node's 1 GPU(s) outside MIG mode is acquirable" in caplog.text
 
 
+@pytest.mark.parametrize("path", ["in-process", "broker"])
+def test_a_busy_mig_device_beside_a_failed_plain_gpu_publishes_no_health(
+        path, fake_torch_cuda, monkeypatch, caplog):
+    """``half`` with GPU 0's MIG device busy and the plain GPU's probe
+    failing (an illegal address): the busy device's verdict is unknown,
+    so no verdict speaks for the node, on both paths alike; the failure
+    is not published as health.ok=false."""
+    from gpu_feature_discovery_tpu_torch.ops import healthcheck
+
+    illegal = "CUDA error: an illegal memory access was encountered"
+
+    def failing(**_):
+        raise RuntimeError(illegal)
+
+    monkeypatch.setattr(healthcheck, "measure_node_health", failing)
+    monkeypatch.setattr(_FakeBrokerClient, "health", lambda self, **_: {
+        "status": "probe-failed", "error": illegal, "probe_ms": 1.0})
+    labels, workers = _mig_cycle("half", path, "", fake_torch_cuda, monkeypatch, caplog,
+                                 busy={(0, 0)})
+    assert workers.asked((0, 0)), "the MIG device was probed"
+    assert labels["nvidia.com/gpu.count"] == "2"
+    assert not [k for k in labels if k.startswith("nvidia.com/gpu.health.")
+                or PER_DEVICE_HEALTH.match(k)], labels
+    assert "a device is busy" in caplog.text
+
+
 @pytest.mark.parametrize("failure", ["hang", "crash"])
 def test_a_hung_or_crashed_mig_worker_costs_its_own_device_only(
         failure, fake_torch_cuda, monkeypatch, caplog):

@@ -52,6 +52,7 @@ from gpu_feature_discovery_tpu_torch.lm.slice_labeler import (
     is_cohort_label,
 )
 from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
+from gpu_feature_discovery_tpu_torch.ops.kernel_cache import RESOLVED_CACHE_DIR_ENV
 from gpu_feature_discovery_tpu_torch.peering import SliceCoordinator
 from gpu_feature_discovery_tpu_torch.resource import factory
 
@@ -258,10 +259,17 @@ class PortSliceHarness:
         return {w.worker_id: w.labels() for w in self.workers}
 
     def __enter__(self):
+        # The daemons export their resolved kernel cache into this
+        # process's environment (cmd/main.run); it must not outlive them.
+        self._kernel_cache_env = os.environ.get(RESOLVED_CACHE_DIR_ENV)
         return self.start()
 
     def __exit__(self, *exc):
         self.stop()
+        if self._kernel_cache_env is None:
+            os.environ.pop(RESOLVED_CACHE_DIR_ENV, None)
+        else:
+            os.environ[RESOLVED_CACHE_DIR_ENV] = self._kernel_cache_env
 
 
 @pytest.fixture(autouse=True)

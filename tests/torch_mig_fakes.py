@@ -1,13 +1,12 @@
 """Stand-ins for the processes that probe a MIG node's MIG devices, for
 the CPU tests of the PyTorch port.
 
-On a MIG node the port probes each MIG device in a process pinned to it:
-a persistent broker worker (``sandbox.broker.get_mig_broker``) or, on
-the in-process path, a one-shot child (``lm.health._probe_mig_in_child``).
-``MigWorkers`` replaces both with probes in this process, each on one CPU
-device at the geometry the test sets (``TFD_BURNIN_GEOMETRY``), and
-records what each device was asked. The real pinned processes are held
-by ``tests/test_torch_mig_probe.py``.
+On a MIG node the port probes each MIG device in a one-shot child pinned
+to it (``lm.health._probe_mig_in_child``), on both the in-process and
+the broker path. ``MigWorkers`` replaces that child with a probe in this
+process, on one CPU device at the geometry the test sets
+(``TFD_BURNIN_GEOMETRY``), and records what each device was asked. The
+real pinned children are held by ``tests/test_torch_mig_probe.py``.
 """
 
 import json
@@ -33,19 +32,19 @@ def pinned_report(request, sick=False):
 
 
 class MigWorkers:
-    """Fakes for every MIG device's probe process, installed on both
-    paths. ``sick`` names devices by ``(gpu, slot)`` that are always sick;
-    ``fail`` maps ``(gpu, slot)`` to the exception its worker's request
-    raises (a hang killed at its deadline, a crash). ``requests`` records
-    ``((gpu, slot), request)`` per probe."""
+    """Fakes for every MIG device's probe process. ``sick`` names devices
+    by ``(gpu, slot)`` that are always sick; ``fail`` maps ``(gpu, slot)``
+    to the exception its probe raises (a hang killed at its deadline, a
+    crash); ``busy`` names devices whose probe could not get device
+    memory. ``requests`` records ``((gpu, slot), request)`` per probe."""
 
-    def __init__(self, monkeypatch, sick=(), fail=None):
+    def __init__(self, monkeypatch, sick=(), fail=None, busy=()):
         self.sick = set(sick)
         self.fail = dict(fail or {})
+        self.busy = set(busy)
         self.requests = []
-        # raising=False: on a tree without these seams the tests run
-        # against its own MIG path (and show its fault).
-        monkeypatch.setattr(broker_mod, "get_mig_broker", self._client, raising=False)
+        # raising=False: on a tree without this seam the tests run against
+        # its own MIG path (and show its fault).
         monkeypatch.setattr(health, "_probe_mig_in_child", self._child, raising=False)
 
     def probe(self, target, request):
@@ -53,6 +52,8 @@ class MigWorkers:
         self.requests.append((where, request))
         if where in self.fail:
             raise self.fail[where]
+        if where in self.busy:
+            return {"status": "unacquirable", "error": "CUDA error: out of memory"}
         return {"status": "ok", "report": pinned_report(request, where in self.sick),
                 "probe_ms": 1.0}
 
@@ -60,28 +61,8 @@ class MigWorkers:
         """The requests the device at ``where`` received."""
         return [r for w, r in self.requests if w == where]
 
-    def _client(self, config, target):
-        return _PinnedClient(self, target)
-
-    def _child(self, target, config, request):
+    def _child(self, target, config, request, pid_box=None):
         try:
             return self.probe(target, request)
         except Exception as e:  # noqa: BLE001 - the child's failed outcome
             return {"status": "probe-failed", "error": str(e)}
-
-
-class _PinnedClient:
-    def __init__(self, workers, target):
-        self._workers = workers
-        self._target = target
-
-    def ready_or_spawning(self):
-        return True
-
-    def health(self, per_chip=True, sick_chips=(), slow_chips=()):
-        return self._workers.probe(self._target, {
-            "per_chip": per_chip, "sick_chips": list(sick_chips),
-            "slow_chips": list(slow_chips)})
-
-    def kill_child(self):
-        pass
