@@ -15,10 +15,13 @@ Phases, each printing one JSON line:
                   its slip twins, bitwise determinism and kernels per
                   call; timed with CUDA events in turns with a library
                   call, beside its bound and ptxas's report.
-4. ``collectives``— the multi-GPU probes on every card: the timed NCCL
-                  all-reduce (32 MiB per card) with its communicator's
-                  first use apart and its timing gate's spins (device ms
-                  beside the host's queueing ms), the ring sweeps over
+4. ``collectives``— the multi-GPU probes on every card: NCCL's first use
+                  apart, through the several-device helper even on one
+                  card; the timed all-reduce (32 MiB per card: on one card
+                  the one-device copy, timed beside NCCL over the card,
+                  with no NCCL call in the probes) and its timing gate's
+                  spins (device ms beside the host's queueing ms), the
+                  ring sweeps over
                   the chip mesh and the (data, model) mesh, peer copies
                   per ring edge, the DP+TP train step against the same
                   step on the CPU, the dry run, and the node probe's
@@ -171,18 +174,21 @@ Phases, each printing one JSON line:
                   first probe, split in the warm-up's order (``total -
                   free`` after the context, the kernel library, the
                   burn-in inputs, the 256 MiB buffer, the burn-in's side
-                  stream, cuBLAS's first pass, the graph capture, NCCL's
-                  communicator, the kernel's first launch and the probe;
-                  reserved against allocated). Then a holder process
-                  takes the card's free memory less a margin: 64 MiB (no
-                  CUDA context fits), and one chosen from the split for
-                  each step where the probe can fail: the buffer, the
-                  side stream, cuBLAS, the capture and NCCL. At each: a
-                  fresh classic broker worker's probe answers
-                  ``unacquirable`` with the error it met and publishes no
-                  ``health.*`` label, and the worker stays up; a worker up
-                  before the holder still probes ok; the MIG stand-in at
-                  N = 3 in process publishes no health label; after the
+                  stream, cuBLAS's first pass, the graph capture, the
+                  one-device verdicts (under 8 MiB, no NCCL call), the
+                  kernel's first launch and the probe; reserved against
+                  allocated). Then a holder process takes the card's free
+                  memory less a margin: 64 MiB (no CUDA context fits), one
+                  chosen from the split for each step where the probe can
+                  fail (the buffer, the side stream, cuBLAS, the
+                  capture), and ``fits``: the first probe's need plus 64
+                  MiB, where a fresh classic broker worker answers ok and
+                  publishes health labels. At each other margin: a fresh
+                  worker's probe answers ``unacquirable`` with the error
+                  it met and publishes no ``health.*`` label, and the
+                  worker stays up; a worker up before the holder still
+                  probes ok; the MIG stand-in at N = 3 in process
+                  publishes no health label; after the
                   holder exits the busy worker holds at most its context
                   and the code its attempt loaded (the split's use at
                   the step where the attempt stops, less the caching
@@ -512,13 +518,16 @@ def _close(got, want, what: str) -> None:
 
 
 def phase_collectives(count: int) -> None:
-    """The multi-GPU probes on every card of the machine: the timed NCCL
-    all-reduce, both ring sweeps, the DP+TP train step held against the
-    same step on the CPU, the dry run, and the node probe's collective
-    keys. On one card the all-reduce has one rank and the rings one
-    device; their checks hold all the same."""
+    """The multi-GPU probes on every card of the machine: NCCL over every
+    card through ``collectives.nccl_all_reduce``, the timed all-reduce,
+    both ring sweeps, the DP+TP train step held against the same step on
+    the CPU, the dry run, and the node probe's collective keys. On one
+    card the all-reduce is the card's own value, a copy with no NCCL
+    call, and the rings have one device; their checks hold all the
+    same."""
     import numpy as np
     import torch
+    import torch.cuda.nccl as nccl
 
     from gpu_feature_discovery_tpu_torch import entry
     from gpu_feature_discovery_tpu_torch.ops import carry, collectives, device_timing, healthcheck
@@ -526,26 +535,38 @@ def phase_collectives(count: int) -> None:
     devices = [torch.device("cuda", i) for i in range(count)]
     out = {"devices": count}
 
-    # The communicator's first use, apart: no earlier phase used NCCL.
+    # NCCL's first use, apart: no earlier phase used NCCL. The probe calls
+    # it only over several devices; the helper that branch calls launches
+    # it here on every card, so the binding stays held on one card too.
     small = [torch.ones(1, device=d) for d in devices]
-    t0 = time.perf_counter()
-    collectives.all_reduce(small)
-    for d in devices:
-        torch.cuda.synchronize(d)
-    out["nccl_first_use_ms"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    collectives.all_reduce(small)
-    for d in devices:
-        torch.cuda.synchronize(d)
-    out["nccl_second_use_ms"] = (time.perf_counter() - t0) * 1e3
+    small_out = [torch.empty_like(t) for t in small]
+    for use in ("first", "second"):
+        t0 = time.perf_counter()
+        collectives.nccl_all_reduce(small, small_out)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        out[f"nccl_{use}_use_ms"] = (time.perf_counter() - t0) * 1e3
+    check(all(float(o) == count for o in small_out), f"NCCL's sum: {small_out}")
+    payload = 32 << 20
+    ones = [torch.ones(payload // 4, device=d) for d in devices]
+    dst = [torch.empty_like(t) for t in ones]
+    nccl_ms = cuda_ms(lambda: collectives.nccl_all_reduce(ones, dst))
+    check(all(bool(torch.all(o == float(count))) for o in dst), "NCCL's 32 MiB sum")
+
+    # From here to the node probe every NCCL call is counted: over one
+    # card the probes' reductions are the device's own value and call none.
+    real_all_reduce, nccl_calls = nccl.all_reduce, []
+
+    def counting(*args, **kwargs):
+        nccl_calls.append(1)
+        return real_all_reduce(*args, **kwargs)
+
+    nccl.all_reduce = counting
 
     # The timing gate: the first spin on these devices runs
     # GATE_FIRST_CYCLES and calibrates; the probe's (3 calls) and every
     # later one (5 calls) are sized from the host's queueing time per call
     # that the last one measured.
-    payload = 32 << 20
-    ones = [torch.ones(payload // 4, device=d) for d in devices]
-    dst = [torch.empty_like(t) for t in ones]
     collectives.all_reduce(ones, out=dst)  # first use on these buffers, untimed
     gates = [device_timing.gated_windows(
         devices, lambda: collectives.all_reduce(ones, out=dst), 5)]
@@ -561,11 +582,12 @@ def phase_collectives(count: int) -> None:
                      "held": g.held} for g in gates]
     check(all(g.held for g in gates),
           f"the host queued the all-reduces past the timing gate: {out['gates']}")
-    # One rank copies its payload out of place: read once, written once.
+    # One card copies its payload out of place: read once, written once.
     out["allreduce"] = {
         **probe, "device_ms": probe["seconds"] * 1e3,
         "gated_windows_ms": [w * 1e3 for w in gates[-1].windows],
         "back_to_back_ms": cuda_ms(lambda: collectives.all_reduce(ones, out=dst)),
+        "nccl_back_to_back_ms": nccl_ms,
         "one_rank_bound_ms": 2 * probe["bytes"] / HBM_BYTES_PER_S * 1e3,
     }
 
@@ -649,6 +671,10 @@ def phase_collectives(count: int) -> None:
               f"multi-GPU node probe: ici_ok {report['ici_ok']} gbps {report['ici_gbps']}")
     out["node_probe"] = {k: report[k] for k in ("ici_ok", "ici_gbps", "chips_allreduce_ok")}
     out["node_probe_phases"] = {k: report["phases"][k] for k in ici_phases}
+    nccl.all_reduce = real_all_reduce
+    out["nccl_calls_in_probes"] = len(nccl_calls)
+    check((len(nccl_calls) == 0) == (count == 1),
+          f"{len(nccl_calls)} NCCL calls in the probes over {count} card(s)")
     # The main path warms its own probe, as a fresh process would.
     healthcheck.reset_probe_workspaces()
     emit("collectives", **out)
@@ -3690,12 +3716,15 @@ def phase_mig(entries: dict, smi: str) -> dict:
 
 # The busy phase: a holder process takes the card's free memory less a
 # margin. The context margin is below a CUDA context, so a new process
-# cannot create one; each other margin is chosen from the footprint split
-# so that the probe's attempt fails at one step: the 256 MiB buffer, the
-# burn-in's side stream, cuBLAS's handle, the graph capture and NCCL's
-# communicator (``_busy_margins``). Every check runs at the margins of
-# BUSY_FULL; at the others, a fresh worker, the early worker and the MIG
-# stand-in in process.
+# cannot create one; each busy margin after it is chosen from the
+# footprint split so that the probe's attempt fails at one step: the 256
+# MiB buffer, the burn-in's side stream, cuBLAS's handle and the graph
+# capture. The last, BUSY_FITS, leaves the first probe's need and
+# BUSY_LOW_MARGIN_MIB more, where a fresh worker probes ok
+# (``_busy_margins``). Every check runs at the margins of BUSY_FULL; at the
+# others, a fresh worker and the early worker, and at the busy ones the
+# MIG stand-in in process (at BUSY_FITS its three children would race for
+# one probe's room).
 BUSY_LOW_MARGIN_MIB = 64
 # The capture's margin, this far short of the split's use after the
 # capture: torch.cuda.graph empties the allocator's cache before it
@@ -3706,18 +3735,22 @@ BUSY_LOW_MARGIN_MIB = 64
 BUSY_CAPTURE_SHORT_MIB = 16
 # margin -> the split's step whose use less the caching allocator's share
 # bounds what a busy worker keeps: the step that failed, of which a failed
-# creation may keep a part; for NCCL the step before it, since the probe
-# checks NCCL's room before it builds the communicator. Nothing at the
-# context margin.
+# creation may keep a part. Nothing at the context margin; at BUSY_FITS
+# the whole first probe, its workspaces included, as a worker that probed
+# keeps them.
+BUSY_FITS = "fits"
 BUSY_KEEPS = {
     "context": None,
     "allocation": "stream_buffer_256mib",
     "stream": "side_stream",
     "cublas": "cublas_first_pass",
     "capture": "graph_capture",
-    "nccl": "graph_capture",
+    BUSY_FITS: "first_probe",
 }
 BUSY_FULL = ("context", "allocation")
+# The one-device verdicts' rise in the footprint split: their 128x2
+# inputs and code, and no NCCL communicator.
+VERDICTS_RISE_MAX_MIB = 8
 # The card's memory.used is steady once two readings this far apart agree
 # within BUSY_STEADY_MIB.
 BUSY_STEADY_S = 0.5
@@ -3734,16 +3767,26 @@ PARENT_BUSY_NOTE = ("the parent tree maps every exception of the probe to "
 
 _FOOTPRINT_CHILD = r"""
 import json, sys, torch
+import torch.cuda.nccl as nccl
 from gpu_feature_discovery_tpu_torch.ops import hbm, healthcheck as hc
 
 dev = torch.device("cuda", 0)
-steps, reserved = {}, {}
+steps, reserved, allocated = {}, {}, {}
+# Every NCCL call of the child is counted: over one device there is none.
+nccl_calls, real_all_reduce = [], nccl.all_reduce
+
+def counting_all_reduce(*args, **kwargs):
+    nccl_calls.append(1)
+    return real_all_reduce(*args, **kwargs)
+
+nccl.all_reduce = counting_all_reduce
 
 def used(step):
     torch.cuda.synchronize(dev)
     free, total = torch.cuda.mem_get_info(dev)
     steps[step] = (total - free) / 2**20
     reserved[step] = torch.cuda.memory_reserved(dev) / 2**20
+    allocated[step] = torch.cuda.memory_allocated(dev) / 2**20
 
 used("context")
 hbm._kernel_library()
@@ -3755,21 +3798,17 @@ buf = hbm.stream_workspace(dev, hbm.probe_rows(hc.PROBE_HBM_MIB))
 used("stream_buffer_256mib")
 # The burn-in graph's capture (hc._burnin_graph) step by step, its entry
 # then registered so that the probe below captures no second graph.
-current = torch.cuda.current_stream(dev)
 side = torch.cuda.Stream(dev)
 used("side_stream")
-side.wait_stream(current)
-with torch.cuda.stream(side):
-    hc.burnin_step(xb, wsb)
-current.wait_stream(side)
+hc.burnin_step(xb, wsb)
 used("cublas_first_pass")
 graph = torch.cuda.CUDAGraph()
-with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
     cs, rms = hc.burnin_step(xb, wsb)
 hc._burnin_graphs[(dev, hc.CUDA_PROBE_SIZE, hc.CUDA_PROBE_DEPTH)] = (graph, cs, rms)
 used("graph_capture")
 hc.sharded_chip_verdicts((dev,), hc.VERDICT_MAX_SIZE, hc.VERDICT_MAX_DEPTH)
-used("verdicts_nccl_one_device")
+used("verdicts_one_device")
 hbm.hbm_stream_sum(buf)
 used("stream_kernel_first_launch")
 del buf, xb, wsb, graph, cs, rms
@@ -3780,8 +3819,9 @@ at_end = {"reserved_mib": torch.cuda.memory_reserved(dev) / 2**20,
 # What a worker keeps after a busy attempt that got this far.
 hc.release_probe_memory()
 used("after_release")
-print(json.dumps({"steps": steps, "allocator_reserved_mib": reserved, **at_end,
-                  "healthy": report["healthy"],
+print(json.dumps({"steps": steps, "allocator_reserved_mib": reserved,
+                  "allocator_allocated_mib": allocated, **at_end,
+                  "healthy": report["healthy"], "nccl_calls": len(nccl_calls),
                   "launches": report["phases"]["hbm_stream_sum_launches_process"]}))
 """
 
@@ -3820,9 +3860,11 @@ def _footprint(card_uuid: str) -> dict:
     after = _steady_used_mib()
     doc = json.loads(proc.stdout.strip().splitlines()[-1])
     check(doc["healthy"] and doc["launches"] == 5, f"footprint child's probe: {doc}")
+    check(doc["nccl_calls"] == 0, f"{doc['nccl_calls']} NCCL calls over one device")
     without = min(before, after)
-    doc["steps_mib"] = {k: v - without for k, v in doc.pop("steps").items()}
+    steps = doc["steps_mib"] = {k: v - without for k, v in doc.pop("steps").items()}
     doc["card_before_mib"], doc["card_after_mib"] = before, after
+    doc["verdicts_rise_mib"] = steps["verdicts_one_device"] - steps["graph_capture"]
     return doc
 
 
@@ -3890,10 +3932,11 @@ def _live_children() -> set:
     return {p for p in _children(os.getpid()) if not _gone(p)}
 
 
-def _busy_worker(cfg, health, broker_mod, run: dict):
+def _busy_worker(cfg, health, broker_mod, run: dict, fits: bool = False):
     """(a) A fresh classic worker under the holder: its first probe
     answers ``unacquirable`` with the error it met, the labels carry no
-    health, and the worker stays up. Returns the client, its manager and
+    health, and the worker stays up; where the probe ``fits``, it answers
+    ok and the labels carry health. Returns the client, its manager and
     the outcomes it answered."""
     t0 = time.monotonic()
     w1 = broker_mod.BrokerClient(cfg)
@@ -3918,11 +3961,16 @@ def _busy_worker(cfg, health, broker_mod, run: dict):
     while (not seen or seen[-1]["status"] == "warming") and time.monotonic() < deadline:
         labels = dict(health.new_health_labeler(w1_manager, cfg).labels())
     outcome = seen[-1]
-    check(outcome["status"] == "unacquirable" and outcome.get("error"),
-          f"a fresh worker under the holder: {outcome}")
-    _no_health(labels, "a fresh worker under the holder")
-    run["fresh_worker_error"] = outcome["error"]
     run["fresh_worker_labels"] = labels
+    if fits:
+        check(outcome["status"] == "ok" and outcome["report"]["healthy"]
+              and _has_health(labels), f"a fresh worker where the probe fits: {outcome} "
+              f"{labels}")
+    else:
+        check(outcome["status"] == "unacquirable" and outcome.get("error"),
+              f"a fresh worker under the holder: {outcome}")
+        _no_health(labels, "a fresh worker under the holder")
+        run["fresh_worker_error"] = outcome["error"]
     check(w1.alive and w1.pid == w1_pid and not _gone(w1_pid),
           "the busy worker did not stay up")
     return w1, w1_manager, seen
@@ -3969,7 +4017,7 @@ def _busy_margins(steps: dict) -> dict:
         "stream": mid("stream_buffer_256mib", "side_stream"),
         "cublas": mid("side_stream", "cublas_first_pass"),
         "capture": int(round(steps["graph_capture"])) - BUSY_CAPTURE_SHORT_MIB,
-        "nccl": mid("graph_capture", "verdicts_nccl_one_device"),
+        BUSY_FITS: int(round(steps["first_probe"])) + BUSY_LOW_MARGIN_MIB,
     }
 
 
@@ -3978,9 +4026,12 @@ def _kept_allowed(steps: dict, reserved: dict, name: str) -> float:
     ``name``: nothing when no context fitted; else the card's use at the
     margin's BUSY_KEEPS step of the split less the caching allocator's
     share there, its CUDA context and the code and library state its
-    attempt loaded, which no torch call frees."""
+    attempt loaded, which no torch call frees. At BUSY_FITS the worker
+    probed and keeps its workspaces too: the whole first probe."""
     step = BUSY_KEEPS[name]
-    return 0.0 if step is None else steps[step] - reserved[step]
+    if step is None:
+        return 0.0
+    return steps[step] - (0.0 if name == BUSY_FITS else reserved[step])
 
 
 def phase_busy(entries: dict, smi: str) -> dict:
@@ -4001,6 +4052,8 @@ def phase_busy(entries: dict, smi: str) -> dict:
     card_uuid = nvml.read_inventory().devices[0].uuid
     footprint = _footprint(card_uuid)
     emit("footprint", nvidia_smi=smi, **footprint)
+    check(footprint["verdicts_rise_mib"] < VERDICTS_RISE_MAX_MIB,
+          f"the one-device verdicts took {footprint['verdicts_rise_mib']} MiB")
     steps = footprint["steps_mib"]
     reserved = footprint["allocator_reserved_mib"]
     margins = _busy_margins(steps)
@@ -4021,7 +4074,7 @@ def phase_busy(entries: dict, smi: str) -> dict:
         first = _health_outcome(w0, per_chip=True)
         check(first["status"] == "ok", f"the early worker: {first}")
         for name, margin in margins.items():
-            full = name in BUSY_FULL
+            full, fits = name in BUSY_FULL, name == BUSY_FITS
             run = {"margin_mib": margin, "full": full}
             launches = {}
             health.reset_burnin_schedule()
@@ -4033,7 +4086,7 @@ def phase_busy(entries: dict, smi: str) -> dict:
             cli = w1 = None
             try:
                 with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-                    w1, w1_manager, seen = _busy_worker(cfg, health, broker_mod, run)
+                    w1, w1_manager, seen = _busy_worker(cfg, health, broker_mod, run, fits)
                     # (e) The early worker still probes.
                     early = _health_outcome(w0, per_chip=True)
                     check(early["status"] == "ok" and early["report"]["healthy"],
@@ -4041,7 +4094,7 @@ def phase_busy(entries: dict, smi: str) -> dict:
                     run["early_worker"] = early["status"]
                     launches["early_worker"] = \
                         early["report"]["phases"]["hbm_stream_sum_launches_process"]
-                    manager = _stand_in_node(MIG_FULL_N, card_uuid, w0)
+                    manager = None if fits else _stand_in_node(MIG_FULL_N, card_uuid, w0)
                     if full:
                         cli, cli_out, cli_log = _busy_cli(tmp, name)
                         # (b) The MIG stand-in through the broker.
@@ -4049,12 +4102,13 @@ def phase_busy(entries: dict, smi: str) -> dict:
                         _no_health(mig["labels"], "the MIG stand-in through the broker")
                         run["mig_broker_round_s"] = mig["wall_s"]
                         health.reset_burnin_schedule()
-                    # (b) The MIG stand-in in process.
-                    t1 = time.monotonic()
-                    oneshot = stand_in.cycle(SnapshotManager(manager.snapshot), config(
-                        "single", oneshot="true", **{"probe-broker": "off"}))
-                    run["mig_in_process_s"] = time.monotonic() - t1
-                    _no_health(oneshot, "the MIG stand-in in process")
+                    if not fits:
+                        # (b) The MIG stand-in in process.
+                        t1 = time.monotonic()
+                        oneshot = stand_in.cycle(SnapshotManager(manager.snapshot), config(
+                            "single", oneshot="true", **{"probe-broker": "off"}))
+                        run["mig_in_process_s"] = time.monotonic() - t1
+                        _no_health(oneshot, "the MIG stand-in in process")
                     if full:
                         _busy_cli_checks(cli, cli_out, cli_log, run)
                         cli = None
@@ -4075,11 +4129,14 @@ def phase_busy(entries: dict, smi: str) -> dict:
                         120.0, "health labels after the holder", poll=0.2)
                     run["holder_exit_to_health_s"] = time.monotonic() - t2
                     check(_has_health(labels), f"after the holder: {labels}")
-                    recovered = [o for o in seen if o["status"] == "ok"][-1]
+                    # Its first ok probe: 1 + 3 launches, none in a busy
+                    # attempt before it.
+                    first_ok = next(o for o in seen if o["status"] == "ok")
                     launches["fresh_worker"] = \
-                        recovered["report"]["phases"]["hbm_stream_sum_launches_process"]
+                        first_ok["report"]["phases"]["hbm_stream_sum_launches_process"]
                     check(launches["fresh_worker"] == 4,
-                          f"the busy attempts launched the kernel: {launches}")
+                          f"the fresh worker's first ok probe after {launches['fresh_worker']} "
+                          f"launches, not 1 + 3: {launches}")
                     if name == "allocation":
                         health.reset_burnin_schedule()
                         mig = stand_in.round(manager, config("single"), MIG_FULL_N)
@@ -4118,7 +4175,8 @@ def phase_busy(entries: dict, smi: str) -> dict:
     entries["hbm_stream_sum"]["busy_launches"] = {
         name: r["launches"] for name, r in out["runs"].items()}
     emit("busy", **{k: v for k, v in out.items() if k != "runs"},
-         errors={name: r["fresh_worker_error"][:300] for name, r in out["runs"].items()},
+         errors={name: r["fresh_worker_error"][:300] for name, r in out["runs"].items()
+                 if "fresh_worker_error" in r},
          busy_worker_holds_mib={name: r["busy_worker_holds_mib"]
                                 for name, r in out["runs"].items()},
          allowed_mib={name: _kept_allowed(steps, reserved, name) for name in margins})

@@ -7,19 +7,23 @@ every local chip and the collectives run over a named mesh. This port
 keeps that shape. One process holds every local GPU, a sharded value is a
 list of per-device tensors in the mesh's row-major order, and
 
-- ``all_reduce`` sums such a list with single-process multi-device NCCL
-  (``torch.cuda.nccl``): one communicator per device tuple, cached by
-  torch, so the first call pays its set-up;
+- ``all_reduce`` sums such a list. Over one device the sum is that
+  device's own value, as the twin's ``psum`` over a one-chip mesh is (XLA
+  builds no collective for one participant): a copy, with no NCCL.
+  Over several CUDA devices it is single-process multi-device NCCL
+  (``nccl_all_reduce`` over ``torch.cuda.nccl``): one communicator per
+  device tuple, cached by torch, so the first call pays its set-up;
 - ``ring_shift`` moves each entry to the next device of its group with a
   peer copy (``Tensor.to``), the twin's ``ppermute`` ring;
 - ``RowParallelSum`` and ``DataParallelGrad`` are the two seams of a
   Megatron train step, as autograd functions: ``torch.cuda.nccl`` is not
   autograd-aware.
 
-On a list of CPU tensors (the tests, ``TFD_BURNIN_ALLOW_CPU``) the sum is
-the plain host sum; the same CPU device may stand for every mesh
-position, as the twin's virtual CPU devices do. A CUDA list never falls
-back to the host: without NCCL, or with a device listed twice, it raises.
+On a list of several CPU tensors (the tests, ``TFD_BURNIN_ALLOW_CPU``)
+the sum is the plain host sum; the same CPU device may stand for every
+mesh position, as the twin's virtual CPU devices do. A list of several
+CUDA tensors never falls back to the host: without NCCL, or with a
+device listed twice, it raises.
 """
 
 from __future__ import annotations
@@ -93,9 +97,10 @@ def all_reduce(
     entry; returns the summed list (``out`` when given, else new
     tensors). The inputs are left as they are.
 
-    On CUDA tensors this is ``torch.cuda.nccl.all_reduce`` on each
-    device's current stream; it does not wait for the devices. On CPU
-    tensors it is the plain host sum. A list mixing the two raises."""
+    One tensor is copied into its ``out``, on any device. Several CUDA
+    tensors go to ``nccl_all_reduce``, which does not wait for the
+    devices; several CPU tensors are summed on the host. A list mixing
+    the two raises."""
     tensors = list(tensors)
     if not tensors:
         raise ValueError("all_reduce of an empty list")
@@ -107,15 +112,26 @@ def all_reduce(
     if out is None:
         out = [torch.empty_like(t, memory_format=torch.contiguous_format) for t in tensors]
     out = list(out)
+    if len(tensors) == 1:
+        out[0].copy_(tensors[0])
+        return out
     if kinds == {"cpu"}:
         total = torch.stack(tensors).sum(0, dtype=tensors[0].dtype)
         for o in out:
             o.copy_(total)
         return out
+    return nccl_all_reduce(tensors, out)
+
+
+def nccl_all_reduce(tensors: Sequence[torch.Tensor], out: Sequence[torch.Tensor]) -> list:
+    """``torch.cuda.nccl.all_reduce`` of CUDA tensors, one per device, into
+    ``out`` on each device's current stream; returns ``out``. The first
+    call over a device tuple builds its communicator."""
     _check_cuda_list(tensors)
     import torch.cuda.nccl as nccl
 
-    nccl.all_reduce(tensors, out)
+    out = list(out)
+    nccl.all_reduce(list(tensors), out)
     return out
 
 

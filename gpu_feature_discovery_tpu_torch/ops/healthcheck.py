@@ -11,9 +11,10 @@ The probe behind the health labeler (lm/health.py, gated by
   (cuBLAS through ``torch.mm``), as the twin left them to XLA.
 - The HBM probe is the hand-written stream-sum kernel (ops/hbm.py).
 - ``sharded_chip_verdicts`` runs a capped burn-in on every local device
-  and all-reduces the healthy count over the chip mesh
-  (ops/collectives.py: NCCL on CUDA, the host sum on the CPU) — the
-  twin's ``psum``.
+  and all-reduces the healthy count over the chip mesh — the twin's
+  ``psum`` (ops/collectives.py: over one device its own count, with no
+  NCCL, as the twin's psum over one chip; over several NCCL on CUDA and
+  the host sum on the CPU).
 - On a multi-GPU node, ``ici_allreduce_probe`` times an NCCL all-reduce
   of 32 MiB per device (``ici_gbps``), and ``ici_ring_sweep`` walks every
   ring link of the mesh with peer copies and all-reduces a checksum
@@ -157,19 +158,28 @@ def burnin_flops(size: int, depth: int) -> float:
 
 def _burnin_input_arrays(size: int, depth: int, dtype, device):
     """THE probe input construction: a ``torch.Generator`` on ``device``
-    seeded with 0, standard normals, weights scaled by 1/sqrt(size). The
-    values differ from the twin's ``jax.random`` ones; the distribution
-    is the same."""
+    seeded with 0, f32 standard normals cast to ``dtype``, weights scaled
+    by 1/sqrt(size) in ``dtype``. The values differ from the twin's
+    ``jax.random`` ones; the distribution is the same.
+
+    The twin draws and casts inside one jitted program, so no f32 array
+    exists. Here ``x`` and ``ws`` are views of one ``dtype`` allocation,
+    filled a layer at a time from one (size, size) f32 scratch, which is
+    then handed back to the device: the inputs leave nothing reserved
+    beyond themselves."""
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    x = torch.randn(
-        (size, size), generator=gen, device=device, dtype=torch.float32
-    ).to(dtype)
-    ws = torch.randn(
-        (depth, size, size), generator=gen, device=device, dtype=torch.float32
-    ).to(dtype)
+    layers = torch.empty((1 + depth, size, size), dtype=dtype, device=device)
+    scratch = torch.empty((size, size), dtype=torch.float32, device=device)
+    for layer in layers:
+        layer.copy_(scratch.normal_(generator=gen))
+    x, ws = layers[0], layers[1:]
     scale = torch.tensor(math.sqrt(size), dtype=torch.float32, device=device)
-    return x, ws / scale.to(dtype)
+    ws.div_(scale.to(dtype))
+    del scratch
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return x, ws
 
 
 @functools.lru_cache(maxsize=None)
@@ -251,17 +261,17 @@ def _burnin_graph(device: torch.device, size: int, depth: int) -> tuple:
         return entry
     xb, wsb = _burnin_workspace(device, size, depth, PROBE_DTYPE)
     with torch.cuda.device(device):
-        # Warm on a side stream first: cuBLAS sets up its workspace on the
-        # stream it first runs on, outside the capture.
         current = torch.cuda.current_stream(device)
+        # The capture's stream, from torch's stream pool.
         side = torch.cuda.Stream(device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            burnin_step(xb, wsb)
-        current.wait_stream(side)
+        # One pass outside the capture, on the probe's own stream: cuBLAS
+        # creates its handle, which a capture cannot, and its workspace
+        # for this stream, which the verdicts then reuse. A warm-up on
+        # another stream would keep a workspace that nothing runs on.
+        burnin_step(xb, wsb)
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
                 cs, rms = burnin_step(xb, wsb)
         except BaseException:
             # torch.cuda.graph leaves this thread on its capture stream
@@ -351,11 +361,12 @@ def _warm_probe_kernels(devices: tuple, size: int, depth: int, per_chip: bool) -
     """Build the HBM kernel, capture the burn-in graph and run every probe
     once outside the timed window; returns the wall ms spent (0.0 when
     already warm). The first call of each probe pays the kernel build,
-    cuBLAS handle creation, the graph capture, the NCCL communicator's
-    set-up and the workspace fills; none of that belongs in a measured
-    rate or in ``probe-ms``. On several devices that includes the
-    all-reduce probe at its real payload (under ``per_chip``) and the
-    ring sweep's peer copies, as the probe will run them."""
+    cuBLAS handle creation, the graph capture, the workspace fills and,
+    on several devices, the NCCL communicator's set-up; none of that
+    belongs in a measured rate or in ``probe-ms``. On several devices
+    that includes the all-reduce probe at its real payload (under
+    ``per_chip``) and the ring sweep's peer copies, as the probe will run
+    them."""
     key = (devices, size, depth, per_chip)
     if key in _warmed_probe_keys:
         return 0.0
@@ -381,10 +392,12 @@ def _warm_probe_kernels(devices: tuple, size: int, depth: int, per_chip: bool) -
     return (time.perf_counter() - t0) * 1e3
 
 
-# The device memory NCCL's communicator took when the probe first built
-# it over one device (chip_smoke.py busy, the footprint split's verdicts
-# step less the verdicts' own inputs: 492-494 MiB on an NVIDIA H100 80GB
-# HBM3, 700 W).
+# The device memory NCCL's communicator took, with a cuBLAS workspace,
+# when an earlier probe built it over one device (chip_smoke.py busy, the
+# footprint split's verdicts step less the verdicts' own inputs: 492-494
+# MiB on an NVIDIA H100 80GB HBM3, 700 W). The probe now builds one only
+# over several devices, whose room this guards per device; that need is
+# not measured.
 NCCL_COMM_MIB = 492
 # What NCCL says when a CUDA call of its own fails, its allocations
 # included: busy only while a device has less than NCCL_COMM_MIB free.
@@ -408,12 +421,18 @@ def _short_of_nccl(devices) -> list:
 
 
 def _warm_collectives(devices: tuple, size: int, depth: int, per_chip: bool) -> None:
-    """The probe's NCCL calls, once each: the first builds the
-    communicator over ``devices``. A device without room for it is busy,
-    checked before the first build, since a build that fails for want of
-    memory keeps what it had allocated, and again when NCCL's own CUDA
-    call fails, since its error does not say why."""
-    if not per_chip and len(devices) == 1:
+    """The probe's collectives, once each. Over one device that is the
+    verdicts (under ``per_chip``) and nothing else: their reduction is
+    the device's own count, with no NCCL. Over several, the first NCCL
+    call builds the communicator over ``devices``. A device without room
+    for it is busy, checked before the first build, since a build that
+    fails for want of memory keeps what it had allocated, and again when
+    NCCL's own CUDA call fails, since its error does not say why."""
+    if len(devices) == 1:
+        if per_chip:
+            sharded_chip_verdicts(
+                devices, min(size, VERDICT_MAX_SIZE), min(depth, VERDICT_MAX_DEPTH)
+            )
         return
     if devices not in _nccl_built:
         short = _short_of_nccl(devices)
@@ -425,10 +444,8 @@ def _warm_collectives(devices: tuple, size: int, depth: int, per_chip: bool) -> 
             sharded_chip_verdicts(
                 devices, min(size, VERDICT_MAX_SIZE), min(depth, VERDICT_MAX_DEPTH)
             )
-            if len(devices) > 1:
-                ici_allreduce_probe(devices, iters=1)
-        if len(devices) > 1:
-            ici_ring_sweep(chip_mesh(devices))
+            ici_allreduce_probe(devices, iters=1)
+        ici_ring_sweep(chip_mesh(devices))
     except RuntimeError as e:
         short = _short_of_nccl(devices) if NCCL_CUDA_ERROR in str(e) else []
         if short:
@@ -463,10 +480,10 @@ def sharded_chip_verdicts(
 
     A chip in ``sick_chips`` has its input NaN-poisoned, so the ordinary
     finite-verdict detects it. The per-device counts are summed over the
-    chip mesh by ``collectives.all_reduce`` (NCCL on CUDA, also over a
-    one-device list); ``allreduce_ok`` is True when every device's
-    reduced count equals the host-side sum, so a failed or corrupt
-    reduction shows as a disagreeing count."""
+    chip mesh by ``collectives.all_reduce`` (over one device its own
+    count, over several CUDA devices NCCL); ``allreduce_ok`` is True
+    when every device's reduced count equals the host-side sum, so a
+    failed or corrupt reduction shows as a disagreeing count."""
     devices = tuple(devices)
     sick = {int(i) for i in sick_chips}
     oks = []

@@ -11,9 +11,13 @@ Held here:
 
 - the classifier (``ops.healthcheck.is_busy_error``), one case per text and
   type that counts as busy and one per error that must stay a failure;
-- NCCL's communicator, whose error names no cause: busy before it is
-  built on a device without room for it, or when its error comes from a
-  device left without room; a failed probe otherwise;
+- NCCL's communicator over several devices, whose error names no cause:
+  busy before it is built on a device without room for it, or when its
+  error comes from a device left without room; a failed probe otherwise;
+- one device, whose verdicts need no communicator (the twin's psum over
+  one chip): a card with less free than NCCL would take runs its
+  verdicts and publishes the twin's health labels, in process and
+  through the classic worker;
 - the in-process path, the classic broker worker (``_HealthProbe``) and
   the MIG paths over several cycles, against the twin's in-process
   labeler whose ``_acquire_tpu_devices`` returns None on the busy
@@ -56,9 +60,10 @@ from gpu_feature_discovery_tpu_torch.utils import logging as tfd_logging
 GPU, TPU = "nvidia.com/gpu.", "google.com/tpu."
 PROBE_MS = GPU + "health.probe-ms"
 CPU = torch.device("cpu")
-# A CUDA device for the probe's NCCL room check, whose every CUDA call
-# the test stands in for.
+# CUDA devices for the probe's NCCL room check, whose every CUDA call the
+# test stands in for.
 CUDA0 = torch.device("cuda", 0)
+CUDA_PAIR = (CUDA0, torch.device("cuda", 1))
 NCCL_CUDA_ERROR = "NCCL Error 1: unhandled cuda error (run with NCCL_DEBUG=INFO for details)"
 ILLEGAL_ADDRESS = ("CUDA error: an illegal memory access was encountered\n"
                    "CUDA kernel errors might be asynchronously reported at some other "
@@ -147,17 +152,21 @@ def test_every_busy_text_is_listed_once_and_each_has_a_case():
 class _Card:
     """``torch.cuda.mem_get_info`` of a card whose free MiB the test sets
     (a list: one reading per call, the last repeated), and the probe's
-    all-reduce, which fails with NCCL's error while ``nccl_fails``."""
+    collectives: the verdicts, which fail with NCCL's error while
+    ``nccl_fails``, the all-reduce probe and the ring sweep."""
 
     def __init__(self, monkeypatch, free_mib, nccl_fails=False):
         self.free_mib = list(free_mib)
         self.nccl_fails = nccl_fails
-        self.verdicts = 0
+        self.readings = self.verdicts = self.allreduces = self.sweeps = 0
         monkeypatch.setattr(torch.cuda, "mem_get_info", self.mem_get_info)
         monkeypatch.setattr(healthcheck, "sharded_chip_verdicts", self.sharded_chip_verdicts)
+        monkeypatch.setattr(healthcheck, "ici_allreduce_probe", self.ici_allreduce_probe)
+        monkeypatch.setattr(healthcheck, "ici_ring_sweep", self.ici_ring_sweep)
         monkeypatch.setattr(healthcheck, "_nccl_built", set())
 
     def mem_get_info(self, device=None):
+        self.readings += 1
         free = self.free_mib.pop(0) if len(self.free_mib) > 1 else self.free_mib[0]
         return int(free * 2**20), 81559 * 2**20
 
@@ -167,27 +176,37 @@ class _Card:
             raise RuntimeError(NCCL_CUDA_ERROR)
         return [True] * len(devices), True
 
+    def ici_allreduce_probe(self, devices, iters=3):
+        self.allreduces += 1
+        return {"checksum_ok": True, "gbps": 1.0}
+
+    def ici_ring_sweep(self, mesh):
+        self.sweeps += 1
+        return {"links_ok": True, "allreduce_ok": True, "devices": mesh.size}
+
 
 def test_no_room_for_nccls_communicator_is_busy_before_it_is_built(monkeypatch):
-    """Less free than NCCL's communicator takes: busy, and NCCL is not
-    called (a build that fails keeps what it had allocated)."""
-    card = _Card(monkeypatch, [healthcheck.NCCL_COMM_MIB - 1])
+    """Less free than NCCL's communicator takes on a device of two: busy,
+    and NCCL is not called (a build that fails keeps what it had
+    allocated)."""
+    card = _Card(monkeypatch, [20000, healthcheck.NCCL_COMM_MIB - 1])
     with pytest.raises(healthcheck.DeviceBusy) as err:
-        healthcheck._warm_collectives((CUDA0,), 64, 1, True)
-    assert card.verdicts == 0
+        healthcheck._warm_collectives(CUDA_PAIR, 64, 1, True)
+    assert card.verdicts == card.allreduces == card.sweeps == 0
     assert healthcheck.is_busy_error(err.value)
     assert "no room for NCCL's communicator" in str(err.value)
+    assert "cuda:1" in str(err.value) and "cuda:0" not in str(err.value)
 
 
 @pytest.mark.parametrize("free_after,busy", [(1, True), (20000, False)])
 def test_nccls_cuda_error_is_busy_only_on_a_device_without_room(
         free_after, busy, monkeypatch):
-    """NCCL's "unhandled cuda error" (its text on an H100 whose free
-    memory a workload took): busy when the device has less than the
-    communicator takes as it is raised, a failed probe otherwise."""
-    card = _Card(monkeypatch, [20000, free_after], nccl_fails=True)
+    """NCCL's "unhandled cuda error" over two devices (its text on an H100
+    whose free memory a workload took): busy when a device has less than
+    the communicator takes as it is raised, a failed probe otherwise."""
+    card = _Card(monkeypatch, [20000, 20000, free_after], nccl_fails=True)
     with pytest.raises(RuntimeError) as err:
-        healthcheck._warm_collectives((CUDA0,), 64, 1, True)
+        healthcheck._warm_collectives(CUDA_PAIR, 64, 1, True)
     assert card.verdicts == 1
     assert healthcheck.is_busy_error(err.value) is busy
     assert isinstance(err.value, healthcheck.DeviceBusy) is busy
@@ -198,14 +217,26 @@ def test_a_built_communicator_needs_no_room_and_one_device_without_verdicts_no_n
         monkeypatch):
     """Once the communicator over a device tuple is built, a full device
     does not stop the next warm-up; a probe of one device without
-    per-device verdicts calls no NCCL at all."""
-    card = _Card(monkeypatch, [20000, 1])
-    healthcheck._warm_collectives((CUDA0,), 64, 1, True)
-    healthcheck._warm_collectives((CUDA0,), 64, 1, True)
-    assert card.verdicts == 2
+    per-device verdicts calls no collective at all."""
+    card = _Card(monkeypatch, [20000, 20000, 1])
+    healthcheck._warm_collectives(CUDA_PAIR, 64, 1, True)
+    healthcheck._warm_collectives(CUDA_PAIR, 64, 1, True)
+    assert card.verdicts == card.allreduces == card.sweeps == 2
     fresh = _Card(monkeypatch, [1])
     healthcheck._warm_collectives((CUDA0,), 64, 1, False)
-    assert fresh.verdicts == 0
+    assert fresh.verdicts == fresh.allreduces == fresh.sweeps == fresh.readings == 0
+
+
+def test_one_device_without_room_for_nccl_runs_its_verdicts(monkeypatch):
+    """Fault 8: one device with less free than NCCL's communicator takes.
+    Its verdicts need no communicator (the twin's psum over one chip), so
+    the warm-up reads no free memory, raises nothing and runs the
+    verdicts once, and no other collective."""
+    card = _Card(monkeypatch, [healthcheck.NCCL_COMM_MIB - 1])
+    healthcheck._warm_collectives((CUDA0,), 64, 1, True)
+    assert card.verdicts == 1
+    assert card.allreduces == card.sweeps == card.readings == 0
+    assert healthcheck._nccl_built == set()
 
 
 # ---------------------------------------------------------------------------
@@ -244,16 +275,17 @@ class _Script:
     """Where the cycles stand: the current step, and the measure both
     packages' probes call (a chip.<i>.sick shot marks chip i sick)."""
 
-    def __init__(self):
+    def __init__(self, chips=CHIPS):
         self.step = "ok"
         self.seed = 0
+        self.chips = chips
 
     def measure(self, devices=None, sick_chips=(), **_):
         if self.step == "busy":
             raise BUSY["allocator"]
         if self.step == "fail":
             raise RuntimeError(ILLEGAL_ADDRESS)
-        return _report(_entries(self.seed), sick=set(map(int, sick_chips)))
+        return _report(_entries(self.seed)[:self.chips], sick=set(map(int, sick_chips)))
 
 
 def _load(step):
@@ -261,9 +293,10 @@ def _load(step):
     return step.split("+")[0]
 
 
-def _twin_cycles(monkeypatch, script, steps=SCRIPT):
-    """The twin's in-process labeler over SCRIPT: on a busy step its
-    acquisition returns None, as for a chip that another process holds."""
+def _twin_cycles(monkeypatch, script, steps=SCRIPT, accelerator="v4-8"):
+    """The twin's in-process labeler over SCRIPT on a node of
+    ``script.chips`` chips: on a busy step its acquisition returns None,
+    as for a chip that another process holds."""
     from gpu_feature_discovery_tpu.config import new_config as twin_new_config
     from gpu_feature_discovery_tpu.lm import health as twin_health
     from gpu_feature_discovery_tpu.ops import healthcheck as twin_healthcheck
@@ -271,9 +304,9 @@ def _twin_cycles(monkeypatch, script, steps=SCRIPT):
     from gpu_feature_discovery_tpu.utils import faults as twin_faults
 
     monkeypatch.setattr(twin_health, "_acquire_tpu_devices",
-                        lambda: None if script.step == "busy" else [object()] * CHIPS)
+                        lambda: None if script.step == "busy" else [object()] * script.chips)
     monkeypatch.setattr(twin_healthcheck, "measure_node_health", script.measure)
-    manager = new_single_host_manager("v4-8")
+    manager = new_single_host_manager(accelerator)
     manager.init()
     config = twin_new_config(cli_values={"oneshot": True, "with-burnin": True,
                                          "burnin-interval": "1"}, environ={})
@@ -307,8 +340,8 @@ class _WorkerClient:
     """The classic broker worker's health RPC served in this process by
     the worker's own ``_HealthProbe``, its outcome crossing JSON."""
 
-    def __init__(self):
-        self.probe = broker_mod._HealthProbe(threading.Lock(), lambda: [CPU] * CHIPS)
+    def __init__(self, devices=(CPU,) * CHIPS):
+        self.probe = broker_mod._HealthProbe(threading.Lock(), lambda: list(devices))
 
     def health(self, **request):
         return json.loads(json.dumps(self.probe.request(dict(request, wait_s=30.0))))
@@ -375,6 +408,73 @@ def test_a_busy_device_reads_as_the_twins_unacquirable_chip(path, clean, monkeyp
     assert not any(GPU + "straggler-chip" in g[0] for g in got)
     assert got[-1][0][GPU + "chip.2.ok"] == "false", "the shot came back after the busy cycle"
     assert len(released) == len(busy)
+
+
+class _OneGpuNode:
+    """A node of one GPU whose workload leaves it less free than NCCL's
+    communicator takes (the ``_Card``): the real ``measure_node_health``,
+    warm-up and collectives' warm-up, with the CUDA-only steps stood in
+    for — the inputs, the stream buffer, the graph, the kernel, and the
+    timed windows, whose report the script gives."""
+
+    def __init__(self, monkeypatch, script):
+        import contextlib
+        import functools
+        import types
+
+        self.card = _Card(monkeypatch, [healthcheck.NCCL_COMM_MIB - 1])
+        stub = types.SimpleNamespace(replay=lambda: None)
+        zero = torch.zeros(())
+        # Caches, as the real ones are: release_probe_memory clears them.
+        monkeypatch.setattr(healthcheck, "_burnin_workspace",
+                            functools.lru_cache()(lambda *a: (zero, zero)))
+        monkeypatch.setattr(healthcheck, "stream_workspace",
+                            functools.lru_cache()(lambda d, rows: None))
+        monkeypatch.setattr(healthcheck, "_burnin_graph", lambda d, s, k: (stub, zero, zero))
+
+        def kernel(buf):
+            return torch.zeros((1, 1))
+
+        kernel.launches = 0
+        monkeypatch.setattr(healthcheck, "hbm_stream_sum", kernel)
+        monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+        monkeypatch.setattr(healthcheck, "device_uuids", lambda devices: [None] * len(devices))
+
+        def traced(devices, size, depth, iters, per_chip):
+            healthcheck._warm_probe_kernels(tuple(devices), size, depth, per_chip)
+            return script.measure(devices=devices)
+
+        monkeypatch.setattr(healthcheck, "_measure_node_health_traced", traced)
+        monkeypatch.setattr(healthcheck, "_warmed_probe_keys", set())
+
+
+@pytest.mark.parametrize("path", ["in-process", "broker"])
+def test_one_gpu_without_room_for_nccl_publishes_the_twins_health(path, clean, monkeypatch):
+    """Fault 8: one GPU whose workload leaves it less free than NCCL's
+    communicator would take. The twin's probe of one chip needs no
+    communicator, and neither does the port's: in process and through
+    the classic worker's ``_HealthProbe``, every cycle publishes the
+    twin labeler's health labels (an earlier tree read the device
+    unacquirable at NCCL's room check and published none)."""
+    script = _Script(chips=1)
+    steps = ["ok"] * 3
+    want = _twin_cycles(monkeypatch, script, steps, accelerator="v5litepod-1")
+    node = _OneGpuNode(monkeypatch, script)
+    manager = StaticCudaManager.mock_gpu(1)
+    manager.init()
+    if path == "broker":
+        manager.broker = _WorkerClient(devices=(CUDA0,))
+    else:
+        monkeypatch.setattr(health, "_acquire_devices", lambda: [CUDA0])
+    config = new_config(cli_values={"with-burnin": "true", "burnin-interval": "1",
+                                    "oneshot": "true" if path == "in-process" else "false",
+                                    "machine-type-file": ""}, environ={})
+    got = _port_cycles(manager, config, script, steps)
+    assert got == want
+    for labels, _, _, _ in got:
+        assert labels[GPU + "health.ok"] == "true" and labels[GPU + "chip.0.ok"] == "true"
+    assert node.card.verdicts == 1 + len(steps), "one warm-up, then one per probe"
+    assert node.card.readings == node.card.allreduces == node.card.sweeps == 0
 
 
 def _mig_node(layout):

@@ -67,6 +67,28 @@ def test_all_reduce_on_cpu_sums_into_every_entry():
     assert ints[0].dtype == torch.int32 and int(ints[0]) == 9
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_all_reduce_over_one_device_is_its_own_value_without_nccl(dtype, monkeypatch):
+    """The twin's psum over a one-chip mesh is the identity: one tensor
+    is copied into its ``out``, and neither the NCCL check nor NCCL is
+    reached."""
+    import torch.cuda.nccl as nccl
+
+    def refuse(*_a, **_k):
+        raise AssertionError("NCCL reached over one device")
+
+    monkeypatch.setattr(nccl, "all_reduce", refuse)
+    monkeypatch.setattr(collectives, "_check_cuda_list", refuse)
+    x = torch.arange(6, dtype=dtype).reshape(2, 3)
+    kept = x.clone()
+    into = [torch.full((2, 3), -1, dtype=dtype)]
+    got = collectives.all_reduce([x], out=into)
+    assert got[0] is into[0] and torch.equal(into[0], kept)
+    assert torch.equal(x, kept)
+    fresh = collectives.all_reduce([x])
+    assert torch.equal(fresh[0], kept) and fresh[0].data_ptr() != x.data_ptr()
+
+
 def test_all_reduce_refuses_what_nccl_cannot_take():
     with pytest.raises(ValueError, match="kinds"):
         collectives.all_reduce([torch.ones(1), torch.ones(1, device="meta")])

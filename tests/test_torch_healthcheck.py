@@ -74,6 +74,40 @@ def test_port_inputs_have_twin_distribution():
     assert float(ws.std()) == pytest.approx(SIZE**-0.5, rel=0.05)
 
 
+INPUT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@pytest.mark.parametrize("dtype_name", sorted(INPUT_DTYPES))
+def test_port_inputs_are_the_same_for_the_same_seed(dtype_name):
+    dtype = INPUT_DTYPES[dtype_name]
+    x1, ws1 = healthcheck._burnin_input_arrays(SIZE, DEPTH, dtype, CPU)
+    x2, ws2 = healthcheck._burnin_input_arrays(SIZE, DEPTH, dtype, CPU)
+    assert torch.equal(x1, x2) and torch.equal(ws1, ws2)
+
+
+@pytest.mark.parametrize("dtype_name", sorted(INPUT_DTYPES))
+def test_port_inputs_keep_their_dtype_and_shape(dtype_name):
+    dtype = INPUT_DTYPES[dtype_name]
+    x, ws = healthcheck._burnin_input_arrays(SIZE, DEPTH, dtype, CPU)
+    assert (x.dtype, tuple(x.shape)) == (dtype, (SIZE, SIZE))
+    assert (ws.dtype, tuple(ws.shape)) == (dtype, (DEPTH, SIZE, SIZE))
+    assert x.is_contiguous() and ws.is_contiguous()
+
+
+def test_port_inputs_are_the_eager_expression_layer_by_layer():
+    """Each layer is the seeded generator's next f32 normals rounded to
+    bf16, and the weights are divided by sqrt(size) in bf16, as the eager
+    ``randn(...).to(bf16) / scale.to(bf16)`` rounds them."""
+    x, ws = healthcheck._burnin_input_arrays(SIZE, DEPTH, torch.bfloat16, CPU)
+    gen = torch.Generator(device=CPU)
+    gen.manual_seed(0)
+    layers = [torch.randn((SIZE, SIZE), generator=gen).to(torch.bfloat16)
+              for _ in range(1 + DEPTH)]
+    scale = torch.tensor(SIZE**0.5, dtype=torch.float32).to(torch.bfloat16)
+    assert torch.equal(x, layers[0])
+    assert torch.equal(ws, torch.stack(layers[1:]) / scale)
+
+
 def _both_reports(**kwargs):
     jax_dev = jax.devices("cpu")[0]
     want = twin.measure_node_health(

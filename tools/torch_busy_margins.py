@@ -4,7 +4,7 @@ what the failed attempt keeps.
 
 Run from the repo root on a CUDA card that nothing else uses:
 
-    python3 tools/torch_busy_margins.py [--skip-room-check] MARGIN_MIB [MARGIN_MIB ...]
+    python3 tools/torch_busy_margins.py MARGIN_MIB [MARGIN_MIB ...]
 
 For each margin a holder process takes the card's free memory less the
 margin and keeps it. A fresh process pinned to the card (as a MIG
@@ -17,9 +17,9 @@ after ``release_probe_memory``. The holder then exits; the card's use
 against the baseline is what the failed attempt kept, and the same
 process probes again (its verdict and kernel launches).
 
-``--skip-room-check`` marks NCCL's communicator built before the warm-up,
-so that the probe does not check its room first and NCCL's own failure
-shows (``ops/healthcheck.py:_warm_collectives``).
+The probe is of one device, which builds no NCCL communicator
+(``ops/healthcheck.py:_warm_collectives``): NCCL's room check and its own
+failure apply only over several devices, which this tool does not probe.
 
 Prints one JSON line per margin, then the card's name and power limit
 (nvidia-smi).
@@ -52,7 +52,6 @@ import json, sys, traceback, torch
 from gpu_feature_discovery_tpu_torch.ops import healthcheck as hc
 
 dev = torch.device("cuda", 0)
-skip_room_check = sys.argv[1] == "1"
 out = {}
 
 def read(fn):
@@ -68,8 +67,6 @@ def free_mib():
 try:
     torch.cuda.init()
     out["free_after_context_mib"] = free_mib()
-    if skip_room_check:
-        hc._nccl_built.add((dev,))
     hc.warm_probe_kernels_for((dev,), per_chip=True)
     out["warm"] = "ok"
 except Exception as e:  # noqa: BLE001 - reported
@@ -124,16 +121,15 @@ def _card_uuid() -> str:
                           capture_output=True, text=True, check=True).stdout.split()[0]
 
 
-def margin_run(margin_mib: int, uuid: str, skip_room_check: bool) -> dict:
+def margin_run(margin_mib: int, uuid: str) -> dict:
     """One margin: the holder, the pinned probe's failed warm-up, what it
     kept once the holder left, and its probe after."""
     baseline = _steady_used_mib()
     holder = subprocess.Popen([sys.executable, "-c", _HOLDER, str(margin_mib)],
                               stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
                               env=_env())
-    out = {"margin_mib": margin_mib, "skip_room_check": skip_room_check,
-           "holder": json.loads(holder.stdout.readline())}
-    probe = subprocess.Popen([sys.executable, "-c", _PROBE, "1" if skip_room_check else "0"],
+    out = {"margin_mib": margin_mib, "holder": json.loads(holder.stdout.readline())}
+    probe = subprocess.Popen([sys.executable, "-c", _PROBE],
                              stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
                              env=_env(CUDA_VISIBLE_DEVICES=uuid))
     try:
@@ -156,7 +152,6 @@ def margin_run(margin_mib: int, uuid: str, skip_room_check: bool) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("margins", type=int, nargs="+", metavar="MARGIN_MIB")
-    parser.add_argument("--skip-room-check", action="store_true")
     args = parser.parse_args()
     sys.path.insert(0, REPO)
     from gpu_feature_discovery_tpu_torch.ops import hbm
@@ -164,7 +159,7 @@ def main() -> int:
     hbm.build_kernel()
     uuid = _card_uuid()
     for margin in args.margins:
-        print(json.dumps(margin_run(margin, uuid, args.skip_room_check)), flush=True)
+        print(json.dumps(margin_run(margin, uuid)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())

@@ -18,11 +18,12 @@ engine's probes do:
 - ``first_workspace``: generating the burn-in inputs;
 - ``first_burnin``: the first ``burnin_step`` (cuBLAS set-up);
 - ``first_graph``: capturing the probe's CUDA graph of the pass
-  (``ops/healthcheck.py:_burnin_graph``, a side-stream warm pass
-  included);
+  (``ops/healthcheck.py:_burnin_graph``, its warm pass included);
 - ``first_hbm``: the first ``hbm_stream_sum`` (library load; the nvcc
-  build runs before, untimed);
-- ``first_nccl``: the first one-device ``torch.cuda.nccl.all_reduce``.
+  build runs before, untimed).
+
+A probe of one device calls no NCCL; chip_smoke.py's ``collectives``
+phase times NCCL's first use apart.
 
 Steady state, device ms by CUDA events after warm-up, per pass or call:
 
@@ -118,10 +119,6 @@ def main() -> int:
             emit("first_graph", host_ms(
                 lambda: healthcheck._burnin_graph(dev, size, depth)))
             emit("first_hbm", host_ms(lambda: hbm.hbm_stream_sum(buf)))
-            import torch.cuda.nccl as nccl
-
-            emit("first_nccl", host_ms(lambda: nccl.all_reduce(
-                [torch.ones(1, dtype=torch.int32, device=dev)])))
 
     if args.thread:
         worker = threading.Thread(target=first_use)
