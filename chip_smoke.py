@@ -203,6 +203,28 @@ Phases, each printing one JSON line:
                   the buffer margin, the stand-in's health after the
                   holder. One ``busy_run`` line per margin and one
                   ``busy`` line.
+15. ``chaos``   — rows of the port's chaos matrix
+                  (tests/torch_chaos_run.py, loaded by path) against the
+                  card: ``probe.segv:fail:1`` and ``probe.hang:fail:1`` in
+                  the one-shot sandbox (``--probe-broker=off
+                  --probe-isolation=subprocess --with-burnin
+                  --burnin-interval=1``, 20 s ``--probe-timeout``): the
+                  faulty child runs the gpu select+snapshot, then dies to
+                  SIGSEGV or hangs until its SIGKILL; whether it mapped
+                  libcuda.so and held a context (the card's memory.used
+                  while it lived), the seconds from its death to full labels
+                  with ``health.ok=true``, the card's memory.used before
+                  and after (within 16 MiB), the kernel's launches per
+                  probing cycle; then ``reconcile:broker-death`` at the
+                  daemon's 30 s ``--probe-timeout``, ``--reconcile=event``
+                  and a 60 s sleep interval: the broker worker SIGKILLed,
+                  the ``worker_died`` wake from a live scrape, the seconds
+                  to fresh full labels (under 60 s), zero failed cycles,
+                  memory.used with the new worker as with the old (within
+                  16 MiB) and at the baseline after SIGTERM, the wake's
+                  cycle's launches in the new worker (1 + 3). One
+                  ``chaos_row`` line per row and one ``chaos`` line;
+                  ``chaos_launches`` in the ``kernels`` line.
 
 Then a ``metrics`` line (the cost of a scrape, the exposition's size,
 restart-to-labels, first use, the broker's request histogram and the
@@ -4183,6 +4205,298 @@ def phase_busy(entries: dict, smi: str) -> dict:
     return out
 
 
+
+# The chaos phase: rows of the port's chaos matrix (tests/torch_chaos_run.py)
+# against the card. The one-shot sandbox rows run the acquisition in a
+# probe child per attempt (no broker) and the burn-in in this process; the
+# healthy child's gpu select+snapshot (torch's import and CUDA's set-up)
+# fits CHAOS_PROBE_TIMEOUT_S, which is also what the hung child costs. The
+# reconcile row runs at the daemon's own --probe-timeout.
+CHAOS_PROBE_TIMEOUT_S = 20.0
+CHAOS_DAEMON_PROBE_TIMEOUT_S = 30.0
+CHAOS_ROW_TIMEOUT_S = 90.0
+CHAOS_ONESHOT_ROWS = ("probe.segv:fail:1", "probe.hang:fail:1")
+CHAOS_ONESHOT_CLI = {"probe-broker": "off", "probe-isolation": "subprocess",
+                     "with-burnin": True, "burnin-interval": "1"}
+# The reconcile row's health request waits for the respawned worker's
+# pre-warm and first probe, so that the wake's cycle itself publishes
+# health labels; below the row's --probe-timeout.
+CHAOS_HEALTH_WAIT_S = 25.0
+# A hung child is read once it has held libcuda.so this long.
+CHAOS_HUNG_READ_S = 3.0
+WORKER_MAIN = b"gpu_feature_discovery_tpu_torch.sandbox.worker_main"
+
+
+def _chaos_driver():
+    """tests/torch_chaos_run.py, loaded by path (it imports no JAX)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_chaos_run", os.path.join(REPO, "tests", "torch_chaos_run.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class _ChildWatch:
+    """This process's sandbox children (``sandbox.worker_main``), polled
+    every 5 ms: the role, when each was first seen, whether its maps ever
+    held libcuda.so, when it was gone, and for a child that holds libcuda
+    and lives CHAOS_HUNG_READ_S, the card's memory.used while it does."""
+
+    def __init__(self):
+        self.children = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(10)
+
+    def _entry(self, pid: int, now: float):
+        entry = self.children.get(pid)
+        if entry is None:
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    argv = [a for a in f.read().split(b"\0") if a]
+            except OSError:
+                return None
+            if WORKER_MAIN not in argv:
+                return None
+            entry = self.children[pid] = {"pid": pid, "role": argv[-1].decode(),
+                                          "seen": now, "libcuda": False,
+                                          "libcuda_at": None, "gone": None,
+                                          "held_used_mib": None}
+        return entry
+
+    def _run(self):
+        while not self._stop.is_set():
+            now = time.monotonic()
+            live = set()
+            for pid in _children(os.getpid()):
+                if _gone(pid):
+                    continue
+                entry = self._entry(pid, now)
+                if entry is None:
+                    continue
+                live.add(pid)
+                if not entry["libcuda"]:
+                    try:
+                        entry["libcuda"] = _maps_libcuda(pid)
+                    except OSError:
+                        continue
+                    if entry["libcuda"]:
+                        entry["libcuda_at"] = now
+                elif (entry["held_used_mib"] is None
+                      and now - entry["libcuda_at"] >= CHAOS_HUNG_READ_S):
+                    entry["held_used_mib"] = _device_used_mib()
+            for pid, entry in self.children.items():
+                if entry["gone"] is None and pid not in live:
+                    entry["gone"] = now
+            self._stop.wait(0.005)
+
+
+def _chaos_oneshot_row(driver, spec: str, capture, build_dir: str) -> dict:
+    """One one-shot sandbox row: the first probe child is the faulty one
+    (the fault is armed before the daemon starts), a later one acquires,
+    and the daemon converges to full labels with ``health.ok=true`` from
+    a probe in this process."""
+    from gpu_feature_discovery_tpu_torch.lm import health
+    from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
+    from gpu_feature_discovery_tpu_torch.ops import hbm, healthcheck
+
+    health.reset_burnin_schedule()
+    healthcheck.release_probe_memory()
+    before_mib = _steady_used_mib()
+    counters = {"kills": obs_metrics.PROBE_KILLS, "crashes": obs_metrics.PROBE_CRASHES}
+    counted = {k: c.value() for k, c in counters.items()}
+    n_cycles = len(capture.cycles)
+    hbm.hbm_stream_sum.launches = 0
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp, _ChildWatch() as watch:
+        result = driver.run_chaos(
+            spec, tmp, backend="gpu", probe_timeout=f"{CHAOS_PROBE_TIMEOUT_S}s",
+            expect_final=["nvidia.com/gpu.health.ok=true"], timeout_s=CHAOS_ROW_TIMEOUT_S,
+            extra_cli=CHAOS_ONESHOT_CLI)
+    launches = hbm.hbm_stream_sum.launches
+    counted = {k: c.value() - counted[k] for k, c in counters.items()}
+    healthcheck.release_probe_memory()
+    after_mib = _steady_used_mib()
+    probes = sorted((c for c in watch.children.values() if c["role"] == "probe"),
+                    key=lambda c: c["seen"])
+    check(len(probes) >= 2 and all(c["gone"] is not None for c in probes),
+          f"{spec}: probe children {probes}")
+    faulty = probes[0]
+    cycles = capture.cycles[n_cycles:]
+    per_probe = [c["phases"].get("hbm_stream_sum_launches") for c in cycles
+                 if c["mode"] == "probing"]
+    row = {"spec": spec, "converged_s": result["converged_s"],
+           "child_pid": faulty["pid"], "child_libcuda": faulty["libcuda"],
+           "child_lived_s": faulty["gone"] - faulty["seen"],
+           "fault_to_health_s": result["converged_at"] - faulty["gone"],
+           "probe_children": len(probes), "registry_counted": counted,
+           "used_before_mib": before_mib, "used_after_mib": after_mib,
+           "launches": launches, "launches_per_probing_cycle": per_probe}
+    # A context shows as the card's memory.used while the child lives
+    # (523 MiB for a probe's, PERF.md section 5); libcuda.so alone is the
+    # driver loaded. None where the child died too soon to be read.
+    if faulty["held_used_mib"] is not None:
+        row["child_held_mib"] = faulty["held_used_mib"] - before_mib
+        row["cuda_context"] = row["child_held_mib"] > CONTEXT_MIB
+    else:
+        row["cuda_context"] = None
+    emit("chaos_row", **row)
+    check(abs(after_mib - before_mib) <= MIG_AFTER_ROUND_MIB,
+          f"{spec}: memory.used {before_mib} -> {after_mib} MiB")
+    check(per_probe and all(n in (healthcheck.PROBE_HBM_ITERS, healthcheck.PROBE_HBM_ITERS + 1)
+                            for n in per_probe) and launches >= sum(per_probe),
+          f"{spec}: launches {launches}, per probing cycle {per_probe}")
+    if spec.startswith("probe.segv"):
+        check(counted == {"kills": 0, "crashes": 1}, f"{spec}: the registry counted {counted}")
+    else:
+        check(counted == {"kills": 1, "crashes": 0}, f"{spec}: the registry counted {counted}")
+        check(CHAOS_PROBE_TIMEOUT_S - 0.5 <= row["child_lived_s"]
+              <= CHAOS_PROBE_TIMEOUT_S + 2,
+              f"{spec}: the hung child lived {row['child_lived_s']:.2f}s")
+    return row
+
+
+def _chaos_reconcile_row(driver, capture, build_dir: str) -> dict:
+    """reconcile:broker-death against the card: the event-mode daemon at
+    the default --probe-timeout, sleep interval 60 s, its broker worker
+    SIGKILLed once it served; the wake's cycle respawns the worker and
+    publishes fresh full labels with health."""
+    from gpu_feature_discovery_tpu_torch import sandbox
+    from gpu_feature_discovery_tpu_torch.ops import hbm, healthcheck
+    from gpu_feature_discovery_tpu_torch.sandbox import broker
+
+    healthcheck.release_probe_memory()
+    base_mib = _steady_used_mib()
+    hbm.hbm_stream_sum.launches = 0
+    seen = {}
+
+    def observe(stage, info):
+        if stage == "before_kill":
+            seen["old_libcuda"] = _maps_libcuda(info["killed_pid"])
+            seen["before_kill_mib"] = _steady_used_mib()
+            seen["cycles_before_kill"] = len(capture.cycles)
+        else:
+            seen["new_libcuda"] = _maps_libcuda(info["worker_pid"])
+            seen["recovered_mib"] = _steady_used_mib()
+            seen["labels"] = _read_labels(info["output_file"])
+            seen["cycles_recovered"] = len(capture.cycles)
+
+    wait_s, broker.HEALTH_WAIT_S = broker.HEALTH_WAIT_S, CHAOS_HEALTH_WAIT_S
+    try:
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+            result = driver.run_reconcile_chaos(
+                "broker-death", tmp, timeout_s=CHAOS_ROW_TIMEOUT_S, backend="gpu",
+                probe_timeout_s=CHAOS_DAEMON_PROBE_TIMEOUT_S,
+                extra_cli={"with-burnin": True, "burnin-interval": "1"}, scrape=True,
+                observe=observe)
+    finally:
+        broker.HEALTH_WAIT_S = wait_s
+        sandbox.close_broker()
+    after_mib = _steady_used_mib()
+    check(hbm.hbm_stream_sum.launches == 0,
+          f"this process launched the kernel {hbm.hbm_stream_sum.launches} times")
+    recovered = capture.cycles[seen["cycles_before_kill"]:seen["cycles_recovered"]]
+    check(recovered and recovered[0]["mode"] == "probing",
+          f"the wake's cycle: {[c['mode'] for c in recovered]}")
+    phases = recovered[0]["phases"]
+    worker_mib = seen["before_kill_mib"] - base_mib
+    row = {"spec": result["spec"], "kill_to_full_s": result["kill_to_full_s"],
+           "worker_died_wakes": result["worker_died_wakes"],
+           "scraped_worker_died_wakes": result["scraped_worker_died_wakes"],
+           "failed_cycles": result["failed_cycles"],
+           "scraped_failed_cycles": result["scraped_failed_cycles"],
+           "killed_pid": result["killed_pid"], "worker_pid": result["worker_pid"],
+           "killed_libcuda": seen["old_libcuda"], "worker_libcuda": seen["new_libcuda"],
+           "health_labels": _has_health(seen["labels"]),
+           "used_base_mib": base_mib, "used_before_kill_mib": seen["before_kill_mib"],
+           "used_recovered_mib": seen["recovered_mib"], "used_after_mib": after_mib,
+           "worker_mib": worker_mib,
+           "launches": phases.get("hbm_stream_sum_launches"),
+           "worker_launches": phases.get("hbm_stream_sum_launches_process"),
+           "health_wait_s": CHAOS_HEALTH_WAIT_S}
+    emit("chaos_row", **row)
+    check(row["kill_to_full_s"] < 2 * CHAOS_DAEMON_PROBE_TIMEOUT_S,
+          f"kill to full labels {row['kill_to_full_s']:.2f}s")
+    check(row["worker_died_wakes"] >= 1 and row["scraped_worker_died_wakes"] >= 1
+          and row["failed_cycles"] == 0 and row["scraped_failed_cycles"] in (0, None),
+          f"reconcile: {row}")
+    check(row["killed_libcuda"] and row["worker_libcuda"] and row["health_labels"],
+          f"reconcile: libcuda in the workers, health labels after: {row}")
+    check(abs(seen["recovered_mib"] - seen["before_kill_mib"]) <= MIG_AFTER_ROUND_MIB
+          and abs(after_mib - base_mib) <= MIG_AFTER_ROUND_MIB,
+          f"reconcile: memory.used {base_mib} / {seen['before_kill_mib']} / "
+          f"{seen['recovered_mib']} / {after_mib} MiB")
+    check(row["launches"] in (healthcheck.PROBE_HBM_ITERS, healthcheck.PROBE_HBM_ITERS + 1)
+          and row["worker_launches"] == healthcheck.PROBE_HBM_ITERS + 1,
+          f"reconcile: the wake's cycle launched {row['launches']} "
+          f"(its worker {row['worker_launches']})")
+    return row
+
+
+def phase_chaos(entries: dict, smi: str) -> dict:
+    """Rows of the port's chaos matrix against the card (the module's
+    docstring, phase 15): a probe child that holds libcuda and dies to a
+    real SIGSEGV, one that hangs until its SIGKILL at --probe-timeout,
+    both in the one-shot sandbox, and the SIGKILL of an event-mode
+    daemon's broker worker, recovered through the worker_died wake."""
+    import torch
+
+    from gpu_feature_discovery_tpu_torch.ops import hbm, healthcheck
+
+    t0 = time.monotonic()
+    driver = _chaos_driver()
+    # This process's own first use of the probe (its context, torch's and
+    # cuBLAS's code), which the one-shot rows' in-process probe would
+    # otherwise add to the card's memory.used in the first row; the phases
+    # before this one have paid it already when the whole script runs.
+    # The daemon's first probe runs on a thread of its own, so the warm-up
+    # does too.
+    devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    warm = threading.Thread(target=healthcheck.measure_node_health,
+                            kwargs={"devices": devices, "per_chip": True})
+    warm.start()
+    warm.join()
+    hbm.hbm_stream_sum.launches = 0
+    capture = _CycleCapture(lambda: hbm.hbm_stream_sum.launches)
+    tfd_log, lm_log = logging.getLogger("tfd"), logging.getLogger("tfd.lm")
+    levels = (tfd_log.level, lm_log.level)
+    tfd_log.setLevel(logging.INFO)
+    lm_log.setLevel(logging.DEBUG)
+    tfd_log.addHandler(capture)
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    rows = {}
+    try:
+        for spec in CHAOS_ONESHOT_ROWS:
+            rows[spec] = _chaos_oneshot_row(driver, spec, capture, build_dir)
+        row = _chaos_reconcile_row(driver, capture, build_dir)
+        rows[row["spec"]] = row
+    finally:
+        tfd_log.removeHandler(capture)
+        tfd_log.setLevel(levels[0])
+        lm_log.setLevel(levels[1])
+    launches = {spec: r["launches"] for spec, r in rows.items()}
+    entries["hbm_stream_sum"]["chaos_launches"] = launches
+    emit("chaos", nvidia_smi=smi,
+         cuda_context={s: r.get("cuda_context", r.get("worker_mib", 0) > CONTEXT_MIB)
+                       for s, r in rows.items()},
+         fault_to_health_s={s: r.get("fault_to_health_s", r.get("kill_to_full_s"))
+                            for s, r in rows.items()},
+         worker_died_wakes=rows["reconcile:broker-death"]["scraped_worker_died_wakes"],
+         failed_cycles=rows["reconcile:broker-death"]["failed_cycles"],
+         used_mib={s: [r.get("used_before_mib", r.get("used_base_mib")),
+                       r["used_after_mib"]] for s, r in rows.items()},
+         launches=launches, wall_s=time.monotonic() - t0)
+    return rows
+
 def main() -> int:
     import importlib.util
 
@@ -4218,6 +4532,7 @@ def main() -> int:
     phase_deploy(entries, info["nvidia_smi"])
     phase_mig(entries, info["nvidia_smi"])
     phase_busy(entries, info["nvidia_smi"])
+    phase_chaos(entries, info["nvidia_smi"])
     # What serving and recording metrics cost, beside the card.
     emit("metrics", nvidia_smi=info["nvidia_smi"],
          scrape_ms_median=statistics.median(cli["scrape_ms"]),

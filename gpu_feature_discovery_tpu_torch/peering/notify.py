@@ -100,6 +100,10 @@ class NotifySubscriptions:
                 del self._subs[key]
             return sorted(self._subs)
 
+    def __len__(self) -> int:
+        """The live subscriptions, lapsed ones pruned."""
+        return len(self.targets())
+
 
 class NotifySender:
     """Best-effort upward notifier: one daemon thread, latest wins.

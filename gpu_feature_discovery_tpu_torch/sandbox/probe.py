@@ -36,6 +36,10 @@ PARENT and enacted in the child:
     probe.timeout   the probe reports a timeout at once; no child spawned
     probe.hang      the child sleeps until the parent's SIGKILL
     probe.segv      the child raises SIGSEGV on itself
+
+A probe child enacts them once its op has run, holding what the op
+acquired; a spawning broker worker before it starts
+(sandbox/worker_main.py).
 """
 
 from __future__ import annotations

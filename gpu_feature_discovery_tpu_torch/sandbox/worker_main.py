@@ -9,9 +9,13 @@ the classic path), the parent-consumed chaos behaviours (``hang``,
 ``segv``) and, for a probe child, the named op. Then:
 
 - ``probe``: run the op (PROBE_OPS), answer one frame on
-  CHILD_RESPONSE_FD, exit;
+  CHILD_RESPONSE_FD, exit. A chaos behaviour is enacted once the op has
+  run and before the answer, so the hung or crashing child holds what
+  the op loaded (on a GPU node the select+snapshot op loads the CUDA
+  driver and NVML, though it creates no context), as a wedged or
+  crashing driver call would;
 - ``broker``: become the persistent worker (sandbox/broker.py
-  ``_child_main``).
+  ``_child_main``); a chaos behaviour is enacted before it starts.
 
 A probe child pinned to a MIG device (its ``CUDA_VISIBLE_DEVICES``
 names the device's UUID) runs the ``health`` op on that one device. An
@@ -86,6 +90,19 @@ PROBE_OPS = {
 }
 
 
+def _enact_chaos(doc: dict) -> None:
+    if doc.get("hang"):
+        # probe.hang: a wedged native call; only the parent's SIGKILL at
+        # the deadline ends this.
+        while True:
+            time.sleep(3600)
+    if doc.get("segv"):
+        # probe.segv: a real signal death, default action first so the
+        # faulthandler dump cannot delay it.
+        signal.signal(signal.SIGSEGV, signal.SIG_DFL)
+        os.kill(os.getpid(), signal.SIGSEGV)
+
+
 def _probe_main(doc: dict, config) -> None:
     try:
         payload = PROBE_OPS[doc["op"]](config, doc)
@@ -100,6 +117,7 @@ def _probe_main(doc: dict, config) -> None:
             busy = is_busy_error(e)
         data = {"status": "busy" if busy else "error",
                 "error_type": type(e).__name__, "error": str(e)}
+    _enact_chaos(doc)
     try:
         _write_frame(CHILD_RESPONSE_FD, data)
     except OSError:
@@ -116,19 +134,10 @@ def main() -> None:
         if first is None:
             os._exit(1)
         doc = json.loads(first.decode())
-        if doc.get("hang"):
-            # probe.hang: a wedged native call; only the parent's SIGKILL
-            # at the deadline ends this.
-            while True:
-                time.sleep(3600)
-        if doc.get("segv"):
-            # probe.segv: a real signal death, default action first so the
-            # faulthandler dump cannot delay it.
-            signal.signal(signal.SIGSEGV, signal.SIG_DFL)
-            os.kill(os.getpid(), signal.SIGSEGV)
         config = config_from_dict(doc["config"])
         if role == "probe":
             _probe_main(doc, config)
+        _enact_chaos(doc)
         _child_main(CHILD_REQUEST_FD, CHILD_RESPONSE_FD, config, buf,
                     doc.get("backend"))
     finally:

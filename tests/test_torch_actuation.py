@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 
 from slice_fixture import SliceHarness
-from test_torch_slice import PortSliceHarness
+from torch_slice_fixture import PortSliceHarness
 
 from gpu_feature_discovery_tpu.actuation import engine as twin_engine
 from gpu_feature_discovery_tpu.config import new_config as twin_new_config
@@ -740,7 +740,8 @@ def test_cli_daemons_advise_and_a_restart_after_the_lease_restores_none(tmp_path
     import sys
     from pathlib import Path
 
-    from test_torch_slice import _free_port, _request
+    from test_torch_slice import _request
+    from torch_slice_fixture import free_port as _free_port
 
     repo = Path(__file__).resolve().parent.parent
     ports = [_free_port() for _ in range(2)]

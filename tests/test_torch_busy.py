@@ -580,7 +580,7 @@ def test_a_busy_mig_device_reaches_neither_slice_sick_chips_nor_advice(tmp_path,
     node is advised. (With the device sick instead, tests/
     test_torch_actuation.py shows the same daemons advise.)"""
     from test_torch_actuation import _no_advice_for, _wait
-    from test_torch_slice import PortSliceHarness
+    from torch_slice_fixture import PortSliceHarness
     from torch_mig_fakes import MigWorkers
 
     monkeypatch.setenv("TFD_BURNIN_ALLOW_CPU", "1")

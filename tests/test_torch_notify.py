@@ -130,6 +130,30 @@ def test_subscriptions_ttl_refresh_and_unusable_entries_match_the_twins():
     ]
 
 
+def _subscription_counts(side):
+    now = [0.0]
+    subs = side.notify.NotifySubscriptions(10.0, clock=lambda: now[0])
+    counts = [len(subs)]
+    subs.observe_poll("10.0.0.1", 9101, "slice-a")
+    subs.observe_poll("10.0.0.2", 9102, "slice-a")
+    subs.observe_poll("10.0.0.2", 9102, "slice-a")
+    counts.append(len(subs))
+    now[0] = 9.0
+    subs.observe_poll("10.0.0.1", 9101, "slice-a")
+    now[0] = 11.0
+    counts.append(len(subs))
+    now[0] = 25.0
+    counts.append(len(subs))
+    return counts
+
+
+def test_subscriptions_count_only_live_entries_as_in_the_twin():
+    """Fault 9: the size of the registry, lapsed entries pruned, which the
+    notify-lost chaos row reads after the cold sweep."""
+    twin, port = _both(_subscription_counts)
+    assert port == twin == [0, 2, 1, 0]
+
+
 # ---------------------------------------------------------------------------
 # NotifySender
 # ---------------------------------------------------------------------------

@@ -1,11 +1,11 @@
 """Slice coordination of the PyTorch port end to end on the CPU, against
 its JAX twin.
 
-In process: ``PortSliceHarness`` (below) runs N real supervised daemon
-loops of the port (``cmd/main.run``) in this process, each labeling two
-mock GPUs (``mock-gpu:2``), serving ``/peer/snapshot`` on 127.0.0.1 and
-polling the others over real HTTP, with slice identity injected as a
-built SliceCoordinator. The twin's own harness (``tests/slice_fixture.py``
+In process: ``PortSliceHarness`` (``tests/torch_slice_fixture.py``) runs
+N real supervised daemon loops of the port (``cmd/main.run``) in this
+process, each labeling two mock GPUs (``mock-gpu:2``), serving
+``/peer/snapshot`` on 127.0.0.1 and polling the others over real HTTP,
+with slice identity injected as a built SliceCoordinator. The twin's own harness (``tests/slice_fixture.py``
 ``SliceHarness``) runs the same scenario beside it: the acceptance
 scenarios of the twin's tests/test_slice.py. At every converged step the
 slice family of each worker equals the twin's after the key translation
@@ -22,57 +22,39 @@ import json
 import os
 import queue
 import signal
-import socket
 import subprocess
 import sys
-import threading
 import time
 from pathlib import Path
 
 import pytest
 
 from slice_fixture import SliceHarness
+from torch_slice_fixture import PortSliceHarness, free_port as _free_port
+from torch_slice_fixture import is_coord as _is_coord, non_coord_lines
 # The port's node-local lines under mock-gpu:2: the gpu-mock golden and
 # the host facts the port publishes beside it.
 from test_torch_daemon import _matches_golden
 
 from gpu_feature_discovery_tpu.lm import slice_labeler as twin_slice_labeler
 from gpu_feature_discovery_tpu_torch.cmd import main as port_main
-from gpu_feature_discovery_tpu_torch.cmd.supervisor import Supervisor
 from gpu_feature_discovery_tpu_torch.config.flags import new_config
 from gpu_feature_discovery_tpu_torch.lm.engine import STALE_SOURCES_LABEL
 from gpu_feature_discovery_tpu_torch.lm.slice_labeler import (
-    SLICE_COORD_LABELS,
     SLICE_DEGRADED_LABEL,
     SLICE_HEALTHY_HOSTS_LABEL,
     SLICE_LEADER_LABEL,
     SLICE_LEADER_SEEN_LABEL,
     SLICE_ROLE_LABEL,
     SLICE_TOTAL_HOSTS_LABEL,
-    is_cohort_label,
 )
 from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
-from gpu_feature_discovery_tpu_torch.ops.kernel_cache import RESOLVED_CACHE_DIR_ENV
-from gpu_feature_discovery_tpu_torch.peering import SliceCoordinator
 from gpu_feature_discovery_tpu_torch.resource import factory
 
 HERE = Path(__file__).parent
 REPO = HERE.parent
 TPU, GPU = "google.com/tpu.", "nvidia.com/gpu."
 TIMESTAMP = "google.com/tfd.timestamp"
-
-
-
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
-def _is_coord(key):
-    return key in SLICE_COORD_LABELS or is_cohort_label(key)
 
 
 def _is_twin_coord(key):
@@ -85,191 +67,6 @@ def _port_slice(labels):
 
 def _twin_slice(labels):
     return {GPU + k[len(TPU):]: v for k, v in labels.items() if _is_twin_coord(k)}
-
-
-def non_coord_lines(raw):
-    """A label file's node-local lines: all but the coordination family."""
-    return [line for line in (raw or "").splitlines()
-            if line and not _is_coord(line.split("=", 1)[0])]
-
-
-def _slowed(hook, delay_s):
-    def slow_hook():
-        time.sleep(delay_s)
-        return hook()
-
-    return slow_hook
-
-
-class _PortSickOverlay:
-    """Wraps a worker's interconnect labeler with a confirmed chips.sick
-    verdict, as the twin's harness does (``sick_workers``): the verdict
-    rides the real engine merge, peer snapshot and actuation path.
-    ``sick`` is mutable mid-scenario (heal by setting 0)."""
-
-    def __init__(self, inner, sick=1):
-        self._inner = inner
-        self.sick = sick
-
-    def labels(self):
-        from gpu_feature_discovery_tpu_torch.lm.health import CHIPS_HEALTHY, CHIPS_SICK
-
-        labels = self._inner.labels()
-        if self.sick:
-            labels[CHIPS_SICK] = str(self.sick)
-            labels[CHIPS_HEALTHY] = labels.get(CHIPS_HEALTHY, "0")
-        return labels
-
-
-class PortWorker:
-    def __init__(self, worker_id, config, coordinator, port, interconnect=None):
-        self.worker_id = worker_id
-        self.config = config
-        self.coordinator = coordinator
-        self.port = port
-        self.interconnect = interconnect
-        self.output_file = config.flags.tfd.output_file
-        self.sigs = None
-        self.thread = None
-        self.result = {}
-
-    @property
-    def alive(self):
-        return self.thread is not None and self.thread.is_alive()
-
-    def labels(self):
-        try:
-            with open(self.output_file) as f:
-                return dict(line.rstrip("\n").split("=", 1) for line in f if "=" in line)
-        except OSError:
-            return {}
-
-    def raw_output(self):
-        try:
-            with open(self.output_file) as f:
-                return f.read()
-        except OSError:
-            return None
-
-
-class PortSliceHarness:
-    """N supervised port daemon loops as one slice in this process: the
-    port's counterpart of the twin's SliceHarness (its surface and its
-    stop-is-SIGTERM rule), over ``mock-gpu:2`` backends."""
-
-    def __init__(self, tmp_path, workers=4, coordination="on", sleep_interval="0.05s",
-                 peer_timeout="0.5s", cohort_size=0, peer_token="", labeler_timeout="10s",
-                 round_budget=None, peer_fanout=None, slow_workers=(), slow_delay_s=0.0,
-                 backends="mock-gpu:2", inject=True, extra_cli=None, sick_workers=()):
-        """``slow_workers`` stall their /peer/snapshot answers by
-        ``slow_delay_s`` (the peer.slow behaviour, scoped to a worker: the
-        fault registry is process-wide here); ``round_budget`` and
-        ``peer_fanout`` go to every coordinator. ``inject=False`` builds no
-        coordinator here: each daemon then builds its own from the config
-        and the process's ``WORKER_HOSTNAMES``/``WORKER_ID``.
-        ``sick_workers`` overlay a confirmed chips.sick verdict on the
-        named workers' interconnect labelers (``_PortSickOverlay``)."""
-        obs_metrics.reset_for_tests()
-        self.workers = []
-        ports = [_free_port() for _ in range(workers)]
-        hostnames = [f"127.0.0.1:{p}" for p in ports]
-        for i in range(workers):
-            workdir = os.path.join(str(tmp_path), f"port-worker-{i}")
-            os.makedirs(workdir, exist_ok=True)
-            machine = os.path.join(workdir, "machine-type")
-            with open(machine, "w") as f:
-                f.write("Mock GPU Node\n")
-            config = new_config(cli_values={
-                "oneshot": False,
-                "backends": backends,
-                "output-file": os.path.join(workdir, "tfd"),
-                "machine-type-file": machine,
-                "sleep-interval": sleep_interval,
-                "init-backoff-max": "0.02s",
-                "init-retries": "50",
-                "max-consecutive-failures": "50",
-                "metrics-addr": "127.0.0.1",
-                "metrics-port": str(ports[i]),
-                "state-dir": os.path.join(workdir, "state"),
-                "probe-isolation": "none",
-                "probe-broker": "off",
-                "slice-coordination": coordination,
-                "peer-timeout": peer_timeout,
-                "cohort-size": str(cohort_size),
-                "peer-token": peer_token,
-                "labeler-timeout": labeler_timeout,
-                **(extra_cli or {}),
-            }, environ={})
-            coordinator = None
-            if coordination == "on" and inject:
-                coordinator = SliceCoordinator(
-                    worker_id=i, hostnames=hostnames, default_port=ports[i],
-                    peer_timeout=float(peer_timeout.rstrip("s")),
-                    cohort_size=cohort_size, peer_token=peer_token,
-                    round_budget=round_budget, fanout=peer_fanout)
-                if i in slow_workers:
-                    coordinator.snapshot_response = _slowed(
-                        coordinator.snapshot_response, slow_delay_s)
-            interconnect = None
-            if i in sick_workers:
-                interconnect = _PortSickOverlay(port_main.new_interconnect_labeler(config))
-            self.workers.append(PortWorker(i, config, coordinator, ports[i], interconnect))
-
-    def start(self):
-        for worker in self.workers:
-            self.start_worker(worker.worker_id)
-        return self
-
-    def start_worker(self, worker_id):
-        worker = self.workers[worker_id]
-        worker.sigs = queue.Queue()
-        worker.result = {}
-
-        def target():
-            try:
-                worker.result["restart"] = port_main.run(
-                    lambda: factory.build_manager(worker.config), worker.config,
-                    worker.sigs, supervisor=Supervisor(worker.config),
-                    interconnect=worker.interconnect, coordinator=worker.coordinator)
-            except BaseException as e:  # noqa: BLE001 - reported by the tests
-                worker.result["error"] = e
-
-        worker.thread = threading.Thread(target=target, name=f"port-slice-worker-{worker_id}",
-                                         daemon=True)
-        worker.thread.start()
-        return worker
-
-    def stop_worker(self, worker_id, timeout=10):
-        """SIGTERM on the worker's queue: its real shutdown path, which
-        closes its server, so its peers see connections refused."""
-        worker = self.workers[worker_id]
-        if worker.sigs is not None:
-            worker.sigs.put(signal.SIGTERM)
-        if worker.thread is not None:
-            worker.thread.join(timeout=timeout)
-            assert not worker.thread.is_alive(), f"worker {worker_id} ignored SIGTERM"
-        assert "error" not in worker.result, worker.result.get("error")
-
-    def stop(self):
-        for worker in self.workers:
-            if worker.alive:
-                self.stop_worker(worker.worker_id)
-
-    def snapshot(self):
-        return {w.worker_id: w.labels() for w in self.workers}
-
-    def __enter__(self):
-        # The daemons export their resolved kernel cache into this
-        # process's environment (cmd/main.run); it must not outlive them.
-        self._kernel_cache_env = os.environ.get(RESOLVED_CACHE_DIR_ENV)
-        return self.start()
-
-    def __exit__(self, *exc):
-        self.stop()
-        if self._kernel_cache_env is None:
-            os.environ.pop(RESOLVED_CACHE_DIR_ENV, None)
-        else:
-            os.environ[RESOLVED_CACHE_DIR_ENV] = self._kernel_cache_env
 
 
 @pytest.fixture(autouse=True)
