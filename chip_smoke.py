@@ -225,6 +225,24 @@ Phases, each printing one JSON line:
                   cycle's launches in the new worker (1 + 3). One
                   ``chaos_row`` line per row and one ``chaos`` line;
                   ``chaos_launches`` in the ``kernels`` line.
+16. ``golden``  — the reference's tier 3 on the card: the port's
+                  integration script (tests/torch-integration-tests.py,
+                  loaded by path) runs ``python -m
+                  gpu_feature_discovery_tpu_torch --oneshot --with-burnin
+                  --backends gpu`` with a made-up one-host slice and diffs
+                  the whole label file both ways against
+                  tests/torch-expected-output-live-h100.txt, under each
+                  ``--tpu-topology-strategy`` (the strategy's own label
+                  added as a regex) and against ``_strategy_expectation``;
+                  the daemon's ``hbm_stream_sum`` launches (1 + 3 each)
+                  are counted at its exit by the deploy phase's start-up
+                  hook (``golden_launches`` in the ``kernels`` line). One
+                  ``golden`` line: per scenario the label count, the
+                  unmatched lines and patterns, the seconds; and how many
+                  label sets the phases held to the k8s grammar.
+
+Every label set a phase reads (``_read_labels``, ``_grammar_checked``) is
+held to the k8s label grammar; a label outside it fails the phase.
 
 Then a ``metrics`` line (the cost of a scrape, the exposition's size,
 restart-to-labels, first use, the broker's request histogram and the
@@ -737,8 +755,7 @@ def phase_main_path(entries: dict, count: int) -> None:
         cycle_s = time.perf_counter() - t0
         launches = {"hbm_stream_sum": hbm.hbm_stream_sum.launches}
         check(rc == 0, f"oneshot cycle exited {rc}")
-        with open(out) as f:
-            labels = dict(line.rstrip("\n").split("=", 1) for line in f if "=" in line)
+        labels = _read_labels(out)
     lm_log.removeHandler(capture)
     emit("main_path", seconds=cycle_s, launches=launches, labels=labels,
          phases=capture.phases)
@@ -956,6 +973,7 @@ def phase_host_facts(count: int) -> dict:
     native = _oneshot_labels("--backends", "native")
     diff = sorted(set(gpu.items()) ^ set(native.items()))
     check(not diff, f"--backends native and gpu differ: {diff}")
+    _grammar_checked(child["labels"], "the NVML child")
     check(child["labels"] == native, "the NVML child's labels differ from native's: "
           f"{sorted(set(child['labels'].items()) ^ set(native.items()))}")
     check(gpu.get("nvidia.com/gpu.count") == str(count), f"gpu.count {gpu}")
@@ -1100,12 +1118,48 @@ def _scrape(port: int) -> dict:
     return _samples(body)
 
 
+# The k8s label grammar (tests/test_label_validity.py:22-37, which this
+# machine cannot import): NFD drops a label that breaks it without a word,
+# so every label a phase reads is held to it. Matched whole, so a stray
+# newline fails too.
+_LABEL_NAME = re.compile(r"[A-Za-z0-9]([-A-Za-z0-9_.]*[A-Za-z0-9])?")
+_DNS_LABEL = re.compile(r"[a-z0-9]([-a-z0-9]*[a-z0-9])?")
+_LABEL_VALUE = re.compile(r"([A-Za-z0-9]([-A-Za-z0-9_.]*[A-Za-z0-9])?)?")
+# Label sets held to the grammar so far, and their labels.
+GRAMMAR_CHECKED = {"sets": 0, "labels": 0}
+
+
+def label_grammar_error(key: str, value: str):
+    """None for a label NFD keeps, else what breaks the grammar."""
+    prefix, slash, name = key.rpartition("/")
+    if not name:
+        return "empty name"
+    if len(name) > 63 or not _LABEL_NAME.fullmatch(name):
+        return "invalid name"
+    if slash and (len(prefix) > 253
+                  or not all(_DNS_LABEL.fullmatch(p) for p in prefix.split("."))):
+        return "invalid prefix"
+    if len(value) > 63 or not _LABEL_VALUE.fullmatch(value):
+        return "invalid value"
+    return None
+
+
+def _grammar_checked(labels: dict, where: str) -> dict:
+    bad = {f"{k}={v}": e for k, v in labels.items()
+           if (e := label_grammar_error(k, v)) is not None}
+    check(not bad, f"{where}: labels outside the k8s grammar: {bad}")
+    GRAMMAR_CHECKED["sets"] += 1
+    GRAMMAR_CHECKED["labels"] += len(labels)
+    return labels
+
+
 def _read_labels(path: str) -> dict:
     try:
         with open(path) as f:
-            return dict(l.rstrip("\n").split("=", 1) for l in f if "=" in l)
+            labels = dict(l.rstrip("\n").split("=", 1) for l in f if "=" in l)
     except FileNotFoundError:
         return {}
+    return _grammar_checked(labels, path)
 
 
 def _wait_for(cond, timeout: float, what: str, poll: float = 0.02):
@@ -2824,6 +2878,8 @@ def phase_actuation(entries: dict, smi: str) -> dict:
             restored = _wait_for(lambda: (lambda l: l if l.get(RESTORED) == "true" else None)(
                 _read_labels(outs[1])), 60.0, "worker 1's restored write")
             restart_to_first_write_s = time.monotonic() - t_restart
+            t_back = _wait_for(lambda: first_t(1, lambda l: l != before, after=t_restart),
+                               5.0, "worker 1's first write in the timeline")
             check(not _advice_of(restored) and restored.get(CHIPS_SICK) == "1",
                   f"worker 1's restored write {restored}")
             check(_without_advice(restored) == _without_advice(before),
@@ -2893,7 +2949,11 @@ def phase_actuation(entries: dict, smi: str) -> dict:
         def verdict(l):
             return sorted(_advice_of(l))
 
-        moves, prev = 0, None
+        # Worker 1 is no live host from its SIGKILL to its restarted
+        # process's first write (t_back): until then its file is the dead
+        # process's last one, whose advice the SIGKILL froze under a lease
+        # that has lapsed.
+        moves, dead_file_samples, prev = 0, 0, None
         for t, ls in timeline:
             if prev is not None:
                 for i in range(ACT_WORKERS):
@@ -2902,8 +2962,13 @@ def phase_actuation(entries: dict, smi: str) -> dict:
                         a, b = _without_advice(prev[i]), _without_advice(ls[i])
                         check(a == b, f"worker {i}'s advice change at {t - t0:.2f}s moved "
                               f"{ {k: (a.get(k), b.get(k)) for k in set(a) | set(b) if a.get(k) != b.get(k)} }")
-            live = [True, not (t_kill <= t < t_restart), True]
-            check(len(live_advised(ls, live)) <= 1, f"two live hosts advised at {t - t0:.2f}s")
+            live = [True, not (t_kill <= t < t_back), True]
+            dead_file_samples += t_restart <= t < t_back
+            advised = live_advised(ls, live)
+            check(len(advised) <= 1,
+                  f"live hosts {advised} advised at once at {t - t0:.2f}s (SIGKILL "
+                  f"{t_kill - t0:.2f}s, restart {t_restart - t0:.2f}s, its first write "
+                  f"{t_back - t0:.2f}s): {[_advice_of(ls[i]) for i in advised]}")
             prev = ls
         reasons = sorted({ls[2][CORDON] for _, ls in timeline if CORDON in ls[2]})
         w0_local = [_without_advice(ls[0]) for _, ls in timeline if _has_health(ls[0])]
@@ -2921,7 +2986,8 @@ def phase_actuation(entries: dict, smi: str) -> dict:
         restart_to_first_write_s=restart_to_first_write_s,
         w2_withdrawn_while_w1_restored=w2_withdrawn, heal_to_clear_s=heal_to_clear_s,
         w2_cordon_reasons=reasons,
-        advice_moves=moves, series=s_end, device_used_mib_three_workers=used_mib,
+        advice_moves=moves, dead_file_samples_after_restart=dead_file_samples,
+        series=s_end, device_used_mib_three_workers=used_mib,
         launches_per_worker={n: t[0] for n, t in totals.items()}, cli_maps_libcuda=maps,
         worker_spawn_ms={n: sp[""][0][1] for n, sp in spawned.items()})
     emit("actuation", **out)
@@ -3497,7 +3563,9 @@ class _MigStandIn:
         from gpu_feature_discovery_tpu_torch.lm.engine import LabelEngine
         from gpu_feature_discovery_tpu_torch.lm.labelers import new_label_sources
 
-        return dict(LabelEngine(parallel=False).generate(new_label_sources(manager, cfg)))
+        return _grammar_checked(
+            dict(LabelEngine(parallel=False).generate(new_label_sources(manager, cfg))),
+            "the MIG stand-in's cycle")
 
     def pids(self, manager, n: int, timeout: float = 60.0) -> list:
         """The running round's n children, once spawned."""
@@ -3981,7 +4049,8 @@ def _busy_worker(cfg, health, broker_mod, run: dict, fits: bool = False):
     labels = {}
     deadline = time.monotonic() + 120
     while (not seen or seen[-1]["status"] == "warming") and time.monotonic() < deadline:
-        labels = dict(health.new_health_labeler(w1_manager, cfg).labels())
+        labels = _grammar_checked(dict(health.new_health_labeler(w1_manager, cfg).labels()),
+                                  "the busy worker's health labels")
     outcome = seen[-1]
     run["fresh_worker_labels"] = labels
     if fits:
@@ -4227,14 +4296,21 @@ CHAOS_HUNG_READ_S = 3.0
 WORKER_MAIN = b"gpu_feature_discovery_tpu_torch.sandbox.worker_main"
 
 
-def _chaos_driver():
-    """tests/torch_chaos_run.py, loaded by path (it imports no JAX)."""
+def _test_script(name: str, filename: str):
+    """A script of tests/ that imports no JAX and no yaml, loaded by path."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_chaos_run", os.path.join(REPO, "tests", "torch_chaos_run.py"))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "tests", filename))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
+    return module
+
+
+def _chaos_driver():
+    """tests/torch_chaos_run.py, every label file it reads held to the
+    grammar too."""
+    module = _test_script("torch_chaos_run", "torch_chaos_run.py")
+    module.read_labels = _read_labels
     return module
 
 
@@ -4497,6 +4573,83 @@ def phase_chaos(entries: dict, smi: str) -> dict:
          launches=launches, wall_s=time.monotonic() - t0)
     return rows
 
+
+GOLDEN = os.path.join(REPO, "tests", "torch-expected-output-live-h100.txt")
+# The oneshot's wall-clock budget in the integration script: torch's
+# import, CUDA's set-up, the kernel from the cache and one probe.
+GOLDEN_TIMEOUT_S = 300.0
+
+
+def _golden_extra(strategy: str) -> list:
+    """Regexes the live golden (strategy none, this machine's virtualised
+    host without PCI functions) lacks for this run: the strategy's label,
+    and the PCI labels where sysfs lists NVIDIA functions."""
+    extra = []
+    if strategy != "none":
+        extra.append(r"nvidia\.com\/gpu\.topology\.strategy=" + strategy)
+    functions = _sysfs_gpu_functions()
+    if functions:
+        extra += [r"nvidia\.com\/gpu\.pci\.present=true",
+                  r"nvidia\.com\/gpu\.pci\.count=%d" % len(functions)]
+    return [re.compile(x) for x in extra]
+
+
+def phase_golden(entries: dict, smi: str) -> dict:
+    """Tier 3 of the reference on the card (phase 16): the integration
+    script's oneshot with ``--with-burnin`` against the live golden, under
+    each MIG strategy; its launches counted in the daemon's process by the
+    start-up hook the deploy phase uses."""
+    from gpu_feature_discovery_tpu_torch.native import nvml
+    from gpu_feature_discovery_tpu_torch.ops import healthcheck
+
+    t0 = time.monotonic()
+    script = _test_script("torch_integration_tests", "torch-integration-tests.py")
+    inv = nvml.read_inventory()
+    golden = GOLDEN
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    if not PER_DEVICE_LABELS:
+        # CUDA lists other GPUs than NVML's: no chip.<i>.* or chips.*.
+        golden = os.path.join(build_dir, "torch-expected-output-live-h100-no-per-device.txt")
+        with open(GOLDEN) as f, open(golden, "w") as g:
+            g.writelines(l for l in f if "gpu\\.chip" not in l)
+    scenarios = {}
+    for strategy in ("none", "single", "mixed"):
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+            hook_dir, launches_dir = os.path.join(tmp, "hook"), os.path.join(tmp, "launches")
+            os.makedirs(hook_dir)
+            os.makedirs(launches_dir)
+            with open(os.path.join(hook_dir, "sitecustomize.py"), "w") as f:
+                f.write(f"OUT = {launches_dir!r}\n" + _LAUNCH_HOOK)
+            result = script.run(
+                ["--backend", "gpu", "--strategy", strategy, "--with-burnin",
+                 "--hostenv", script.LIVE_HOSTENV, "--golden", golden,
+                 "--timeout", str(GOLDEN_TIMEOUT_S)],
+                extra_env={"PYTHONPATH": os.pathsep.join(
+                    p for p in (hook_dir, REPO, os.environ.get("PYTHONPATH")) if p)},
+                extra_regexs=_golden_extra(strategy))
+            records = pod_launches({"launches_dir": launches_dir})
+        check(result["labels"] is not None, f"golden {strategy}: the oneshot failed")
+        labels = _grammar_checked(dict(l.split("=", 1) for l in result["labels"]),
+                                  f"golden {strategy}")
+        scenarios[strategy] = {
+            "labels": len(labels), "unexpected": result["unexpected"],
+            "missing": result["missing"], "seconds": result["seconds"],
+            "launches": [r["launches"] for r in records],
+            "library": sorted({os.path.basename(r["library"] or "") for r in records})}
+        check(result["ok"], f"golden {strategy}: {scenarios[strategy]}")
+        _strategy_expectation(inv, strategy, labels)
+        check(scenarios[strategy]["launches"] == [healthcheck.PROBE_HBM_ITERS + 1],
+              f"golden {strategy}: hbm_stream_sum launches per process "
+              f"{scenarios[strategy]['launches']}, want 1 + {healthcheck.PROBE_HBM_ITERS}")
+    entries["hbm_stream_sum"]["golden_launches"] = {
+        s: sum(r["launches"]) for s, r in scenarios.items()}
+    emit("golden", nvidia_smi=smi, golden=os.path.relpath(GOLDEN, REPO),
+         per_device_labels=PER_DEVICE_LABELS, scenarios=scenarios,
+         grammar_checked=dict(GRAMMAR_CHECKED), wall_s=time.monotonic() - t0)
+    return scenarios
+
+
 def main() -> int:
     import importlib.util
 
@@ -4533,6 +4686,7 @@ def main() -> int:
     phase_mig(entries, info["nvidia_smi"])
     phase_busy(entries, info["nvidia_smi"])
     phase_chaos(entries, info["nvidia_smi"])
+    phase_golden(entries, info["nvidia_smi"])
     # What serving and recording metrics cost, beside the card.
     emit("metrics", nvidia_smi=info["nvidia_smi"],
          scrape_ms_median=statistics.median(cli["scrape_ms"]),

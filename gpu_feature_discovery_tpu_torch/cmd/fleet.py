@@ -453,6 +453,12 @@ def run_epoch(values: dict, targets, sigs) -> str:
         # The BOUND port (the flag may say 0 = ephemeral) rides the
         # subscribe headers so children know where to POST back.
         collector.set_notify_port(server.port)
+    # A restored replica is ready from its first answer: the restore is
+    # marked before the server handles a request.
+    if collector.restored_slices:
+        state.labels_written(
+            _summary(collector), mode="restored"
+        )
     server.start()
     log.info(
         "fleet collector serving on %s:%d (%d slices, scrape interval "
@@ -473,10 +479,6 @@ def run_epoch(values: dict, targets, sigs) -> str:
     watcher = reconcile_events.ConfigFileWatcher(
         values["targets-file"], events
     ).start()
-    if collector.restored_slices:
-        state.labels_written(
-            _summary(collector), mode="restored"
-        )
     try:
         while True:
             changed = collector.poll_round()

@@ -56,6 +56,7 @@ from gpu_feature_discovery_tpu_torch.lm.health import CHIPS_HEALTHY, CHIPS_SICK,
 from gpu_feature_discovery_tpu_torch.lm.labels import Labels
 from gpu_feature_discovery_tpu_torch.obs import metrics
 from gpu_feature_discovery_tpu_torch.resource import factory
+from torch_env_guard import resolved_cache_dir_restored  # noqa: F401 - autouse
 
 TPU, GPU = "google.com/tpu.", "nvidia.com/gpu."
 FAMILIES = ("tfd_actuation_advice", "tfd_actuation_budget_exhausted",
@@ -735,18 +736,25 @@ def _file_labels(path):
 def test_cli_daemons_advise_and_a_restart_after_the_lease_restores_none(tmp_path):
     """Worker 1's card verdict (``chip.0.sick``, its one probe) becomes
     advice two cycles on, never rides its snapshot; killed, and restarted
-    on its state once the lease lapsed, it restores no advice."""
+    on its state once the lease lapsed, it restores no advice.
+
+    Every scrape of worker 1 waits until the process of that moment has
+    logged its server on its port (another test may hold the port while it
+    is free: the kill to the restart's bind), and the lease waited out is
+    the dead process's last one, read after the kill (a renewal may land
+    between a read before it and the kill, and the state holds it)."""
     import subprocess
     import sys
     from pathlib import Path
 
     from test_torch_slice import _request
-    from torch_slice_fixture import free_port as _free_port
+    from torch_slice_fixture import free_ports
 
     repo = Path(__file__).resolve().parent.parent
-    ports = [_free_port() for _ in range(2)]
+    ports = free_ports(2)
     outs = [tmp_path / f"w{i}.tfd" for i in range(2)]
     procs = []
+    logs = {}
 
     def start(i, fault):
         env = dict(os.environ, TFD_BURNIN_ALLOW_CPU="1", TFD_BURNIN_GEOMETRY="64x1",
@@ -755,7 +763,8 @@ def test_cli_daemons_advise_and_a_restart_after_the_lease_restores_none(tmp_path
         env.pop("TFD_FAULT_SPEC", None)
         if fault:
             env["TFD_FAULT_SPEC"] = fault
-        log = open(tmp_path / f"w{i}-{len(procs)}.log", "w")
+        logs[i] = tmp_path / f"w{i}-{len(procs)}.log"
+        log = open(logs[i], "w")
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "gpu_feature_discovery_tpu_torch", "--with-burnin",
              "--backends", "mock-gpu:2", "--sleep-interval", "0.3s", "--burnin-interval",
@@ -774,8 +783,13 @@ def test_cli_daemons_advise_and_a_restart_after_the_lease_restores_none(tmp_path
             if got:
                 return got
             time.sleep(0.05)
-        logs = [p.read_text()[-2000:] for p in sorted(tmp_path.glob("*.log"))]
-        raise AssertionError(f"timed out waiting for {what}: {logs}")
+        tails = [p.read_text()[-2000:] for p in sorted(tmp_path.glob("*.log"))]
+        raise AssertionError(f"timed out waiting for {what}: {tails}")
+
+    def serving(i):
+        """Until worker i's current process serves on its port."""
+        line = f"Introspection server listening on 127.0.0.1:{ports[i]}"
+        wait(lambda: line in logs[i].read_text(), f"worker {i}'s server on its port")
 
     try:
         start(0, "")
@@ -784,6 +798,7 @@ def test_cli_daemons_advise_and_a_restart_after_the_lease_restores_none(tmp_path
             _file_labels(outs[1])), "worker 1's advice")
         assert labels[CORDON_ADVICE_LABEL] == "sick-chips" and labels[CHIPS_SICK] == "1"
         assert int(labels[ACTUATION_LEASE_LABEL]) > time.time()
+        serving(1)
         series = _scrape(ports[1])
         assert (series["tfd_actuation_advice"], series["tfd_actuation_convergence_cycles"],
                 series['tfd_actuation_transitions_total{action="fired"}']) == (1, 2, 1)
@@ -791,16 +806,18 @@ def test_cli_daemons_advise_and_a_restart_after_the_lease_restores_none(tmp_path
         code, _, body = _request(ports[1], "/peer/snapshot", {"X-TFD-Probe-Token": "tok"})
         doc = json.loads(body)
         assert code == 200 and not advice_present(doc["labels"]) and doc["chips"]["sick"] == 1
-        lease = int(_file_labels(outs[1])[ACTUATION_LEASE_LABEL])
         w1.kill()
         w1.wait(timeout=30)
+        last = _file_labels(outs[1])
+        assert advice_present(last)
+        lease = int(last[ACTUATION_LEASE_LABEL])
         wait(lambda: time.time() > lease + 0.2, "worker 1's lease to lapse", timeout=10)
         start(1, "")
         restored = wait(lambda: (lambda l: l if l.get(GPU + "tfd.restored") == "true"
                                  else None)(_file_labels(outs[1])), "the restored write")
         assert not advice_present(restored) and restored[CHIPS_SICK] == "1"
-        series = wait(lambda: (lambda s: s if s else None)(_safe_scrape(ports[1])),
-                      "worker 1's server after the restart")
+        serving(1)
+        series = _scrape(ports[1])
         assert series['tfd_actuation_transitions_total{action="lease-lapsed"}'] == 1
         healthy = wait(lambda: (lambda l: l if l.get(CHIPS_SICK) == "0" else None)(
             _file_labels(outs[1])), "worker 1's healthy verdict after the restart")
@@ -814,10 +831,3 @@ def test_cli_daemons_advise_and_a_restart_after_the_lease_restores_none(tmp_path
             if p.poll() is None:
                 p.kill()
                 p.wait()
-
-
-def _safe_scrape(port):
-    try:
-        return _scrape(port)
-    except OSError:
-        return {}

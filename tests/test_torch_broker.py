@@ -49,6 +49,7 @@ from gpu_feature_discovery_tpu_torch.sandbox import (
 )
 from gpu_feature_discovery_tpu_torch.sandbox import broker as broker_mod
 from gpu_feature_discovery_tpu_torch.utils import faults
+from torch_env_guard import resolved_cache_dir_restored  # noqa: F401 - autouse
 
 COUNT = "nvidia.com/gpu.count"
 
@@ -106,6 +107,22 @@ def _try_ping(client):
         return client.ping()
     except ResourceError:
         return False
+
+
+def _ping_through_spawn(client, timeout=10.0):
+    """Ping, spawning the worker first. A test's 0.5 s budget is for the
+    request it tests, but a spawn runs under it too, and a loaded host can
+    start a Python worker slower than that: a spawn that missed its budget,
+    and the backoff after it, are waited out; any other error is raised."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            return client.ping()
+        except (BrokerTimeout, broker_mod.BrokerError) as e:
+            missed = "init exceeded" in str(e) or "backing off" in str(e)
+            if not missed or time.monotonic() > deadline:
+                raise
+            time.sleep(0.02)
 
 
 class _Client:
@@ -196,16 +213,16 @@ def test_broker_reuse_never_reinits_backend(tmp_path, caplog):
 def test_broker_request_hang_killed_within_budget_and_respawns(tmp_path, caplog):
     log = _SpawnLog(caplog)
     with _Client(cfg(tmp_path, **{"probe-timeout": "0.5s"})) as client:
-        assert client.ping()
+        assert _ping_through_spawn(client)
         pid = client.pid
         faults.load_fault_spec("broker.hang:fail:1")
         t0 = time.monotonic()
-        with pytest.raises(BrokerTimeout):
+        with pytest.raises(BrokerTimeout, match="request"):
             client.ping()
         # Budget + kill/reap slack: a broken kill path hangs forever.
         assert time.monotonic() - t0 < 0.5 + 5.0
         assert not _pid_alive(pid) and not client.alive
-        assert client.ping()  # next use respawns
+        assert _ping_through_spawn(client)  # next use respawns
         assert client.pid != pid and log.respawns == 1
 
 
@@ -236,7 +253,7 @@ def test_broker_spawn_hang_and_segv_surface_as_probe_errors(tmp_path):
             client.ping()
         with pytest.raises(BrokerCrash, match="SIGSEGV"):
             client.ping()
-        assert client.ping()
+        assert _ping_through_spawn(client)
 
 
 def test_broker_recycles_after_max_requests(tmp_path, caplog):

@@ -20,6 +20,7 @@ import pytest
 import torch_chaos_run as driver
 from test_chaos import CHAOS_EXPECTATIONS, CHAOS_SPECS
 from torch_slice_fixture import PortSliceHarness
+from torch_env_guard import resolved_cache_dir_restored  # noqa: F401 - autouse
 
 HERE = Path(__file__).parent
 REPO = HERE.parent

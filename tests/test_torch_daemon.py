@@ -37,6 +37,7 @@ from gpu_feature_discovery_tpu_torch.config.flags import new_config
 from gpu_feature_discovery_tpu_torch.lm.labeler import Empty
 from gpu_feature_discovery_tpu_torch.resource import factory
 from gpu_feature_discovery_tpu_torch.resource.cuda_backend import StaticCudaManager
+from torch_env_guard import resolved_cache_dir_restored  # noqa: F401 - autouse
 
 HERE = Path(__file__).parent
 REPO = HERE.parent

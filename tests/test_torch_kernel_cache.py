@@ -20,6 +20,7 @@ from gpu_feature_discovery_tpu_torch.config.flags import (
     resolve_compilation_cache_dir,
 )
 from gpu_feature_discovery_tpu_torch.ops import hbm, kernel_cache
+from torch_env_guard import resolved_cache_dir_restored  # noqa: F401 - autouse
 
 REPO = Path(__file__).resolve().parent.parent
 

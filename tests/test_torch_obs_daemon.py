@@ -48,6 +48,7 @@ from gpu_feature_discovery_tpu_torch.sandbox.broker import BrokerManager
 
 from test_torch_nvml import _FakeBrokerClient, _health_cycle, fake_torch_cuda  # noqa: F401
 from torch_mig_fakes import MigWorkers
+from torch_env_guard import resolved_cache_dir_restored  # noqa: F401 - autouse
 
 REPO = Path(__file__).resolve().parent.parent
 _SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)$")

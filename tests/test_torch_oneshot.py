@@ -163,7 +163,10 @@ def _imported_top_level_names(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     # yaml too: the card machine has no pyyaml (config/yaml_subset.py).
     forbidden = {"jax", "jaxlib", "gpu_feature_discovery_tpu", "yaml"}
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # The integration script runs on the card too, with the golden diff it
+    # imports.
+    files = sorted(PORT.rglob("*.py")) + [
+        REPO / "chip_smoke.py", HERE / "torch-integration-tests.py", HERE / "golden_utils.py"]
     assert len(files) > 20
     offenders = [
         f"{p.relative_to(REPO)} imports {name}"
@@ -201,6 +204,27 @@ def test_import_of_every_module_loads_no_jax_and_no_cuda():
         "('jax', 'jaxlib', 'gpu_feature_discovery_tpu', 'yaml'))\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_integration_script_and_the_shared_config_reader_load_no_jax_and_no_yaml():
+    """What runs on the card beside the port: the integration script (as
+    chip_smoke.py loads it, by path) and the port's config reader over
+    tests/config-shared-torch.yaml."""
+    code = (
+        "import importlib.util, sys\n"
+        "spec = importlib.util.spec_from_file_location('t', 'tests/torch-integration-tests.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "from gpu_feature_discovery_tpu_torch.config.flags import new_config\n"
+        "cfg = new_config(config_file='tests/config-shared-torch.yaml', environ={})\n"
+        "(r,) = cfg.sharing.time_slicing.resources\n"
+        "assert (r.name, r.replicas) == ('nvidia.com/gpu', 4), r\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'gpu_feature_discovery_tpu', 'yaml'))\n"
+        "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -19,6 +19,7 @@ import pytest
 
 from gpu_feature_discovery_tpu_torch.info.version import get_version_string
 from gpu_feature_discovery_tpu_torch.ops import kernel_cache
+from torch_env_guard import resolved_cache_dir_restored  # noqa: F401 - autouse
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(HERE)

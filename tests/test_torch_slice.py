@@ -50,6 +50,7 @@ from gpu_feature_discovery_tpu_torch.lm.slice_labeler import (
 )
 from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
 from gpu_feature_discovery_tpu_torch.resource import factory
+from torch_env_guard import resolved_cache_dir_restored  # noqa: F401 - autouse
 
 HERE = Path(__file__).parent
 REPO = HERE.parent
