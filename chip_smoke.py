@@ -14,7 +14,17 @@ Phases, each printing one JSON line:
                   version on the card, at the main path's shapes, with
                   its slip twins, bitwise determinism and kernels per
                   call; timed with CUDA events in turns with a library
-                  call, beside its bound and ptxas's report.
+                  call, beside its bound and ptxas's report. Then a
+                  seeded sweep (``--seed``, numpy) of ``hbm_stream_sum``
+                  over 240 draws of 1 to 2048 chunks on grids of 1 to the
+                  card's SMs: the chunk and tile patterns exact, each with
+                  one unit slipped or doubled caught, random buffers
+                  within rel 1e-6 of the plain version, one kernel per
+                  launch (torch.profiler, batch by batch); and a
+                  misaligned view, a strided view, float64 and rows that
+                  are not whole chunks each refused with a ValueError and
+                  no launch. One ``kernels_sweep`` line: the draws, the
+                  chunk and SM ranges, the largest relative error.
 4. ``collectives``— the multi-GPU probes on every card: NCCL's first use
                   apart, through the several-device helper even on one
                   card; the timed all-reduce (32 MiB per card: on one card
@@ -222,7 +232,12 @@ Phases, each printing one JSON line:
                   to fresh full labels (under 60 s), zero failed cycles,
                   memory.used with the new worker as with the old (within
                   16 MiB) and at the baseline after SIGTERM, the wake's
-                  cycle's launches in the new worker (1 + 3). One
+                  cycle's launches in the new worker (1 + 3), and each
+                  worker's own memory report (the broker's ``memory`` op:
+                  pid, the caching allocator's reserve and allocation, its
+                  context's share of the card before its first
+                  allocation), so a new worker above the old names the
+                  process and the pool. One
                   ``chaos_row`` line per row and one ``chaos`` line;
                   ``chaos_launches`` in the ``kernels`` line.
 16. ``golden``  — the reference's tier 3 on the card: the port's
@@ -242,7 +257,11 @@ Phases, each printing one JSON line:
                   label sets the phases held to the k8s grammar.
 
 Every label set a phase reads (``_read_labels``, ``_grammar_checked``) is
-held to the k8s label grammar; a label outside it fails the phase.
+held to the k8s label grammar; a label outside it fails the phase. After
+the phases a ``docs`` line: every label key a phase read has its row in
+docs/torch/labels.md and every ``tfd_*`` family scraped from a live
+daemon (``_scrape``) its row in docs/torch/observability.md, with the
+counts; a key or family with no row fails the script.
 
 Then a ``metrics`` line (the cost of a scrape, the exposition's size,
 restart-to-labels, first use, the broker's request histogram and the
@@ -280,6 +299,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TIMED_LAUNCHES = 20
+# The kernel sweep's numpy seed (--seed).
+SEED = 0
 # Whether CUDA lists exactly NVML's GPUs (joined by UUID), so the health
 # labeler publishes chip.<i>.* keyed by NVML's index; set by phase_device.
 # Where it does not (CUDA_VISIBLE_DEVICES naming a subset), the phases
@@ -416,6 +437,219 @@ def _kernel_launches_in(fn) -> dict:
     return kernels
 
 
+# The seeded sweep of hbm_stream_sum against its plain version, the port's
+# counterpart of the twin's native-against-Python walker agreement on
+# random inputs (tests/test_fuzz.py): every geometry the wrapper accepts,
+# not the probe's one.
+SWEEP_DRAWS = 240
+SWEEP_MAX_CHUNKS = 2048
+SWEEP_KINDS = ("chunk", "tile", "random", "chunk-slip", "chunk-double",
+               "tile-slip", "tile-double")
+# The kernel's TMA ring depth (csrc/hbm_stream_sum.cu kStages).
+SWEEP_RING = 4
+# Buffers held at once: each batch's launches run under one profiler.
+SWEEP_BATCH_BYTES = 4 << 30
+
+
+def _sweep_draw(rng, chunks: int, sms: int, kind: str) -> dict:
+    """One draw; a chunk slip needs two chunks, so one chunk slips a tile.
+    A slip copies a unit of another value over ``dst``; a doubling copies
+    unit ``dst`` over the next one (neighbours always differ)."""
+    from gpu_feature_discovery_tpu_torch.ops import hbm
+
+    if kind.startswith("chunk-") and chunks == 1:
+        kind = "tile-" + kind.split("-", 1)[1]
+    draw = {"chunks": chunks, "sms": sms, "kind": kind}
+    if kind.endswith(("-slip", "-double")):
+        unit, period = (
+            (hbm.CHUNK_ROWS, 7) if kind.startswith("chunk") else (hbm.TILE_ROWS, 13))
+        units = chunks * hbm.CHUNK_ROWS // unit
+        if kind.endswith("-double"):
+            draw["dst"] = int(rng.integers(0, units - 1))
+            draw["src"] = draw["dst"]
+        else:
+            draw["dst"] = int(rng.integers(0, units))
+            src = draw["dst"]
+            while src % period == draw["dst"] % period:
+                src = int(rng.integers(0, units))
+            draw["src"] = src
+    return draw
+
+
+def hbm_sweep_draws(seed: int, max_sms: int, n: int = SWEEP_DRAWS) -> list:
+    """``n`` seeded draws of (chunks, sms, content). First every content
+    kind at the geometries the sweep must hold (one chunk; fewer tiles
+    than the grid's blocks; counts off the ring's depth; the probe's 1024;
+    the largest; one SM, the MIG profiles' SM counts and every SM); then
+    chunk counts log-uniform over 1..SWEEP_MAX_CHUNKS on uniform SMs."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    geometries = [(1, 1), (1, max_sms), (2, max_sms), (3, max_sms),
+                  (max(1, (max_sms - 1) // 8), max_sms), (5, 60), (13, 32),
+                  (1023, max_sms), (1024, max_sms), (1024, 1), (1024, 16),
+                  (SWEEP_MAX_CHUNKS, max_sms), (SWEEP_MAX_CHUNKS, 1)]
+    draws = [_sweep_draw(rng, k, min(s, max_sms), kind)
+             for k, s in geometries for kind in SWEEP_KINDS]
+    while len(draws) < n:
+        k = int(min(SWEEP_MAX_CHUNKS, max(1, round(
+            math.exp(rng.uniform(0.0, math.log(SWEEP_MAX_CHUNKS)))))))
+        draws.append(_sweep_draw(rng, k, int(rng.integers(1, max_sms + 1)),
+                                 SWEEP_KINDS[int(rng.integers(len(SWEEP_KINDS)))]))
+    return draws[:n]
+
+
+def sweep_buffer(draw: dict, device, gen=None):
+    """(buffer, the pattern's exact sum or None for a random buffer)."""
+    import torch
+
+    from gpu_feature_discovery_tpu_torch.ops import hbm
+
+    rows = draw["chunks"] * hbm.CHUNK_ROWS
+    kind = draw["kind"]
+    if kind == "random":
+        return torch.rand((rows, hbm.LANES), generator=gen, device=device), None
+    if kind.startswith("chunk"):
+        buf, expected, unit = (hbm.stream_pattern(rows, device),
+                               hbm.expected_stream_sum(rows), hbm.CHUNK_ROWS)
+    else:
+        buf, expected, unit = (hbm.tile_pattern(rows, device),
+                               hbm.expected_tile_pattern_sum(rows), hbm.TILE_ROWS)
+    if "dst" in draw:
+        src, dst = draw["src"], draw["dst"] + (1 if kind.endswith("-double") else 0)
+        buf[dst * unit:(dst + 1) * unit] = buf[src * unit:(src + 1) * unit].clone()
+    return buf, expected
+
+
+def run_hbm_sweep(draws: list, device, launch, kernels_in=None, seed: int = 0) -> dict:
+    """Every draw launched through ``launch(buf, sms)`` and held to the
+    plain version: a pattern exact against its host sum, a slipped or
+    doubled twin exact against its plain sum and unequal to the
+    pattern's, a random buffer within rel 1e-6. ``kernels_in(fn)`` (the
+    card's profiler) must see one kernel per launch, batch by batch."""
+    import torch
+
+    from gpu_feature_discovery_tpu_torch.ops import hbm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    t0 = time.monotonic()
+    worst = {"rel": 0.0, "draw": None}
+    detected = kernels = recounted = 0
+    i = 0
+    while i < len(draws):
+        batch, held = [], 0
+        while i < len(draws) and (not batch or held + draws[i]["chunks"] * (256 << 10)
+                                  <= SWEEP_BATCH_BYTES):
+            buf, expected = sweep_buffer(draws[i], device, gen)
+            batch.append((draws[i], buf, expected))
+            held += buf.numel() * 4
+            i += 1
+        outs = []
+
+        def launch_batch():
+            outs[:] = [launch(buf, d["sms"]) for d, buf, _ in batch]
+
+        if kernels_in is None:
+            launch_batch()
+        else:
+            # CUPTI drops a kernel record now and then (2 of 45 profiled
+            # batches of 8 launches read 7, on the card in PR 18): a count
+            # below the launches is profiled again, up to three times; a
+            # count above them, or any other kernel, fails at once.
+            for attempt in range(3):
+                ran = kernels_in(launch_batch)
+                seen = sum(n for name, n in ran.items() if "stream_sum" in name)
+                check(seen <= len(batch) and all("stream_sum" in name for name in ran),
+                      f"{len(batch)} launches ran {ran}, want one stream_sum kernel each")
+                if seen == len(batch):
+                    break
+                recounted += 1
+            check(seen == len(batch), f"{len(batch)} launches: the profiler saw {seen} "
+                                      f"kernels in each of 3 sessions")
+            kernels += seen
+        for (d, buf, expected), out in zip(batch, outs):
+            got = out.item()
+            plain = hbm.hbm_stream_sum_reference(buf).item()
+            rel = abs(got - plain) / abs(plain)
+            if d["kind"] == "random":
+                # rel 1e-6: the kernel sums each thread's share of a tile
+                # in f32, the plain version everything in f64.
+                check(rel <= 1e-6, f"sweep {d}: kernel {got} vs plain {plain}")
+            else:
+                check(got == plain, f"sweep {d}: kernel {got} != plain {plain}")
+                if "dst" in d:
+                    check(got != expected, f"sweep {d}: the twin's sum {got} is the "
+                                           f"pattern's {expected}, not detected")
+                    detected += 1
+                else:
+                    check(got == expected, f"sweep {d}: kernel {got} != {expected}")
+            if rel >= worst["rel"]:
+                worst = {"rel": rel, "draw": d}
+        del batch, outs
+    chunks = [d["chunks"] for d in draws]
+    sms = [d["sms"] for d in draws]
+    tiles_per_chunk = hbm.CHUNK_ROWS // hbm.TILE_ROWS
+    return {
+        "draws": len(draws), "seed": seed,
+        "chunks_range": [min(chunks), max(chunks)], "sms_range": [min(sms), max(sms)],
+        "kinds": {k: sum(d["kind"] == k for d in draws) for k in SWEEP_KINDS},
+        "fewer_tiles_than_blocks": sum(
+            d["chunks"] * tiles_per_chunk < d["sms"] for d in draws),
+        "chunks_off_ring_depth": sum(d["chunks"] % SWEEP_RING != 0 for d in draws),
+        "slips_detected": detected, "kernels_seen": kernels,
+        "batches_recounted": recounted,
+        "max_rel_err": worst["rel"], "max_rel_err_draw": worst["draw"],
+        "seconds": time.monotonic() - t0,
+    }
+
+
+# What hbm_stream_sum refuses before any launch (ops/hbm.py): a view off
+# the 16-byte alignment TMA needs, a strided view, a dtype other than f32,
+# and rows that are not whole chunks.
+def hbm_rejections(device) -> dict:
+    import torch
+
+    from gpu_feature_discovery_tpu_torch.ops import hbm
+
+    rows, lanes = hbm.CHUNK_ROWS, hbm.LANES
+    flat = torch.zeros(rows * lanes + 4, device=device)
+    return {
+        "misaligned": (flat[1:1 + rows * lanes].view(rows, lanes), "16-byte aligned"),
+        "non_contiguous": (torch.zeros(rows, 2 * lanes, device=device)[:, :lanes],
+                           "contiguous"),
+        "float64": (torch.zeros(rows, lanes, dtype=torch.float64, device=device),
+                    "float32"),
+        "rows_not_whole_chunks": (torch.zeros(rows + hbm.TILE_ROWS, lanes, device=device),
+                                  f"(k*{rows}, {lanes})"),
+    }
+
+
+def check_hbm_rejections(device, kernels_in=None) -> dict:
+    """Each case raises hbm_stream_sum's ValueError and launches nothing."""
+    from gpu_feature_discovery_tpu_torch.ops import hbm
+
+    out = {}
+    for name, (buf, text) in hbm_rejections(device).items():
+        before = hbm.hbm_stream_sum.launches
+        caught = []
+
+        def call():
+            try:
+                hbm.hbm_stream_sum(buf)
+            except ValueError as e:
+                caught.append(str(e))
+
+        ran = kernels_in(call) if kernels_in is not None else {}
+        if kernels_in is None:
+            call()
+        check(caught and text in caught[0], f"{name}: {caught or 'no ValueError'}")
+        check(hbm.hbm_stream_sum.launches == before and not ran,
+              f"{name}: launched ({ran}) before refusing")
+        out[name] = caught[0]
+    return out
+
+
 def phase_kernels(ptxas: list) -> dict:
     """hbm_stream_sum at the probe's 256 MiB geometry: exact on the chunk
     pattern and on the tile pattern, every slip twin caught, bitwise
@@ -495,6 +729,12 @@ def phase_kernels(ptxas: list) -> dict:
     library_f32_ms = turns["median_ms"]["library_f32"]
     plain_ms = cuda_ms(lambda: hbm.hbm_stream_sum_reference(pattern))
     library_ms = cuda_ms(lambda: torch.sum(pattern, dtype=torch.float64))
+    sweep = run_hbm_sweep(
+        hbm_sweep_draws(SEED, torch.cuda.get_device_properties(dev).multi_processor_count),
+        dev, hbm._launch, kernels_in=_kernel_launches_in, seed=SEED)
+    sweep["rejected"] = check_hbm_rejections(dev, kernels_in=_kernel_launches_in)
+    emit("kernels_sweep", **sweep)
+    torch.cuda.empty_cache()
     nbytes = pattern.numel() * pattern.element_size() + 4  # read once, write (1,1) f32
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = pattern.numel() / FP32_OPS_PER_S * 1e3
@@ -1115,6 +1355,7 @@ def _scrape(port: int) -> dict:
     code, body = _http(port, "GET", "/metrics")
     check(code == 200, f"/metrics answered {code}")
     _validate_exposition(body)
+    DOCS_SEEN["families"].update(re.findall(r"^# TYPE (tfd_\w+) ", body, re.M))
     return _samples(body)
 
 
@@ -1150,7 +1391,64 @@ def _grammar_checked(labels: dict, where: str) -> dict:
     check(not bad, f"{where}: labels outside the k8s grammar: {bad}")
     GRAMMAR_CHECKED["sets"] += 1
     GRAMMAR_CHECKED["labels"] += len(labels)
+    DOCS_SEEN["label_keys"].update(labels)
     return labels
+
+
+# The port's reference documentation, held to what the phases read: every
+# label key has its row in docs/torch/labels.md, every tfd_* family
+# scraped from a live daemon its row in docs/torch/observability.md. A
+# row's first cell is the key, with <i> a device index, <n> a cohort
+# index and <profile> a MIG profile.
+DOCS = os.path.join(REPO, "docs", "torch")
+DOCS_SEEN = {"label_keys": set(), "families": set()}
+_DOC_PLACEHOLDERS = {"<i>": "[0-9]+", "<n>": "[0-9]+",
+                     "<profile>": "[0-9a-z][0-9a-z.+-]*"}
+_DOC_ROW = re.compile(r"^\| `([^`]+)` \|", re.M)
+
+
+def doc_label_patterns(text: str) -> list:
+    """The key pattern of each table row of labels.md."""
+    patterns = []
+    for key in _DOC_ROW.findall(text):
+        rx = re.escape(key)
+        for placeholder, sub in _DOC_PLACEHOLDERS.items():
+            rx = rx.replace(placeholder, sub)
+        patterns.append(re.compile(rx))
+    return patterns
+
+
+def undocumented_labels(keys, text: str) -> list:
+    """The keys no row of labels.md (``text``) matches."""
+    patterns = doc_label_patterns(text)
+    return sorted(k for k in keys if not any(p.fullmatch(k) for p in patterns))
+
+
+def doc_metric_families(text: str) -> set:
+    """The tfd_* families with a row in observability.md (``text``)."""
+    return {name for name in _DOC_ROW.findall(text) if name.startswith("tfd_")}
+
+
+def phase_docs() -> dict:
+    """Every label key and scraped family the phases read has its row."""
+    with open(os.path.join(DOCS, "labels.md")) as f:
+        labels_doc = f.read()
+    with open(os.path.join(DOCS, "observability.md")) as f:
+        families_doc = f.read()
+    out = {
+        "label_keys": len(DOCS_SEEN["label_keys"]),
+        "label_rows": len(doc_label_patterns(labels_doc)),
+        "families": len(DOCS_SEEN["families"]),
+        "family_rows": len(doc_metric_families(families_doc)),
+        "undocumented_labels": undocumented_labels(DOCS_SEEN["label_keys"], labels_doc),
+        "undocumented_families": sorted(
+            DOCS_SEEN["families"] - doc_metric_families(families_doc)),
+    }
+    emit("docs", **out)
+    check(not out["undocumented_labels"] and not out["undocumented_families"],
+          f"docs/torch has no row for {out['undocumented_labels']} "
+          f"{out['undocumented_families']}")
+    return out
 
 
 def _read_labels(path: str) -> dict:
@@ -4440,6 +4738,36 @@ def _chaos_oneshot_row(driver, spec: str, capture, build_dir: str) -> dict:
     return row
 
 
+def card_used_bytes() -> int:
+    """The card's used memory as CUDA reports it (total - free), the
+    measure a broker worker's ``memory`` report uses."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def worker_memory_mib(base_used: int) -> dict:
+    """The live broker worker's own memory (the broker's ``memory`` op),
+    in MiB: its pid; per device the caching allocator's reserve and
+    allocation; and its context's share, the card's used memory when its
+    context first saw it, before its first allocation, less ``base_used``
+    (``card_used_bytes`` before the worker)."""
+    from gpu_feature_discovery_tpu_torch.sandbox import broker
+
+    client = broker._active
+    if client is None or not client.alive:
+        return {}
+    report = client.memory()
+    mib = float(2 ** 20)
+    used = report.get("context_used_bytes") or []
+    return {"pid": report.get("pid"),
+            "reserved_mib": [d["reserved_bytes"] / mib for d in report["devices"]],
+            "allocated_mib": [d["allocated_bytes"] / mib for d in report["devices"]],
+            "context_used_mib": [u / mib for u in used],
+            "context_share_mib": [(u - base_used) / mib for u in used]}
+
+
 def _chaos_reconcile_row(driver, capture, build_dir: str) -> dict:
     """reconcile:broker-death against the card: the event-mode daemon at
     the default --probe-timeout, sleep interval 60 s, its broker worker
@@ -4451,6 +4779,7 @@ def _chaos_reconcile_row(driver, capture, build_dir: str) -> dict:
 
     healthcheck.release_probe_memory()
     base_mib = _steady_used_mib()
+    base_used = card_used_bytes()
     hbm.hbm_stream_sum.launches = 0
     seen = {}
 
@@ -4458,10 +4787,12 @@ def _chaos_reconcile_row(driver, capture, build_dir: str) -> dict:
         if stage == "before_kill":
             seen["old_libcuda"] = _maps_libcuda(info["killed_pid"])
             seen["before_kill_mib"] = _steady_used_mib()
+            seen["killed_memory"] = worker_memory_mib(base_used)
             seen["cycles_before_kill"] = len(capture.cycles)
         else:
             seen["new_libcuda"] = _maps_libcuda(info["worker_pid"])
             seen["recovered_mib"] = _steady_used_mib()
+            seen["worker_memory"] = worker_memory_mib(base_used)
             seen["labels"] = _read_labels(info["output_file"])
             seen["cycles_recovered"] = len(capture.cycles)
 
@@ -4495,6 +4826,10 @@ def _chaos_reconcile_row(driver, capture, build_dir: str) -> dict:
            "used_base_mib": base_mib, "used_before_kill_mib": seen["before_kill_mib"],
            "used_recovered_mib": seen["recovered_mib"], "used_after_mib": after_mib,
            "worker_mib": worker_mib,
+           # Each worker's own report, so a new worker above the old one
+           # names the process and the pool that holds the difference.
+           "killed_worker_memory": seen["killed_memory"],
+           "new_worker_memory": seen["worker_memory"],
            "launches": phases.get("hbm_stream_sum_launches"),
            "worker_launches": phases.get("hbm_stream_sum_launches_process"),
            "health_wait_s": CHAOS_HEALTH_WAIT_S}
@@ -4650,10 +4985,17 @@ def phase_golden(entries: dict, smi: str) -> dict:
     return scenarios
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
     import importlib.util
 
     import torch
+
+    parser = argparse.ArgumentParser(description="On-card smoke run of the PyTorch port.")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="numpy seed of the kernels phase's sweep")
+    global SEED
+    SEED = parser.parse_args(argv).seed
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4687,6 +5029,7 @@ def main() -> int:
     phase_busy(entries, info["nvidia_smi"])
     phase_chaos(entries, info["nvidia_smi"])
     phase_golden(entries, info["nvidia_smi"])
+    phase_docs()
     # What serving and recording metrics cost, beside the card.
     emit("metrics", nvidia_smi=info["nvidia_smi"],
          scrape_ms_median=statistics.median(cli["scrape_ms"]),

@@ -28,6 +28,7 @@ it cannot parse the same way, it refuses.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import re
 from typing import Any, List, Optional, Tuple
 
@@ -102,6 +103,10 @@ _NON_PRINTABLE = re.compile(
 )
 
 _EOF = "\0"
+# Collections nested deeper than this are refused, naming their line: the
+# parser recurses per level, and pyyaml itself gives a RecursionError a few
+# hundred levels down.
+MAX_DEPTH = 100
 # A plain scalar cannot start with one of these (pyyaml check_plain).
 _PLAIN_FORBIDDEN_FIRST = "-?:,[]{}#&*!|>'\"%@`"
 _FLOW_INDICATORS = ",[]{}"
@@ -164,6 +169,7 @@ class _Parser:
         self._line_starts = [0] + [i + 1 for i, ch in enumerate(text) if ch == "\n"]
         # A '...' closes the document only after its node has begun.
         self._node_seen = False
+        self._depth = 0
         bad = _NON_PRINTABLE.search(text)
         if bad is not None:
             self.fail(bad.start(), f"character {bad.group()!r} is not allowed")
@@ -274,17 +280,31 @@ class _Parser:
     def _is_entry(self, pos: int) -> bool:
         return self.peek(pos) == "-" and self.peek(pos + 1) in " \n" + _EOF
 
+    @contextlib.contextmanager
+    def _nested(self, pos: int):
+        """One more level of collection nesting, refused past MAX_DEPTH."""
+        if self._depth >= MAX_DEPTH:
+            self.fail(pos, f"collections nested deeper than {MAX_DEPTH} levels")
+        self._depth += 1
+        try:
+            yield
+        finally:
+            self._depth -= 1
+
     def block_node(self, pos: int, col: int, parent: int) -> Tuple[Any, int]:
         """The node starting at ``pos`` (column ``col``) inside the block
         collection at column ``parent`` (-1 at the top): a block sequence,
         a block mapping, or one inline node. Returns (value, start of the
         line after it)."""
         if self._is_entry(pos):
-            return self.block_sequence(pos, col)
-        if self.key(pos) is not None:
-            return self.block_mapping(pos, col)
-        value, end = self.inline(pos, parent + 1)
-        return value, self.line_end(end)
+            collection = self.block_sequence
+        elif self.key(pos) is not None:
+            collection = self.block_mapping
+        else:
+            value, end = self.inline(pos, parent + 1)
+            return value, self.line_end(end)
+        with self._nested(pos):
+            return collection(pos, col)
 
     def block_sequence(self, pos: int, col: int) -> Tuple[list, int]:
         items: List[Any] = []
@@ -329,7 +349,8 @@ class _Parser:
                     value, end = self.block_node(*nxt, col)
                 elif nxt is not None and nxt[1] == col and self._is_entry(nxt[0]):
                     # The indentless sequence: its entries at the key's column.
-                    value, end = self.block_sequence(nxt[0], col)
+                    with self._nested(nxt[0]):
+                        value, end = self.block_sequence(nxt[0], col)
                 else:
                     value = None
             else:
@@ -619,9 +640,10 @@ class _Parser:
         return self.resolve(text, pos), end
 
     def flow_collection(self, pos: int) -> Tuple[Any, int]:
-        if self.peek(pos) == "[":
-            return self._flow_sequence(pos)
-        return self._flow_mapping(pos)
+        with self._nested(pos):
+            if self.peek(pos) == "[":
+                return self._flow_sequence(pos)
+            return self._flow_mapping(pos)
 
     def _flow_sequence(self, pos: int) -> Tuple[list, int]:
         items: List[Any] = []

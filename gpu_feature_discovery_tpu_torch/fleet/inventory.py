@@ -234,7 +234,11 @@ def _load_body(body: bytes) -> Dict[str, Any]:
             f"inventory body {len(body)} bytes exceeds "
             f"{MAX_INVENTORY_BYTES}"
         )
-    doc = json.loads(body.decode("utf-8"))
+    try:
+        doc = json.loads(body.decode("utf-8"))
+    except RecursionError as e:
+        # Nested past the decoder's limit: the twin lets it escape untyped.
+        raise ValueError(f"inventory is not JSON: {e}") from e
     if not isinstance(doc, dict):
         raise ValueError("inventory must be an object")
     if doc.get("schema") != FLEET_SCHEMA_VERSION:

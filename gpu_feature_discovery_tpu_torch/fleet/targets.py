@@ -85,7 +85,7 @@ def parse_targets_file(path: str) -> List[SliceTarget]:
             raw = yaml_subset.safe_load(f.read()) or {}
     except OSError as e:
         raise ConfigError(f"error opening targets file: {e}") from e
-    except yaml_subset.YamlSubsetError as e:
+    except (UnicodeDecodeError, yaml_subset.YamlSubsetError) as e:
         raise ConfigError(f"targets unmarshal error: {e}") from e
     if not isinstance(raw, dict):
         raise ConfigError(

@@ -478,7 +478,11 @@ def _make_handler(
                 name = str(doc["name"])
                 generation = int(doc.get("generation", 0))
                 etag = str(doc.get("etag", ""))
-            except (ValueError, KeyError, UnicodeDecodeError):
+            except (ValueError, KeyError, TypeError, AttributeError, OverflowError,
+                    RecursionError):
+                # Anything but an object with a name and an integral
+                # generation is the sender's error (the twin answers a
+                # 500 for the JSON that is not such an object).
                 metrics.NOTIFY_RECEIVED.labels(outcome="invalid").inc()
                 self._reply(400, b"invalid notify body\n")
                 return

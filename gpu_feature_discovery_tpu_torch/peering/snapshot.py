@@ -211,7 +211,9 @@ def parse_snapshot(body: bytes) -> Dict[str, Any]:
         )
     try:
         doc = json.loads(body.decode("utf-8"))
-    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+    except (UnicodeDecodeError, json.JSONDecodeError, RecursionError) as e:
+        # RecursionError: nested past the decoder's limit (the twin lets
+        # it escape untyped).
         raise PeerSnapshotError(f"snapshot is not JSON: {e}") from e
     if not isinstance(doc, dict):
         raise PeerSnapshotError(

@@ -67,6 +67,7 @@ import logging
 import os
 import select
 import signal
+import sys
 import tempfile
 import threading
 import time
@@ -190,6 +191,19 @@ class _FrameReader:
             self._buf += chunk
 
 
+def _load_doc(frame: bytes) -> dict:
+    """A frame's JSON object; ValueError for anything else. JSON that is
+    not an object, or nested past the decoder's limit, is garbage like a
+    broken frame (the twin lets both escape untyped, the worker up)."""
+    try:
+        doc = json.loads(frame.decode())
+    except RecursionError as e:
+        raise ValueError(f"frame nested too deeply: {e}") from e
+    if not isinstance(doc, dict):
+        raise ValueError(f"frame is a {type(doc).__name__}, not an object")
+    return doc
+
+
 # ---------------------------------------------------------------------------
 # the worker (child) side
 # ---------------------------------------------------------------------------
@@ -253,6 +267,9 @@ class _HealthProbe:
         # The pre-warm's ms: it paid first use, so the probes after it
         # report compile_ms 0. Shipped once, with the first ok outcome.
         self.prewarm_ms: Optional[float] = None
+        # Each CUDA device's used bytes (total - free) as the pre-warm
+        # first saw this worker's context, before its first allocation.
+        self.context_used: Optional[list] = None
 
     def _run(self, devices, opts: dict) -> None:
         from gpu_feature_discovery_tpu_torch.ops.healthcheck import (
@@ -343,6 +360,7 @@ def _child_prewarm(health_probe: _HealthProbe, per_chip: bool = True,
 
         with health_probe._chip_lock:
             try:
+                health_probe.context_used = _context_used(devices)
                 warm_ms = warm_probe_kernels_for(tuple(devices), per_chip=per_chip)
             except Exception as e:  # noqa: BLE001 - the device may be busy
                 if not is_busy_error(e):
@@ -355,6 +373,33 @@ def _child_prewarm(health_probe: _HealthProbe, per_chip: bool = True,
         log.info("broker worker pre-warmed probe kernels in %.0f ms", warm_ms)
     except Exception:  # noqa: BLE001 - warm-start is best-effort
         log.debug("broker kernel pre-warm failed:", exc_info=True)
+
+
+def _context_used(devices) -> list:
+    """Each CUDA device's used bytes (total - free) once this process has
+    its context there: the card's other processes plus this context."""
+    import torch
+
+    used = []
+    for device in devices:
+        if device.type == "cuda":
+            free, total = torch.cuda.mem_get_info(device)
+            used.append(total - free)
+    return used
+
+
+def _worker_memory(health_probe: "_HealthProbe") -> dict:
+    """The ``memory`` op: this worker's pid, the device memory its
+    context's first sight found used, and per CUDA device the caching
+    allocator's reserve and allocation. Never initialises CUDA."""
+    torch = sys.modules.get("torch")
+    devices = []
+    if torch is not None and torch.cuda.is_initialized():
+        devices = [{"index": i, "reserved_bytes": torch.cuda.memory_reserved(i),
+                    "allocated_bytes": torch.cuda.memory_allocated(i)}
+                   for i in range(torch.cuda.device_count())]
+    return {"pid": os.getpid(), "context_used_bytes": health_probe.context_used,
+            "devices": devices}
 
 
 def _classic_devices(manager):
@@ -455,6 +500,8 @@ def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"",
                 }
             elif op == "health" and gpu_worker:
                 resp = health_probe.request(req)
+            elif op == "memory":
+                resp = {"status": "ok", "memory": _worker_memory(health_probe)}
             elif op == "shutdown":
                 try:
                     _write_frame(resp_w, {"status": "ok"})
@@ -662,7 +709,7 @@ class BrokerClient:
                 + (f"; worker stderr tail:\n{tail}" if tail else "")
             )
         try:
-            doc = json.loads(frame.decode())
+            doc = _load_doc(frame)
         except ValueError:
             probe.kill_if_live(pid)
             self._reap(pid)
@@ -899,7 +946,7 @@ class BrokerClient:
                         + (f"; worker stderr tail:\n{tail}" if tail else "")
                     )
                 try:
-                    doc = json.loads(frame.decode())
+                    doc = _load_doc(frame)
                 except ValueError:
                     probe.kill_if_live(pid)
                     self._reap(pid)
@@ -953,6 +1000,10 @@ class BrokerClient:
 
     def ping(self) -> bool:
         return self.request("ping").get("status") == "ok"
+
+    def memory(self) -> dict:
+        """The worker's own memory report (``_worker_memory``)."""
+        return self.request("memory").get("memory") or {}
 
     def kill_child(self) -> None:
         """The engine's cancel→kill hook (LabelSource.cancel): SIGKILL the

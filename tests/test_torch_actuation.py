@@ -733,6 +733,14 @@ def _file_labels(path):
         return {}
 
 
+def _state_labels(state_dir):
+    """The labels of a daemon's ``--state-dir`` document, or {}."""
+    try:
+        return json.loads((state_dir / "last-good-labels.json").read_text())["labels"]
+    except (OSError, ValueError, KeyError):
+        return {}
+
+
 def test_cli_daemons_advise_and_a_restart_after_the_lease_restores_none(tmp_path):
     """Worker 1's card verdict (``chip.0.sick``, its one probe) becomes
     advice two cycles on, never rides its snapshot; killed, and restarted
@@ -742,7 +750,9 @@ def test_cli_daemons_advise_and_a_restart_after_the_lease_restores_none(tmp_path
     logged its server on its port (another test may hold the port while it
     is free: the kill to the restart's bind), and the lease waited out is
     the dead process's last one, read after the kill (a renewal may land
-    between a read before it and the kill, and the state holds it)."""
+    between a read before it and the kill, and the state holds it). The
+    kill waits until the state holds the advice: the advice reaches the
+    label file a moment before the state file."""
     import subprocess
     import sys
     from pathlib import Path
@@ -806,6 +816,11 @@ def test_cli_daemons_advise_and_a_restart_after_the_lease_restores_none(tmp_path
         code, _, body = _request(ports[1], "/peer/snapshot", {"X-TFD-Probe-Token": "tok"})
         doc = json.loads(body)
         assert code == 200 and not advice_present(doc["labels"]) and doc["chips"]["sick"] == 1
+        # A cycle writes its label file before it saves its state, in both
+        # packages: killed in between, the state is a cycle behind and holds
+        # no advice to drop, so the restart counts no lease-lapsed.
+        wait(lambda: advice_present(_state_labels(tmp_path / "state1")),
+             "worker 1's state to hold its advice")
         w1.kill()
         w1.wait(timeout=30)
         last = _file_labels(outs[1])

@@ -666,3 +666,23 @@ def test_worker_report_is_plain_json_with_launch_counts(burnin_worker):
     assert phases["hbm_stream_sum_launches_process"] == 0
     assert outcome["report"]["chips"] == 8
     json.dumps(outcome)
+
+
+def test_worker_memory_report_names_the_worker_and_touches_no_cuda(burnin_worker):
+    """The ``memory`` op: the worker's own pid; on CPU devices the
+    pre-warm found no CUDA context to read and torch never initialised
+    CUDA, so no device rows."""
+    config, client = burnin_worker
+    deadline = time.monotonic() + 60
+    while client.health(per_chip=True)["status"] == "warming" and time.monotonic() < deadline:
+        pass
+    report = client.memory()
+    assert report["pid"] == client.pid != os.getpid()
+    assert report["context_used_bytes"] == [] and report["devices"] == []
+    json.dumps(report)
+
+
+def test_worker_memory_report_without_burnin_has_no_context_reading(tmp_path):
+    with _Client(cfg(tmp_path)) as client:
+        report = client.memory()
+        assert report == {"pid": client.pid, "context_used_bytes": None, "devices": []}

@@ -6,6 +6,8 @@ On the CPU the port's wrapper runs its plain version; the CUDA kernel is
 held against the same plain version on the card (tests/test_torch_cuda.py
 and chip_smoke.py)."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -147,3 +149,58 @@ def test_tile_pattern_sum_is_exact_and_catches_tile_slips(chunks):
     chunk_slipped = chunk_pattern.clone()
     chunk_slipped[:tile] = chunk_pattern[4 * tile:5 * tile]
     assert float(hbm.hbm_stream_sum(chunk_slipped)[0, 0]) == hbm.expected_stream_sum(rows)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's seeded sweep, rehearsed on the CPU with the plain version
+# ---------------------------------------------------------------------------
+
+def test_sweep_draws_cover_every_required_geometry():
+    import chip_smoke
+
+    draws = chip_smoke.hbm_sweep_draws(0, 132)
+    assert draws == chip_smoke.hbm_sweep_draws(0, 132)  # seeded
+    assert len(draws) == chip_smoke.SWEEP_DRAWS >= 200
+    chunks = [d["chunks"] for d in draws]
+    sms = [d["sms"] for d in draws]
+    assert (min(chunks), max(chunks), min(sms), max(sms)) == (1, 2048, 1, 132)
+    assert 1024 in chunks
+    tiles = hbm.CHUNK_ROWS // hbm.TILE_ROWS
+    assert any(d["chunks"] * tiles < d["sms"] for d in draws)  # fewer tiles than blocks
+    assert any(k % chip_smoke.SWEEP_RING for k in chunks)
+    assert {d["kind"] for d in draws} == set(chip_smoke.SWEEP_KINDS)
+    for d in draws:
+        assert 1 <= d["chunks"] <= 2048 and 1 <= d["sms"] <= 132
+        if d["kind"].endswith("-slip"):
+            period = 7 if d["kind"].startswith("chunk") else 13
+            assert d["src"] % period != d["dst"] % period
+
+
+def test_sweep_holds_the_plain_version_and_catches_a_misreading_kernel():
+    """The sweep's checks on the CPU: the plain version passes every small
+    draw, and a 'kernel' that skips the first chunk fails it."""
+    import chip_smoke
+
+    draws = [d for d in chip_smoke.hbm_sweep_draws(0, 132) if d["chunks"] <= 4]
+    summary = chip_smoke.run_hbm_sweep(draws, "cpu", lambda buf, sms: hbm.hbm_stream_sum(buf))
+    assert summary["draws"] == len(draws)
+    assert summary["slips_detected"] == sum("dst" in d for d in draws)
+
+    def skips_chunk_0(buf, sms):
+        return hbm.hbm_stream_sum_reference(buf[hbm.CHUNK_ROWS:] if buf.shape[0] > hbm.CHUNK_ROWS
+                                            else buf)
+
+    wide = [d for d in draws if d["chunks"] > 1 and d["kind"] in ("chunk", "random")]
+    with pytest.raises(SystemExit, match="sweep"):
+        chip_smoke.run_hbm_sweep(wide, "cpu", skips_chunk_0)
+
+
+@pytest.mark.parametrize("case", ["non_contiguous", "float64", "rows_not_whole_chunks"])
+def test_sweep_rejections_raise_before_any_launch(case):
+    """The refusals the card checks (its misaligned view needs a CUDA
+    buffer: on the CPU the plain version takes it)."""
+    import chip_smoke
+
+    buf, text = chip_smoke.hbm_rejections("cpu")[case]
+    with pytest.raises(ValueError, match=re.escape(text)):
+        hbm.hbm_stream_sum(buf)

@@ -14,8 +14,12 @@ broker's health wait raised to 25 s), SIGKILLs its broker worker once it
 served, and waits for the fresh full labels of the ``worker_died`` wake.
 The card's steady ``memory.used`` is read before the row, with the old
 worker just before the kill, with the new one at the recovery and 3 s
-later, and after SIGTERM. The phase checks the new worker against the
-old within 16 MiB; this tool repeats the row to see how often that holds.
+later, and after SIGTERM; each worker reports its own memory (the
+broker's ``memory`` op: the caching allocator's reserve and allocation,
+and its context's share of the card before its first allocation). The
+phase checks the new worker against the old within 16 MiB; this tool
+repeats the row to see how often that holds, and which process and pool
+hold a difference.
 
 Prints one JSON line per repetition, then the card's name and power
 limit (nvidia-smi).
@@ -66,12 +70,15 @@ def main() -> int:
         healthcheck.release_probe_memory()
         hbm.hbm_stream_sum.launches = 0
         row = {"repetition": i, "base_mib": smoke._steady_used_mib()}
+        base_used = smoke.card_used_bytes()
 
-        def observe(stage, info, row=row):
+        def observe(stage, info, row=row, base_used=base_used):
             if stage == "before_kill":
                 row["before_kill_mib"] = smoke._steady_used_mib()
+                row["killed_worker_memory"] = smoke.worker_memory_mib(base_used)
             else:
                 row["recovered_mib"] = smoke._steady_used_mib()
+                row["new_worker_memory"] = smoke.worker_memory_mib(base_used)
                 row["killed_gone"] = smoke._gone(info["killed_pid"])
                 time.sleep(3.0)
                 row["recovered_3s_mib"] = smoke._steady_used_mib()
