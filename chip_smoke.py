@@ -60,7 +60,18 @@ Phases, each printing one JSON line:
                   (one ``daemon_cycle`` line per cycle), its /metrics
                   scraped (``tfd_broker_up`` 0, ``tfd_chip_*`` from the
                   in-process probe), SIGHUP and SIGTERM through its signal
-                  queue; then the real CLI as a subprocess at its
+                  queue; a ``methodology`` line from three fresh probes'
+                  oneshots in this process: the published
+                  ``health.matmul-tflops`` and ``health.hbm-gbps`` are the
+                  2048 x 4 burn-in's flops and the 256 MiB stream's bytes
+                  over the report's own median device ms (within the ms'
+                  printed rounding), ``health.timing=device-profiler``;
+                  ``--chip-probes=false`` publishes the same keys less the
+                  per-device family, with the same verdicts; a provider
+                  registered through ``registry.register`` (the CUDA
+                  manager under ``smoke-gpu``) is listed after the in-tree
+                  ones and publishes ``gpu``'s keys and verdicts with 1 + 3
+                  launches; then the real CLI as a subprocess at its
                   defaults, so through the broker worker, with real
                   signals (``daemon_cli``), its introspection server
                   scraped over HTTP (promtool_lite, the broker, chip,
@@ -1488,7 +1499,118 @@ def _has_health(labels: dict) -> bool:
     )
 
 
-def phase_daemon(entries: dict, count: int) -> dict:
+# The registry seam on the card: a provider an embedder registers, the
+# port's CUDA manager under a token of its own.
+REGISTERED_TOKEN = "smoke-gpu"
+# Labels of the per-device family, which --chip-probes=false drops.
+PER_DEVICE_KEY = re.compile(
+    r"^nvidia\.com/gpu\.(chip\.\d+\.|chips\.|straggler-chip$|health\.ici\.allreduce-gbps$)")
+VERDICT_KEYS = ("nvidia.com/gpu.health.ok", "nvidia.com/gpu.health.timing",
+                "nvidia.com/gpu.health.ici.ok")
+
+
+def build_registered_gpu(config, token):
+    """The registered provider's build: the port's CUDA manager."""
+    from gpu_feature_discovery_tpu_torch.resource.cuda_backend import CudaManager
+
+    return CudaManager()
+
+
+def _probed_oneshot(*args: str) -> tuple:
+    """A fresh probe's oneshot in this process (the probe caches dropped,
+    so it pays its warm-up as a fresh process would): its labels, the
+    report's phases and its hbm_stream_sum launches."""
+    from gpu_feature_discovery_tpu_torch.ops import hbm, healthcheck
+
+    healthcheck.reset_probe_workspaces()
+    capture = _PhaseCapture()
+    lm_log = logging.getLogger("tfd.lm")
+    lm_log.setLevel(logging.DEBUG)
+    lm_log.addHandler(capture)
+    hbm.hbm_stream_sum.launches = 0
+    try:
+        labels = _grammar_checked(_oneshot_labels("--with-burnin", *args), f"oneshot {args}")
+    finally:
+        lm_log.removeHandler(capture)
+    return labels, capture.phases, hbm.hbm_stream_sum.launches
+
+
+def _rate_range(work: float, device_ms: float, unit: float) -> tuple:
+    """The integer labels a rate can print, given its device ms as the
+    report prints it (6 decimals): work over the ms at both ends of its
+    rounding half-unit."""
+    lo_ms, hi_ms = device_ms - 0.5e-6, device_ms + 0.5e-6
+    return int(work / (hi_ms / 1e3) / unit), int(work / (lo_ms / 1e3) / unit)
+
+
+def phase_methodology(entries: dict, count: int, smi: str) -> dict:
+    """The twin's unit-tier pins held on the card: (a) the published rates
+    are the probe's bytes and flops over its median device times, (b)
+    --chip-probes=false publishes the aggregate labels, (c) a provider
+    registered through ``registry.register`` publishes what ``gpu`` does,
+    with 1 + 3 launches."""
+    from gpu_feature_discovery_tpu_torch.ops import healthcheck
+    from gpu_feature_discovery_tpu_torch.ops.hbm import LANES, probe_rows
+    from gpu_feature_discovery_tpu_torch.resource import registry
+
+    t0 = time.perf_counter()
+    on, phases, on_launches = _probed_oneshot("--backends", "gpu")
+    # (a) the probe's 2048 x 4 geometry and its 256 MiB stream.
+    flops = healthcheck.burnin_flops(healthcheck.CUDA_PROBE_SIZE, healthcheck.CUDA_PROBE_DEPTH)
+    nbytes = probe_rows(healthcheck.PROBE_HBM_MIB) * LANES * 4
+    check(on.get("nvidia.com/gpu.health.timing") == "device-profiler",
+          f"health.timing {on.get('nvidia.com/gpu.health.timing')!r}")
+    rates = {}
+    for key, work, ms_key, unit in (
+            ("nvidia.com/gpu.health.matmul-tflops", flops, "burnin_device_ms", 1e12),
+            ("nvidia.com/gpu.health.hbm-gbps", nbytes, "hbm_device_ms", 2**30)):
+        lo, hi = _rate_range(work, phases[ms_key], unit)
+        label = int(on.get(key, "-1"))
+        rates[key] = {"label": label, "device_ms": phases[ms_key],
+                      "recomputed": work / (phases[ms_key] / 1e3) / unit}
+        check(lo <= label <= hi,
+              f"{key}={label} is not {work} over {phases[ms_key]} ms ({lo}..{hi})")
+    check(on_launches == healthcheck.PROBE_HBM_ITERS + 1,
+          f"the chip-probes oneshot launched {on_launches}")
+    # (b) the aggregate labels with the per-device family off.
+    off, _, off_launches = _probed_oneshot("--backends", "gpu", "--chip-probes=false")
+    per_device = sorted(k for k in on if PER_DEVICE_KEY.match(k))
+    check(sorted(off) == sorted(set(on) - set(per_device)),
+          f"chip probes off: keys {sorted(set(off) ^ (set(on) - set(per_device)))} differ")
+    check(all(off.get(k) == on.get(k) for k in VERDICT_KEYS),
+          f"chip probes off: verdicts {[(k, on.get(k), off.get(k)) for k in VERDICT_KEYS]}")
+    # (c) the registry seam: a provider registered before run().
+    in_tree = [p.name for p in registry.providers()]
+    registry.register(registry.BackendProvider(REGISTERED_TOKEN, registry.FAMILY_GPU,
+                                               build_registered_gpu))
+    try:
+        listed = [p.name for p in registry.providers()]
+        check(listed == in_tree + [REGISTERED_TOKEN], f"providers() lists {listed}")
+        registered, _, registered_launches = _probed_oneshot("--backends", REGISTERED_TOKEN)
+    finally:
+        registry._PROVIDERS.pop(REGISTERED_TOKEN, None)
+    check(sorted(registered) == sorted(on),
+          f"registered provider: keys {sorted(set(registered) ^ set(on))} differ from gpu's")
+    verdicts = [k for k in on if k in VERDICT_KEYS or k.endswith(".ok")
+                or k.startswith("nvidia.com/gpu.chips.")]
+    check(all(registered[k] == on[k] for k in verdicts),
+          f"registered provider: verdicts {[(k, on[k], registered[k]) for k in verdicts]}")
+    check(registered_launches == healthcheck.PROBE_HBM_ITERS + 1,
+          f"registered provider's oneshot launched {registered_launches}")
+    seconds = time.perf_counter() - t0
+    entries["hbm_stream_sum"]["methodology_launches"] = [on_launches, off_launches,
+                                                         registered_launches]
+    out = {"nvidia_smi": smi, "rates": rates, "phases": phases,
+           "per_device_keys_off": len(per_device), "keys_on": len(on), "keys_off": len(off),
+           "registered_token": REGISTERED_TOKEN, "providers": listed,
+           "launches": {"on": on_launches, "off": off_launches,
+                        "registered": registered_launches},
+           "seconds": seconds}
+    emit("methodology", **out)
+    return out
+
+
+def phase_daemon(entries: dict, count: int, smi: str) -> dict:
     """(a) ``run()`` in process, (b) the CLI as a subprocess; returns the
     CLI's figures with the in-process daemon's steady cycle times."""
     import queue
@@ -1651,6 +1773,7 @@ def phase_daemon(entries: dict, count: int) -> dict:
          launches_per_probing_cycle=per_probe, memory_bytes=memory,
          chip_ok=[scraped.get(("tfd_chip_ok", f'{{chip="{i}"}}')) for i in range(count)],
          first_probe_compile_s=scraped[("tfd_first_probe_compile_seconds", "")])
+    phase_methodology(entries, count, smi)
     cli = phase_daemon_cli(count)
     # Steady cycles: the probing ones after the first (which pays first
     # use) and the cached ones.
@@ -5011,7 +5134,7 @@ def main(argv=None) -> int:
     phase_collectives(info["count"])
     phase_main_path(entries, info["count"])
     facts = phase_host_facts(info["count"])
-    cli = phase_daemon(entries, info["count"])
+    cli = phase_daemon(entries, info["count"], info["nvidia_smi"])
     # NVML's cost in a fresh process against the first acquisition of a
     # fresh CLI (the broker worker's spawn) and its first full write, for
     # the first-write item of the roadmap.

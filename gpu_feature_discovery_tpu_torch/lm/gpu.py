@@ -21,7 +21,7 @@ from typing import List
 from gpu_feature_discovery_tpu_torch.config.spec import Config
 from gpu_feature_discovery_tpu_torch.lm.engine import LabelSource
 from gpu_feature_discovery_tpu_torch.lm.health import cancel_mig_round, new_health_labeler
-from gpu_feature_discovery_tpu_torch.lm.labeler import Merge
+from gpu_feature_discovery_tpu_torch.lm.labeler import Empty, Labeler, Merge
 from gpu_feature_discovery_tpu_torch.lm.labels import Labels
 from gpu_feature_discovery_tpu_torch.lm.machine_type import new_machine_type_labeler
 from gpu_feature_discovery_tpu_torch.lm.pjrt_family import family_guard
@@ -89,3 +89,24 @@ def gpu_label_sources(manager: Manager, config: Config) -> List[LabelSource]:
             cancel=health_cancel,
         ),
     ]
+
+
+def new_gpu_labeler(manager: Manager, config: Config) -> Labeler:
+    """Eager sequential composition of the sources (twin:
+    ``new_tpu_labeler``; the --parallel-labelers=false semantics): every
+    probe happens here, inside init/shutdown, and the returned labeler is
+    a static label map."""
+    with timed("gpu.init"):
+        manager.init()
+    try:
+        sources = gpu_label_sources(manager, config)
+        if not sources:
+            return Empty()
+        merged = Labels()
+        for src in sources:
+            with timed(f"labeler.{src.name}"):
+                merged.update(src.run())
+        return merged
+    finally:
+        with timed("gpu.shutdown"):
+            manager.shutdown()

@@ -1,5 +1,10 @@
 """Labeler composition root (twin: ``gpu_feature_discovery_tpu/lm/labelers.py``).
 
+``new_labelers`` is the reference's eager Merge of the device-backed
+labeler and the interconnect (embedders, tests, the sequential
+semantics); the engine's lists below hold the same labelers in the same
+merge order, so both surfaces give one label map.
+
 ``new_label_sources`` lists every source of one cycle in merge order:
 timestamp, the device-backed sources (machine-type, device, health; none
 without GPUs), then the host interconnect, which merges last.
@@ -25,11 +30,18 @@ from typing import List, Optional, Tuple
 
 from gpu_feature_discovery_tpu_torch.config.spec import Config
 from gpu_feature_discovery_tpu_torch.lm.engine import LabelSource
-from gpu_feature_discovery_tpu_torch.lm.gpu import gpu_label_sources
-from gpu_feature_discovery_tpu_torch.lm.labeler import Empty, Labeler
+from gpu_feature_discovery_tpu_torch.lm.gpu import gpu_label_sources, new_gpu_labeler
+from gpu_feature_discovery_tpu_torch.lm.labeler import Empty, Labeler, Merge
 from gpu_feature_discovery_tpu_torch.lm.machine_type import new_machine_type_labeler
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
 from gpu_feature_discovery_tpu_torch.utils.timing import timed
+
+
+def new_labelers(
+    manager: Manager, interconnect: Optional[Labeler], config: Config
+) -> Labeler:
+    gpu_labeler = new_gpu_labeler(manager, config)
+    return Merge(gpu_labeler, interconnect if interconnect is not None else Empty())
 
 
 def new_label_sources(

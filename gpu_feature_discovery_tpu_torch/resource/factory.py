@@ -53,7 +53,7 @@ from typing import Optional, Tuple
 
 from gpu_feature_discovery_tpu_torch.config.spec import Config, ConfigError
 from gpu_feature_discovery_tpu_torch.native import nvml
-from gpu_feature_discovery_tpu_torch.pci.pciutil import PCIError, SysfsNvidiaPCI
+from gpu_feature_discovery_tpu_torch.pci.pciutil import SysfsNvidiaPCI
 from gpu_feature_discovery_tpu_torch.resource.cuda_backend import CudaManager
 from gpu_feature_discovery_tpu_torch.resource.fallback import FallbackToNullOnInitError
 from gpu_feature_discovery_tpu_torch.resource import registry
@@ -67,7 +67,7 @@ BACKEND_ENV = registry.BACKEND_ENV
 
 
 def _gpu_token(config: Config) -> Optional[str]:
-    for token in registry.parse_backends_value(config.flags.tfd.backends or "auto"):
+    for token in registry.parse_backends_value(registry.resolved_backends_value(config)):
         if registry.provider_for(token).family == registry.FAMILY_GPU:
             return token
     return None
@@ -185,7 +185,10 @@ def detect_gpu_platform() -> Tuple[bool, str]:
     try:
         if SysfsNvidiaPCI().devices():
             return True, "NVIDIA display functions present on /sys/bus/pci"
-    except PCIError as e:  # no sysfs is a non-GPU signal
+    except Exception as e:  # noqa: BLE001 - a missing or broken sysfs is a non-GPU signal
+        # As in the twin: any scan error (no sysfs, a vendor file that is
+        # not text) reads as no GPU, and lands in the debug log so a
+        # mislabeled node can be diagnosed.
         log.debug("GPU PCI platform probe unavailable: %s", e)
     return False, "no NVML, no NVIDIA display functions on the PCI bus"
 

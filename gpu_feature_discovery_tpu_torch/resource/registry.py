@@ -17,6 +17,9 @@ have no counterpart and are unknown tokens here: there is no JAX and no
 libtpu on a CUDA node, and the GPU counterpart of ``hostinfo`` waits for
 its own slice (ROADMAP.md queue 1, item 9).
 
+An embedder adds its own provider with :func:`register` before the daemon
+starts; :func:`providers` lists every provider in registration order.
+
 :func:`multi_backend_tokens` resolves what the daemon runs. ``TFD_BACKEND``
 (the forced override) wins and keeps the classic single-manager path, as
 in the twin. So does a list that names the gpu family alone: the twin's
@@ -62,8 +65,30 @@ class BackendProvider:
     family: str
     build: Callable[[Config, str], Manager]  # (config, full token) -> Manager
     prefix: bool = False
+    doc: str = ""
     # Parse-time validation (ConfigError), so a typo fails at config load.
     validate: Optional[Callable[[str], None]] = None
+
+
+# Ordered: iteration order is documentation order (docs/torch/
+# configuration.md has a row per provider), and prefix providers are
+# tried in registration order, so a longer prefix is registered before a
+# shorter one that would shadow it.
+_PROVIDERS: Dict[str, BackendProvider] = {}
+
+
+def register(provider: BackendProvider) -> None:
+    """Add (or replace) a provider. Embedders may register their own
+    backends before the daemon starts; in-tree providers register at
+    import time below. A probe child or broker worker is a fresh
+    interpreter, where the twin's forked child inherits the registry: it
+    gets every provider registered since import whose ``build`` (and
+    ``validate``) it can import by name (``child_provider_docs``)."""
+    _PROVIDERS[provider.name] = provider
+
+
+def providers() -> List[BackendProvider]:
+    return list(_PROVIDERS.values())
 
 
 def provider_for(token: str) -> Optional[BackendProvider]:
@@ -174,7 +199,7 @@ def _build_mock_cpu(config: Config, token: str) -> Manager:
     return StaticCpuManager.mock_cpu(count)
 
 
-_PROVIDERS: Dict[str, BackendProvider] = {p.name: p for p in (
+for _provider in (
     # The gpu family: the classic device list.
     BackendProvider("auto", FAMILY_GPU, _build_auto),
     BackendProvider("gpu", FAMILY_GPU, _build_gpu),
@@ -188,7 +213,53 @@ _PROVIDERS: Dict[str, BackendProvider] = {p.name: p for p in (
     BackendProvider("cpu", FAMILY_CPU, _build_cpu),
     BackendProvider("mock-cpu", FAMILY_CPU, _build_mock_cpu, prefix=True,
                     validate=lambda token: _mock_count(token) and None),
-)}
+):
+    register(_provider)
+# What a fresh interpreter registers on its own import.
+_IN_TREE = dict(_PROVIDERS)
+
+
+
+def child_provider_docs() -> List[dict]:
+    """The providers registered since import, as a probe child or broker
+    worker re-registers them (``install_provider_docs``): those whose
+    ``build`` and ``validate`` are importable by ``module:qualname``.
+    One that is not stays unknown in the child, which then reports the
+    unknown backend."""
+    from gpu_feature_discovery_tpu_torch.sandbox.probe import callable_target
+
+    docs = []
+    for p in _PROVIDERS.values():
+        if _IN_TREE.get(p.name) is p:
+            continue
+        try:
+            build = callable_target(p.build)
+            validate = None if p.validate is None else callable_target(p.validate)
+        except TypeError:
+            log.debug("provider %r is not importable by name; a child cannot build it", p.name)
+            continue
+        docs.append({"name": p.name, "family": p.family, "build": build,
+                     "prefix": p.prefix, "doc": p.doc, "validate": validate})
+    return docs
+
+
+def install_provider_docs(docs: List[dict]) -> None:
+    """Register, in a child, what ``child_provider_docs`` sent."""
+    import importlib
+
+    def resolve(target):
+        if target is None:
+            return None
+        module, _, qualname = target.partition(":")
+        fn = importlib.import_module(module)
+        for part in qualname.split("."):
+            fn = getattr(fn, part)
+        return fn
+
+    for d in docs:
+        register(BackendProvider(d["name"], d["family"], resolve(d["build"]),
+                                 prefix=d["prefix"], doc=d["doc"],
+                                 validate=resolve(d["validate"])))
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +323,12 @@ def parse_backends_value(raw: str) -> List[str]:
     return tokens
 
 
+def resolved_backends_value(config: Config) -> str:
+    """The ``--backends`` value after CLI > env > file precedence, ``auto``
+    when unset."""
+    return config.flags.tfd.backends or "auto"
+
+
 def multi_backend_tokens(
     config: Config, environ: Optional[Dict[str, str]] = None
 ) -> Optional[List[str]]:
@@ -261,7 +338,7 @@ def multi_backend_tokens(
     env = environ if environ is not None else os.environ
     if env.get(BACKEND_ENV, "").strip():
         return None
-    tokens = parse_backends_value(config.flags.tfd.backends or "auto")
+    tokens = parse_backends_value(resolved_backends_value(config))
     if len(tokens) == 1 and provider_for(tokens[0]).family == FAMILY_GPU:
         return None
     return tokens

@@ -442,6 +442,9 @@ LAYOUTS: Dict[str, List[FakeGpu]] = {
     "empty": _h100s([], ["7g.80gb"]),
     # One GPU in MIG mode, one not.
     "half": _h100s(["7g.80gb"], None),
+    # An A100 80GB, MIG capable and disabled: another generation's row.
+    "a100": [FakeGpu(name="NVIDIA A100-SXM4-80GB", memory_total_bytes=81920 * 2**20,
+                     bus_id="00000000:07:00.0", compute_capability=(8, 0))],
     # A GPU without MIG support (GetMigMode answers NOT_SUPPORTED).
     "no-mig": [FakeGpu(name="NVIDIA L4", memory_total_bytes=23034 * 2**20,
                        bus_id="00000000:3B:00.0", compute_capability=(8, 9),

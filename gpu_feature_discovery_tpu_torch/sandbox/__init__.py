@@ -20,67 +20,58 @@ processes:
 - ``state``    — persisted last-good labels (``--state-dir``).
 - ``flap``     — anti-flap hysteresis (``--flap-window``).
 
-The twin's ``SandboxedCall`` (a generic killable callable for engine
-sources) has no counterpart: a fresh interpreter cannot run a closure,
-and no source of this port needs it; the broker-routed health source
-cancels through ``BrokerClient.kill_child``.
+``SandboxedCall`` (``probe``) runs an importable callable in a probe
+child and SIGKILLs it on ``cancel()``: the seam behind
+``LabelSource.cancel`` for a source whose blocking work runs there.
+
+The names below resolve on first use (PEP 562): a probe child imports
+``sandbox.worker_main`` and must not pay for the broker it never runs.
 """
 
-from gpu_feature_discovery_tpu_torch.sandbox.broker import (
-    BrokerClient,
-    BrokerCrash,
-    BrokerError,
-    BrokerManager,
-    BrokerTimeout,
-    acquire_broker_manager,
-    broker_enabled,
-    broker_mode,
-    close_broker,
-    get_broker,
-    prespawn_broker,
-    set_broker_death_watch,
-)
-from gpu_feature_discovery_tpu_torch.sandbox.flap import FLAPPING_LABEL, FlapDamper
-from gpu_feature_discovery_tpu_torch.sandbox.probe import (
-    ProbeCrash,
-    ProbeError,
-    ProbeTimeout,
-    acquire_snapshot_manager,
-    isolation_mode,
-    kill_stray_children,
-    probe_device_snapshot,
-    run_probe,
-)
-from gpu_feature_discovery_tpu_torch.sandbox.snapshot import (
-    DeviceSnapshot,
-    SnapshotManager,
-)
-from gpu_feature_discovery_tpu_torch.sandbox.state import LabelStateStore
+import importlib
 
-__all__ = [
-    "BrokerClient",
-    "BrokerCrash",
-    "BrokerError",
-    "BrokerManager",
-    "BrokerTimeout",
-    "acquire_broker_manager",
-    "broker_enabled",
-    "broker_mode",
-    "close_broker",
-    "get_broker",
-    "prespawn_broker",
-    "set_broker_death_watch",
-    "FLAPPING_LABEL",
-    "FlapDamper",
-    "ProbeCrash",
-    "ProbeError",
-    "ProbeTimeout",
-    "acquire_snapshot_manager",
-    "isolation_mode",
-    "kill_stray_children",
-    "probe_device_snapshot",
-    "run_probe",
-    "DeviceSnapshot",
-    "SnapshotManager",
-    "LabelStateStore",
-]
+_EXPORTS = {
+    "broker": (
+        "BrokerClient",
+        "BrokerCrash",
+        "BrokerError",
+        "BrokerManager",
+        "BrokerTimeout",
+        "acquire_broker_manager",
+        "broker_enabled",
+        "broker_mode",
+        "close_broker",
+        "get_broker",
+        "prespawn_broker",
+        "set_broker_death_watch",
+    ),
+    "flap": ("FLAPPING_LABEL", "FlapDamper"),
+    "probe": (
+        "ProbeCrash",
+        "ProbeError",
+        "ProbeTimeout",
+        "SandboxedCall",
+        "acquire_snapshot_manager",
+        "isolation_mode",
+        "kill_stray_children",
+        "probe_device_snapshot",
+        "run_probe",
+    ),
+    "snapshot": ("DeviceSnapshot", "SnapshotManager"),
+    "state": ("LabelStateStore",),
+}
+_HOME = {name: module for module, names in _EXPORTS.items() for name in names}
+
+__all__ = list(_HOME)
+
+
+def __getattr__(name):
+    if name not in _HOME:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = globals()[name] = getattr(
+        importlib.import_module(f"{__name__}.{_HOME[name]}"), name)
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_HOME))

@@ -71,17 +71,20 @@ import sys
 import tempfile
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 from gpu_feature_discovery_tpu_torch.config.spec import config_to_dict
 from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
+from gpu_feature_discovery_tpu_torch.resource import registry
 from gpu_feature_discovery_tpu_torch.resource.types import Manager, ResourceError
 from gpu_feature_discovery_tpu_torch.sandbox import probe
 from gpu_feature_discovery_tpu_torch.sandbox.probe import (
     _LEN,
+    MAX_FRAME_BYTES,
     ProbeCrash,
     ProbeError,
     ProbeTimeout,
+    _child_read_request,
     _stderr_tail,
     _write_frame,
 )
@@ -92,11 +95,6 @@ from gpu_feature_discovery_tpu_torch.sandbox.snapshot import (
 )
 
 log = logging.getLogger("tfd.sandbox")
-
-# A response larger than this is a corrupt length prefix, not a
-# snapshot or a health report (a few KiB): reject it as a typed error
-# instead of waiting out the deadline for bytes that will never come.
-MAX_FRAME_BYTES = 32 << 20
 
 # How long a graceful close waits for the worker to honour the shutdown
 # request before escalating to SIGKILL.
@@ -207,25 +205,6 @@ def _load_doc(frame: bytes) -> dict:
 # ---------------------------------------------------------------------------
 # the worker (child) side
 # ---------------------------------------------------------------------------
-
-def _child_read_request(fd: int, buf: bytes) -> Tuple[Optional[bytes], bytes]:
-    """Blocking read of one request frame; (None, _) on EOF/corruption."""
-    want: Optional[int] = None
-    while True:
-        if want is None and len(buf) >= _LEN.size:
-            want = _LEN.unpack_from(buf)[0]
-            if want > MAX_FRAME_BYTES:
-                return None, b""
-        if want is not None and len(buf) >= _LEN.size + want:
-            return buf[_LEN.size:_LEN.size + want], buf[_LEN.size + want:]
-        try:
-            chunk = os.read(fd, 65536)
-        except OSError:
-            return None, b""
-        if not chunk:
-            return None, b""
-        buf += chunk
-
 
 # How long a health request waits for the probe before answering
 # "warming" and letting a later request collect the result: steady
@@ -645,6 +624,7 @@ class BrokerClient:
             _write_frame(req_w, {
                 "config": config_to_dict(self._config), "backend": self._backend,
                 "hang": hang, "segv": segv,
+                "providers": registry.child_provider_docs(),
             })
         except OSError:
             pass  # died already: the READY read sees EOF

@@ -24,7 +24,8 @@ script, the in-process burn-in of ``--probe-broker=off``). So every child
 here is a FRESH interpreter, started with ``os.posix_spawn`` running
 ``sandbox/worker_main.py``: the config goes over the request pipe as the
 first frame, and the twin's callables become named ops (``snapshot``,
-``select+snapshot``). Raw pids stay, so the registry, the
+``select+snapshot``; ``SandboxedCall``'s function by its importable
+name, ``call``). Raw pids stay, so the registry, the
 kill-before-reap discipline and the wait-status classification are the
 twin's; ``subprocess.Popen`` would reap behind the registry's back. An
 exec'd child starts with default signal handlers and without
@@ -57,10 +58,11 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional, Set, Tuple
+from typing import Callable, Optional, Set, Tuple
 
 from gpu_feature_discovery_tpu_torch.config.spec import config_to_dict
 from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
+from gpu_feature_discovery_tpu_torch.resource import registry
 from gpu_feature_discovery_tpu_torch.resource.types import Manager, ResourceError
 from gpu_feature_discovery_tpu_torch.sandbox.snapshot import (
     DeviceSnapshot,
@@ -76,6 +78,11 @@ STDERR_TAIL_BYTES = 8192
 # Length-prefix framing of every pipe: a partial frame (the child died
 # mid-write) is detected instead of parsed.
 _LEN = struct.Struct(">I")
+
+# A frame larger than this is a corrupt length prefix, not a snapshot or
+# a health report (a few KiB): reject it as a typed error instead of
+# waiting out the deadline for bytes that will never come.
+MAX_FRAME_BYTES = 32 << 20
 
 # The child's ends of its two pipes sit at these descriptors
 # (sandbox/worker_main.py reads requests on one, answers on the other).
@@ -295,7 +302,9 @@ def run_probe(
     try:
         try:
             _write_frame(req_w, {
-                "op": op, "config": config_to_dict(config), "backend": backend,
+                "op": op, "backend": backend,
+                "config": None if config is None else config_to_dict(config),
+                "providers": registry.child_provider_docs(),
                 "hang": hang, "segv": segv, "request": request or {},
             })
         except OSError:
@@ -361,6 +370,25 @@ def run_probe(
             os.unlink(stderr_file.name)
         except OSError:
             pass
+
+
+def _child_read_request(fd: int, buf: bytes) -> Tuple[Optional[bytes], bytes]:
+    """Blocking read of one request frame; (None, _) on EOF/corruption."""
+    want: Optional[int] = None
+    while True:
+        if want is None and len(buf) >= _LEN.size:
+            want = _LEN.unpack_from(buf)[0]
+            if want > MAX_FRAME_BYTES:
+                return None, b""
+        if want is not None and len(buf) >= _LEN.size + want:
+            return buf[_LEN.size:_LEN.size + want], buf[_LEN.size + want:]
+        try:
+            chunk = os.read(fd, 65536)
+        except OSError:
+            return None, b""
+        if not chunk:
+            return None, b""
+        buf += chunk
 
 
 def _read_frame(r_fd: int, deadline: float) -> Optional[bytes]:
@@ -501,3 +529,72 @@ def isolation_mode(config) -> str:
         if broker_mode(config) != "on":
             return "none"
     return "subprocess"
+
+
+def callable_target(fn: Callable) -> str:
+    """``module:qualname`` of a callable a fresh interpreter can import.
+    The twin forks, so its child runs any closure; an exec'd child
+    receives a name, so a lambda, a nested function or a callable of
+    ``__main__`` is refused here, in the caller, with a TypeError."""
+    module = getattr(fn, "__module__", None)
+    qualname = getattr(fn, "__qualname__", None)
+    if not module or not qualname or module == "__main__" or "<" in qualname:
+        raise TypeError(
+            f"sandboxed call needs a module-level function a fresh interpreter "
+            f"can import, not {fn!r}"
+        )
+    return f"{module}:{qualname}"
+
+
+class SandboxedCall:
+    """A callable that runs ``fn`` in a probe child each invocation and
+    exposes ``cancel()`` (twin: ``sandbox/probe.py:SandboxedCall``): the
+    hook behind ``LabelSource.cancel``. A source whose blocking work runs
+    through one of these gets its child SIGKILLed on a deadline miss or
+    at epoch close instead of leaking a worker thread wedged in native
+    code (lm/engine.py). ``fn`` takes no arguments and returns a
+    JSON-serialisable dict; it must be importable by name (see
+    ``callable_target``), since the child is a fresh interpreter that
+    imports it through the ``call`` op of sandbox/worker_main.py."""
+
+    def __init__(self, fn: Callable[[], dict], timeout_s: float):
+        self._target = callable_target(fn)
+        self._timeout_s = timeout_s
+        self._pids: list = []
+        self._lock = threading.Lock()
+
+    def __call__(self) -> dict:
+        box: list = []
+        with self._lock:
+            self._pids = box
+        try:
+            result = run_probe("call", None, self._timeout_s, pid_box=box,
+                               request={"target": self._target})
+        finally:
+            # The child is reaped: a cancel() arriving after this point
+            # must find nothing, or it could SIGKILL a recycled pid.
+            with self._lock:
+                self._pids = []
+        if result.status == "ok":
+            return result.payload or {}
+        if result.status == "timeout":
+            raise ProbeTimeout(f"sandboxed call exceeded {self._timeout_s:.1f}s")
+        if result.status == "crash":
+            raise ProbeCrash(f"sandboxed call died to signal {result.term_signal}")
+        raise ResourceError(
+            f"sandboxed call failed: {result.error_type}: {result.error}"
+        )
+
+    def cancel(self) -> None:
+        """SIGKILL the in-flight child, if any. The worker thread blocked
+        in run_probe sees EOF and a signaled wait status and returns
+        promptly. Kills go through the registry (kill_if_live): a pid
+        whose owner already reaped it is no longer killable, so a cancel
+        racing a normal completion can never hit a recycled pid."""
+        with self._lock:
+            pids = list(self._pids)
+        for pid in pids:
+            if not kill_if_live(pid):
+                continue
+            obs_metrics.PROBE_KILLS.inc()
+            log.warning("SIGKILLed in-flight probe child %d", pid)

@@ -5,10 +5,12 @@ probe|broker``.
 The child is a fresh interpreter: no CUDA context, no lock state and no
 signal handlers of the parent. It reads its first frame on
 CHILD_REQUEST_FD: the config, the backend token it is keyed to (None on
-the classic path), the parent-consumed chaos behaviours (``hang``,
-``segv``) and, for a probe child, the named op. Then:
+the classic path), the providers an embedder registered in the parent,
+the parent-consumed chaos behaviours (``hang``, ``segv``) and, for a
+probe child, the named op. Then:
 
-- ``probe``: run the op (PROBE_OPS), answer one frame on
+- ``probe``: run the op (PROBE_OPS; ``call`` imports and calls a
+  ``SandboxedCall``'s function), answer one frame on
   CHILD_RESPONSE_FD, exit. A chaos behaviour is enacted once the op has
   run and before the answer, so the hung or crashing child holds what
   the op loaded (on a GPU node the select+snapshot op loads the CUDA
@@ -23,7 +25,9 @@ op that could not get device memory answers ``busy``, not ``error``:
 the device is held by a workload, not sick.
 
 Every path leaves through ``os._exit``. Stdout and stderr go to the file
-the parent tails for a crash report.
+the parent tails for a crash report. A probe child imports what its op
+needs and no more (not the broker): its start counts against the
+``--probe-timeout`` budget, where the twin's forked child starts at once.
 """
 
 from __future__ import annotations
@@ -36,13 +40,10 @@ import sys
 import time
 
 from gpu_feature_discovery_tpu_torch.config.spec import config_from_dict
-from gpu_feature_discovery_tpu_torch.sandbox.broker import (
-    _child_main,
-    _child_read_request,
-)
 from gpu_feature_discovery_tpu_torch.sandbox.probe import (
     CHILD_REQUEST_FD,
     CHILD_RESPONSE_FD,
+    _child_read_request,
     _write_frame,
 )
 from gpu_feature_discovery_tpu_torch.sandbox.snapshot import DeviceSnapshot
@@ -83,10 +84,23 @@ def _pinned_health(config, doc: dict) -> dict:
     return measure_node_health(devices=devices, **health_options(doc.get("request") or {}))
 
 
+def _call(config, doc: dict) -> dict:
+    """A ``SandboxedCall``'s function, imported by its ``module:qualname``
+    and called with no arguments."""
+    import importlib
+
+    module, _, qualname = doc["request"]["target"].partition(":")
+    fn = importlib.import_module(module)
+    for part in qualname.split("."):
+        fn = getattr(fn, part)
+    return fn()
+
+
 PROBE_OPS = {
     "snapshot": _select_and_snapshot,
     "select+snapshot": _select_and_snapshot,
     "health": _pinned_health,
+    "call": _call,
 }
 
 
@@ -134,10 +148,17 @@ def main() -> None:
         if first is None:
             os._exit(1)
         doc = json.loads(first.decode())
-        config = config_from_dict(doc["config"])
+        if doc.get("providers"):
+            # An embedder's providers, as the twin's forked child inherits them.
+            from gpu_feature_discovery_tpu_torch.resource.registry import install_provider_docs
+
+            install_provider_docs(doc["providers"])
+        config = None if doc["config"] is None else config_from_dict(doc["config"])
         if role == "probe":
             _probe_main(doc, config)
         _enact_chaos(doc)
+        from gpu_feature_discovery_tpu_torch.sandbox.broker import _child_main
+
         _child_main(CHILD_REQUEST_FD, CHILD_RESPONSE_FD, config, buf,
                     doc.get("backend"))
     finally:

@@ -235,6 +235,21 @@ def test_configuration_doc_covers_every_backend_token():
             f"doc names backend prefix {match!r} the registry rejects")
 
 
+def _backend_rows(doc):
+    """(token, family) of each row of the --backends table, in order."""
+    return re.findall(r"^\| `([a-z-]+:?)(?:<[a-z]+>|\[:<n>\])?` \| (gpu|cpu) \|", doc, re.M)
+
+
+def test_configuration_doc_has_a_row_per_provider_in_registration_order():
+    """Every provider ``registry.providers()`` returns has its row, in the
+    registration order the table documents, with its family."""
+    rows = _backend_rows(read("configuration.md"))
+    assert rows == [(p.name, p.family) for p in registry.providers()]
+    doc = read("configuration.md")
+    for name in ("register(provider)", "providers()", "resolved_backends_value(config)"):
+        assert name in doc, f"configuration.md does not document {name}"
+
+
 def _families():
     return obs_metrics.REGISTRY.families()
 

@@ -254,3 +254,294 @@ def test_oneshot_probes_synchronously_like_twin(same_peaks, monkeypatch):
                                      oneshot=True)
         assert got[0][health.HEALTH_OK] == "true"
         assert threads == [threading.current_thread().name]
+
+
+# ---------------------------------------------------------------------------
+# The rest of the twin's tests/test_health.py: gating, the schedule's
+# cache and failure rules, plausibility, methodology and the compile
+# metric. Each case runs in both packages (SIDES): the same manager shape,
+# the same stubbed probe report, the same cycles; the twin's labels,
+# translated, must equal the port's, and the probe counts must match.
+# Where a case reads spec peaks, both sides are given the twin's v5e row
+# (197 TFLOP/s, 819 GB/s) so the same report meets the same bounds.
+# ---------------------------------------------------------------------------
+
+from gpu_feature_discovery_tpu.resource import testing as twin_testing  # noqa: E402
+from gpu_feature_discovery_tpu_torch.ops import healthcheck as port_ops  # noqa: E402
+from gpu_feature_discovery_tpu_torch.resource import testing as port_testing  # noqa: E402
+from torch_health_sides import SIDES, V5E_PEAKS  # noqa: E402
+
+
+@pytest.fixture
+def fresh_schedules():
+    """The schedule is process-global in both packages; the first-probe
+    join budget is pinned high so these cases stay synchronous, as the
+    twin's fixture does."""
+    saved = [(s.mod, s.mod.FIRST_PROBE_WAIT_S) for s in SIDES]
+    for s in SIDES:
+        s.mod.reset_burnin_schedule()
+        s.mod._first_probe_inflight = None
+        s.mod.FIRST_PROBE_WAIT_S = 300.0
+    yield
+    for mod, wait in saved:
+        mod.FIRST_PROBE_WAIT_S = wait
+        mod.reset_burnin_schedule()
+        mod._first_probe_inflight = None
+
+
+def _both(case):
+    out = {s.name: case(s) for s in SIDES}
+    assert out["port"] == out["twin"], out
+    return out["port"]
+
+
+def test_disabled_by_default(fresh_schedules):
+    assert _both(lambda s: s.labels(s.manager(), s.cfg())) == {}
+
+
+def test_empty_without_chips(fresh_schedules):
+    assert _both(lambda s: s.labels(s.testing.MockManager(),
+                                    s.cfg(**{"with-burnin": "true"}))) == {}
+
+
+def test_no_devices_publishes_nothing(fresh_schedules):
+    """The CPU test host is the no-accelerator case in both packages:
+    neither ok=true (a CPU matmul is no device health) nor ok=false."""
+    assert _both(lambda s: s.labels(s.manager(), s.cfg(**{"with-burnin": "true"}))) == {}
+
+
+def test_acquisition_failure_publishes_nothing(fresh_schedules, monkeypatch):
+    def case(s):
+        monkeypatch.setattr(s.mod, s.acquire_attr, lambda: None)
+        return s.labels(s.manager(), s.cfg(**{"with-burnin": "true"}))
+
+    assert _both(case) == {}
+
+
+def test_enabled_emits_health_labels(fresh_schedules, monkeypatch):
+    """The real probe on the CPU (the twin's 8-device mesh, the port's one
+    CPU device at a small geometry): ok=true; a rate, when it clears the
+    1 TFLOP/s floor, is a plausible integer."""
+    monkeypatch.setenv(port_ops.BURNIN_GEOMETRY_ENV, "128x2")
+    for s in SIDES:
+        s.pretend_devices(monkeypatch)
+        labels = s.labels(s.manager(), s.cfg(**{"with-burnin": "true"}))
+        assert labels[HEALTH_OK_KEY] == "true", s.name
+        if health.HEALTH_TFLOPS in labels:
+            assert int(labels[health.HEALTH_TFLOPS]) >= 1
+
+
+HEALTH_OK_KEY = health.HEALTH_OK
+
+
+def test_env_alias_enables(fresh_schedules, monkeypatch):
+    def case(s):
+        s.pretend_devices(monkeypatch)
+        s.counting_measure(monkeypatch)
+        config = s.conf(cli_values={}, environ={"TFD_WITH_BURNIN": "true"}, config_file=None)
+        return HEALTH_OK_KEY in s.labels(s.manager(), config)
+
+    assert _both(case) is True
+
+
+def test_burnin_interval_caches_between_probes(fresh_schedules, monkeypatch):
+    def case(s):
+        s.pretend_devices(monkeypatch)
+        calls = s.counting_measure(monkeypatch)
+        manager, config = s.manager(), s.cfg(**{"with-burnin": "true", "burnin-interval": "5"})
+        results = [s.labels(manager, config) for _ in range(10)]
+        assert all(r[HEALTH_OK_KEY] == "true" for r in results)
+        return calls["n"], [i for i, r in enumerate(results) if health.HEALTH_PROBE_MS in r]
+
+    assert _both(case) == (2, [0, 5])
+
+
+def test_burnin_interval_one_probes_every_cycle(fresh_schedules, monkeypatch):
+    def case(s):
+        s.pretend_devices(monkeypatch)
+        calls = s.counting_measure(monkeypatch)
+        manager, config = s.manager(), s.cfg(**{"with-burnin": "true", "burnin-interval": "1"})
+        for _ in range(3):
+            s.labels(manager, config)
+        return calls["n"]
+
+    assert _both(case) == 3
+
+
+def test_acquisition_failure_drops_cache(fresh_schedules, monkeypatch):
+    def case(s):
+        s.pretend_devices(monkeypatch)
+        calls = s.counting_measure(monkeypatch)
+        manager, config = s.manager(), s.cfg(**{"with-burnin": "true", "burnin-interval": "2"})
+        first = s.labels(manager, config)[HEALTH_OK_KEY]
+        monkeypatch.setattr(s.mod, s.acquire_attr, lambda: None)
+        return first, [s.labels(manager, config) for _ in range(3)], calls["n"]
+
+    assert _both(case) == ("true", [{}, {}, {}], 1)
+
+
+def _flaky(s, monkeypatch, fail_first_only):
+    calls = {"n": 0}
+
+    def measure(**kw):
+        calls["n"] += 1
+        if calls["n"] == 1 or not fail_first_only:
+            raise RuntimeError("transient link hiccup")
+        return {"healthy": True, "tflops": 10.0, "hbm_gbps": None, "ici_ok": None}
+
+    monkeypatch.setattr(s.ops, "measure_node_health", measure)
+    return calls
+
+
+def test_transient_burnin_failure_reprobes_next_cycle(fresh_schedules, monkeypatch):
+    def case(s):
+        s.pretend_devices(monkeypatch)
+        calls = _flaky(s, monkeypatch, fail_first_only=True)
+        manager, config = s.manager(), s.cfg(**{"with-burnin": "true", "burnin-interval": "5"})
+        return [s.labels(manager, config)[HEALTH_OK_KEY] for _ in range(2)], calls["n"]
+
+    assert _both(case) == (["false", "true"], 2)
+
+
+def test_persistent_burnin_failure_is_throttled(fresh_schedules, monkeypatch):
+    def case(s):
+        s.pretend_devices(monkeypatch)
+        calls = _flaky(s, monkeypatch, fail_first_only=False)
+        manager, config = s.manager(), s.cfg(**{"with-burnin": "true", "burnin-interval": "5"})
+        results = [s.labels(manager, config)[HEALTH_OK_KEY] for _ in range(10)]
+        return set(results), calls["n"]
+
+    # Cycle 0 probes, cycle 1 retries at once, the failure is cached, and
+    # cycle 5 is the next re-probe.
+    assert _both(case) == ({"false"}, 3)
+
+
+def test_two_managers_have_independent_schedules(fresh_schedules, monkeypatch):
+    def case(s):
+        s.pretend_devices(monkeypatch)
+        calls = s.counting_measure(monkeypatch)
+        m1, m2 = s.manager(), s.manager()
+        config = s.cfg(**{"with-burnin": "true", "burnin-interval": "5"})
+        seen = [s.labels(m1, config)[HEALTH_OK_KEY], calls["n"],
+                s.labels(m2, config)[HEALTH_OK_KEY], calls["n"]]
+        s.labels(m1, config)
+        s.labels(m2, config)
+        return seen + [calls["n"]]
+
+    assert _both(case) == ["true", 1, "true", 2, 2]
+
+
+@pytest.mark.parametrize("raw,valid", [("0", False), ("abc", False), ("7", True), (None, True)])
+def test_burnin_interval_config_validation(raw, valid):
+    from gpu_feature_discovery_tpu.config.spec import ConfigError as TwinConfigError
+    from gpu_feature_discovery_tpu_torch.config.spec import ConfigError
+
+    cli = {} if raw is None else {"burnin-interval": raw}
+    for conf, error in ((twin_new_config, TwinConfigError), (new_config, ConfigError)):
+        if not valid:
+            with pytest.raises(error):
+                conf(cli_values=cli, environ={})
+        else:
+            got = conf(cli_values=cli, environ={}).flags.tfd.burnin_interval
+            assert got == (7 if raw else 10)
+
+
+def test_async_first_probe_failure_keeps_failure_semantics(fresh_schedules, monkeypatch):
+    def case(s):
+        s.pretend_devices(monkeypatch)
+        monkeypatch.setattr(s.ops, "measure_node_health",
+                            lambda **kw: (_ for _ in ()).throw(RuntimeError("boom")))
+        manager, config = s.manager(), s.cfg(**{"with-burnin": "true", "burnin-interval": "5"})
+        first = s.labels(manager, config)
+        sched = s.mod._schedule_for(manager)
+        cached_after_first = sched.cached
+        second = s.labels(manager, config)
+        return first, cached_after_first, second, _translated(dict(sched.cached))
+
+    off = {HEALTH_OK_KEY: "false"}
+    assert _both(case) == (off, None, off, off)
+
+
+def _fixed(s, monkeypatch, report):
+    monkeypatch.setattr(s.ops, "measure_node_health", lambda **kw: dict(report))
+
+
+def _rated(report, peaks=V5E_PEAKS):
+    """The labels of one probe of ``report`` in both packages, the spec
+    peaks of both sides set to ``peaks``."""
+    def case(s):
+        s.pretend_devices(case.monkeypatch)
+        _fixed(s, case.monkeypatch, report)
+        case.monkeypatch.setattr(s.mod, "_spec_peaks", lambda manager: peaks)
+        return s.labels(s.manager(), s.cfg(**{"with-burnin": "true"}))
+    return case
+
+
+def test_timing_methodology_is_published(fresh_schedules, monkeypatch):
+    case = _rated({"healthy": True, "tflops": 10.0, "hbm_gbps": 500.0, "ici_ok": None,
+                   "timing": "device-profiler"})
+    case.monkeypatch = monkeypatch
+    assert _both(case)[health.HEALTH_TIMING] == "device-profiler"
+
+
+def test_rates_at_spec_peak_publish(fresh_schedules, monkeypatch):
+    case = _rated({"healthy": True, "tflops": 197.0, "hbm_gbps": 819.0, "ici_ok": None,
+                   "timing": "device-profiler"})
+    case.monkeypatch = monkeypatch
+    labels = _both(case)
+    assert labels[health.HEALTH_TFLOPS] == "197" and labels[health.HEALTH_HBM] == "819"
+    # And on the port's own H100 row: 989 TFLOP/s and 3350 GB/s publish.
+    monkeypatch.undo()
+    s = SIDES[1]
+    s.pretend_devices(monkeypatch)
+    _fixed(s, monkeypatch, {"healthy": True, "tflops": 989.0, "hbm_gbps": 3350.0,
+                            "ici_ok": None, "timing": "device-profiler"})
+    health.reset_burnin_schedule()
+    own = s.labels(s.manager(), s.cfg(**{"with-burnin": "true"}))
+    assert own[health.HEALTH_TFLOPS] == "989" and own[health.HEALTH_HBM] == "3350"
+
+
+def test_unknown_family_applies_no_upper_bound(fresh_schedules, monkeypatch):
+    case = _rated({"healthy": True, "tflops": 5000.0, "hbm_gbps": 9000.0, "ici_ok": None,
+                   "timing": "device-profiler"}, peaks=(0.0, 0.0))
+    case.monkeypatch = monkeypatch
+    labels = _both(case)
+    assert labels[health.HEALTH_TFLOPS] == "5000" and labels[health.HEALTH_HBM] == "9000"
+
+
+def test_device_clock_degraded_rates_publish(fresh_schedules, monkeypatch):
+    case = _rated({"healthy": True, "tflops": 0.8, "hbm_gbps": 0.4, "ici_ok": None,
+                   "timing": "device-profiler"})
+    case.monkeypatch = monkeypatch
+    labels = _both(case)
+    assert labels[health.HEALTH_TFLOPS] == "0" and labels[health.HEALTH_HBM] == "0"
+
+
+def test_mixed_node_bounds_by_fastest_family():
+    """The twin's v5e + v5p node is bounded by v5p's row; the port's node
+    of an H100 and a card with no row by the H100's."""
+    twin_node = twin_testing.MockManager(chips=[twin_testing.MockChip(family="v5e"),
+                                                twin_testing.MockChip(family="v5p")])
+    assert twin._spec_peaks(twin_node) == (459.0, 2765.0)
+    port_node = port_testing.MockManager(chips=[
+        port_testing.MockChip(name="NVIDIA L4"),
+        port_testing.MockChip(name="NVIDIA H100 80GB HBM3")])
+    assert health._spec_peaks(port_node) == PEAKS
+
+
+def test_first_probe_compile_metric_fed_from_report_phases(fresh_schedules, monkeypatch):
+    def case(s):
+        s.metrics.reset_for_tests()
+        s.pretend_devices(monkeypatch)
+        report = {"healthy": True, "tflops": 10.0, "hbm_gbps": 500.0, "ici_ok": None,
+                  "timing": "device-profiler",
+                  "phases": {"compile_ms": 8500.0, "trace_ms": 1100.0}}
+        _fixed(s, monkeypatch, report)
+        manager = s.manager()
+        ok = s.labels(manager, s.cfg(**{"with-burnin": "true"}))[HEALTH_OK_KEY]
+        first = s.metrics.FIRST_PROBE_COMPILE.value()
+        _fixed(s, monkeypatch, dict(report, phases={"compile_ms": 0.0}))
+        s.labels(manager, s.cfg(**{"with-burnin": "true", "burnin-interval": "1"}))
+        return ok, first, s.metrics.FIRST_PROBE_COMPILE.value()
+
+    assert _both(case) == ("true", pytest.approx(8.5), pytest.approx(8.5))

@@ -188,3 +188,30 @@ def test_chip_smokes_reader_raises_on_a_label_outside_the_grammar(tmp_path):
         chip_smoke._read_labels(str(path))
     path.write_text("nvidia.com/gpu.count=2\n")
     assert chip_smoke._read_labels(str(path)) == {"nvidia.com/gpu.count": "2"}
+
+
+@pytest.mark.parametrize("layout,strategy",
+                         [(l, s) for l in sorted(LAYOUTS) for s in STRATEGIES])
+def test_new_labelers_merge_is_valid_and_the_engines_map(tmp_path, hermetic, layout, strategy):
+    """The twin's grammar sweep composes ``new_labelers`` (the eager Merge
+    of the device labeler and the interconnect) with the timestamp; the
+    port's must pass the grammar and equal the engine's oneshot map."""
+    from gpu_feature_discovery_tpu_torch.config.flags import new_config
+    from gpu_feature_discovery_tpu_torch.lm.interconnect import InterconnectLabeler
+    from gpu_feature_discovery_tpu_torch.lm.labeler import Merge
+    from gpu_feature_discovery_tpu_torch.lm.labelers import new_labelers
+    from gpu_feature_discovery_tpu_torch.lm.timestamp import new_timestamp_labeler
+    from gpu_feature_discovery_tpu_torch.resource.nvml_backend import NvmlManager
+    from gpu_feature_discovery_tpu_torch.resource.testing import fake_nvml
+
+    config = new_config(cli_values={"tpu-topology-strategy": strategy,
+                                    "machine-type-file": ""}, environ={})
+    merged = dict(Merge(new_timestamp_labeler(config),
+                        new_labelers(NvmlManager(fake_nvml(layout)), InterconnectLabeler(),
+                                     config)).labels())
+    assert_every_label_valid(merged, f"new_labelers mock-nvml:{layout}/{strategy}")
+    engine = _oneshot(tmp_path, "--backends", f"mock-nvml:{layout}", "--machine-type-file", "",
+                      "--tpu-topology-strategy", strategy)
+    stamp = "google.com/tfd.timestamp"
+    assert {k: v for k, v in merged.items() if k != stamp} == \
+        {k: v for k, v in engine.items() if k != stamp}

@@ -312,3 +312,118 @@ def test_cli_daemon_at_defaults_keeps_torch_out_of_the_labeling_process(tmp_path
     assert "nvidia.com/gpu.chips.healthy=1" in doc["labels"]
     assert doc["torch"] == [], "the labeling process imported torch"
     assert "broker worker" in proc.stderr and not out.exists()
+
+
+# ---------------------------------------------------------------------------
+# SandboxedCall: the twin's seam behind LabelSource.cancel
+# (tests/test_sandbox.py of the twin). The function is a module-level one
+# of tests/torch_embedder.py, which the fresh child imports by name.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def embedder_on_child_path(monkeypatch):
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        p for p in (str(REPO / "tests"), os.environ.get("PYTHONPATH")) if p))
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+        return True
+    except OSError:
+        return False
+
+
+def _wait_until(pred, timeout=5.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and not pred():
+        time.sleep(0.002)
+    return pred()
+
+
+def test_sandboxed_call_runs_in_a_child_and_returns_its_dict(embedder_on_child_path):
+    import torch_embedder
+
+    out = sandbox.SandboxedCall(torch_embedder.answer, timeout_s=30.0)()
+    assert out["answer"] == 42 and out["pid"] != os.getpid()
+
+
+def test_sandboxed_call_refuses_what_a_fresh_interpreter_cannot_import():
+    """The twin forks and runs any closure; the port's child is a fresh
+    interpreter, so a lambda or a nested function is refused in the
+    caller, before any child is spawned."""
+    def nested():
+        return {}
+
+    for fn in (lambda: {}, nested):
+        with pytest.raises(TypeError):
+            sandbox.SandboxedCall(fn, timeout_s=1.0)
+    assert twin_sandbox.SandboxedCall(lambda: {}, timeout_s=1.0) is not None
+
+
+def test_sandboxed_call_timeout_and_error_are_the_twins_types(embedder_on_child_path):
+    import torch_embedder
+
+    with pytest.raises(ProbeTimeout, match="exceeded"):
+        sandbox.SandboxedCall(torch_embedder.sleep_a_minute, timeout_s=0.5)()
+    with pytest.raises(ResourceError, match="RuntimeError: the function failed in its child"):
+        sandbox.SandboxedCall(torch_embedder.fail, timeout_s=30.0)()
+
+
+def test_sandboxed_call_cancel_kills_inflight_child(embedder_on_child_path):
+    import torch_embedder
+
+    call = sandbox.SandboxedCall(torch_embedder.sleep_a_minute, timeout_s=30.0)
+    result = {}
+
+    def target():
+        try:
+            call()
+        except BaseException as e:  # noqa: BLE001 - inspected below
+            result["error"] = e
+
+    t = threading.Thread(target=target, daemon=True)
+    t.start()
+    assert _wait_until(lambda: call._pids), "the child never spawned"
+    (pid,) = call._pids
+    assert _pid_alive(pid)
+    call.cancel()
+    t.join(timeout=5)
+    assert not t.is_alive(), "the worker thread stayed blocked after cancel"
+    assert not _pid_alive(pid)
+    assert isinstance(result.get("error"), ResourceError)
+
+
+def test_engine_deadline_miss_escalates_to_child_sigkill(embedder_on_child_path):
+    """A sandbox-backed source that misses its deadline gets its child
+    SIGKILLed: the worker thread frees, the self-inflicted death is
+    swallowed at harvest, and the source runs fresh next cycle."""
+    import torch_embedder
+    from gpu_feature_discovery_tpu_torch.lm.engine import LabelSource
+    from gpu_feature_discovery_tpu_torch.lm.labels import Labels
+    from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
+
+    obs_metrics.reset_for_tests()
+    calls = {"n": 0}
+    call = sandbox.SandboxedCall(torch_embedder.sleep_forever, timeout_s=3600.0)
+
+    class SandboxBacked:
+        def labels(self):
+            calls["n"] += 1
+            if calls["n"] == 1:
+                call()
+            return Labels({"probed": "fresh"})
+
+    # The twin's 0.5 s deadline: the child must exist when cancel fires.
+    engine = LabelEngine(parallel=True, timeout_s=0.5)
+    sources = [LabelSource("sandboxed", lambda: SandboxBacked(), cancel=call.cancel)]
+    try:
+        first = engine.generate(sources)
+        assert "probed" not in first
+        assert obs_metrics.PROBE_KILLS.value() == 1, "the deadline miss killed no child"
+        state = engine._state["sandboxed"]
+        assert _wait_until(lambda: state.inflight.done()), "worker thread still wedged"
+        second = engine.generate(sources)
+        assert second.get("probed") == "fresh"
+    finally:
+        engine.close()
