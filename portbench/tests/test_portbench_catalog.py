@@ -1,0 +1,92 @@
+"""The benchmark's data: BENCHMARK.json's grammar, and every configuration,
+traffic mix and metric found by name from a file of its own."""
+
+import json
+import re
+
+import pytest
+
+import catalog
+
+ROOT = catalog.HERE.parent
+BENCH = catalog.load_benchmark(ROOT)
+
+
+def test_names_and_units_keep_the_grammar():
+    for section in ("configs", "workloads", "end_to_end", "per_layer"):
+        for entry in BENCH[section]:
+            catalog.check_name(entry["name"])
+            if "unit" in entry:
+                catalog.check_unit(entry["unit"])
+    for w in BENCH["workloads"]:
+        catalog.check_name(w["config"])
+        catalog.check_name(w["traffic"])
+    for c in BENCH["configs"]:
+        for key in c["reduced"]:
+            catalog.check_name(key)
+
+
+@pytest.mark.parametrize("bad", ["", "a b", "a/b", "a,b", "-x", "x" * 65, "µs"])
+def test_a_bad_name_is_refused(bad):
+    with pytest.raises(catalog.CatalogError):
+        catalog.check_name(bad)
+
+
+@pytest.mark.parametrize("bad", ["", "tokens per s", "µs", "x" * 17])
+def test_a_bad_unit_is_refused(bad):
+    with pytest.raises(catalog.CatalogError):
+        catalog.check_unit(bad)
+
+
+def test_every_entry_resolves_to_its_file():
+    for c in BENCH["configs"]:
+        assert (ROOT / c["file"]).is_file()
+        assert catalog.config(c["name"])["probe"]
+    for w in BENCH["workloads"]:
+        catalog.config(w["config"])
+        catalog.traffic(w["traffic"])
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert callable(catalog.reader(m["name"]))
+
+
+def test_per_layer_metrics_name_a_layer_and_what_they_move():
+    e2e = {m["name"] for m in BENCH["end_to_end"]}
+    cells = {w["name"] for w in BENCH["workloads"]}
+    for m in BENCH["per_layer"]:
+        assert m["moves"] in e2e and m["layer"] and "\n" not in m["layer"]
+        assert set(m.get("workloads", cells)) <= cells
+
+
+def test_every_cell_reports_setup_another_end_to_end_and_a_per_layer_metric():
+    for w in BENCH["workloads"]:
+        e2e = {m["name"] for m in catalog.metrics_for(BENCH, w["name"], False)}
+        assert "setup_s" in e2e and len(e2e) >= 2
+        assert catalog.metrics_for(BENCH, w["name"], True)
+
+
+def test_a_new_config_traffic_and_metric_are_found_by_name(tmp_path, monkeypatch):
+    for kind in ("configs", "traffic", "metrics"):
+        (tmp_path / kind).mkdir()
+    (tmp_path / "configs" / "h200x1-new.json").write_text(json.dumps({"probe": {"size": 8}}))
+    (tmp_path / "traffic" / "cadence.json").write_text(json.dumps({"args": ["--burnin-interval", "10"]}))
+    (tmp_path / "metrics" / "write_ms.py").write_text("def read(run):\n    return run * 2\n")
+    monkeypatch.setattr(catalog, "HERE", tmp_path)
+    assert catalog.config("h200x1-new") == {"probe": {"size": 8}}
+    assert catalog.traffic("cadence")["args"][1] == "10"
+    assert catalog.reader("write_ms")(21) == 42
+    bench = {"end_to_end": [], "per_layer": [
+        {"name": "write_ms", "workloads": ["x1-broker.cadence"]}, {"name": "all_cells"}]}
+    assert [m["name"] for m in catalog.metrics_for(bench, "x1-broker.cadence", True)] == [
+        "write_ms", "all_cells"]
+    assert [m["name"] for m in catalog.metrics_for(bench, "x1-broker.soak", True)] == ["all_cells"]
+    with pytest.raises(catalog.CatalogError):
+        catalog.config("absent")
+
+
+def test_the_command_names_only_files_under_paths():
+    assert BENCH["command"][0] == "python3"
+    for word in BENCH["command"][1:]:
+        assert any(word.startswith(p + "/") for p in BENCH["paths"])
+        assert not word.startswith("/") and ".." not in word
+    for p in BENCH["paths"]:
+        assert re.match(r"^[A-Za-z0-9_./-]{1,200}$", p) and not p.endswith("_torch")

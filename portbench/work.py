@@ -1,0 +1,69 @@
+"""The yardstick's arithmetic: the work each probe kernel must do at the
+configuration's geometry, the chip's published peaks, and the statistics
+the end-to-end metrics take. A roofline share reads the same work
+whatever implements it."""
+
+import re
+import statistics
+from typing import Dict, List, Optional, Tuple
+
+# Published dense peaks (NVIDIA H100 SXM data sheet, at its 700 W limit):
+# bf16 tensor FLOP/s and HBM3 bytes/s.
+PEAKS: Dict[str, Dict[str, float]] = {
+    "NVIDIA H100 80GB HBM3": {"bf16_flops": 989e12, "hbm_bytes": 3.35e12},
+}
+
+
+def burnin_flops(size: int, depth: int) -> float:
+    """One burn-in pass: ``depth`` products of two (size, size) matrices."""
+    return 2.0 * depth * size ** 3
+
+
+def burnin_bytes(size: int, depth: int) -> float:
+    """One pass reads its bf16 input and weights once."""
+    return 2.0 * (1 + depth) * size * size
+
+
+def stream_bytes(hbm_mib: int) -> float:
+    """One stream launch reads the whole float32 buffer once."""
+    from reference.stream import LANES, rows_for
+
+    return float(rows_for(hbm_mib) * LANES * 4)
+
+
+def bound_s(flops: float, nbytes: float, peaks: Dict[str, float]) -> float:
+    """The least time the chip could take: the larger of the two bounds."""
+    return max(flops / peaks["bf16_flops"], nbytes / peaks["hbm_bytes"])
+
+
+def p95(values: List[float]) -> float:
+    """The 95th percentile, interpolated between order statistics."""
+    return statistics.quantiles(values, n=100, method="inclusive")[94]
+
+
+def spread(values: List[float]) -> float:
+    """The distance between the first and the third quartile over the
+    median, as ``statistics.quantiles(values, n=4)`` gives them."""
+    q1, med, q3 = statistics.quantiles(values, n=4)
+    return (q3 - q1) / med
+
+
+def share(bound: float, measured: Optional[float]) -> Optional[float]:
+    """A roofline share in %, or None when nothing was measured."""
+    if not measured:
+        return None
+    return 100.0 * bound / measured
+
+
+def kernel_time(traces: List[dict], function: str) -> Tuple[float, int]:
+    """Device seconds and launches of every kernel whose function is
+    named ``function`` (its name up to the argument list, any namespace
+    before it), over the traces."""
+    pattern = re.compile(r"(^|::|\s)" + re.escape(function) + r"(\(|<|$)")
+    seconds, count = 0.0, 0
+    for trace in traces:
+        for name, (s, n) in trace["ops"].items():
+            if pattern.search(name):
+                seconds += s
+                count += n
+    return seconds, count
