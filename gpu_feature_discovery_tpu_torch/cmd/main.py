@@ -588,15 +588,18 @@ def run(
         # for tfd_wake_to_labels_seconds.
         wake_first_ts: Optional[float] = None
         while True:
-            timing.reset_cycle()
-            if obs_server is None:
-                # A bind that failed (a port race) is retried each cycle.
-                obs_server, obs_state = start_introspection_server(
-                    config, quiet=True, **peer_hooks
-                )
-                if obs_server is not None and coordinator is not None:
-                    coordinator.set_notify_port(obs_server.port)
-            cycle_mode = "full"
+            # The span tree's root: this loop top to the end of the wait.
+            timing.begin_cycle()
+            with timing.span("cycle.prepare"):
+                timing.reset_cycle()
+                if obs_server is None:
+                    # A bind that failed (a port race) is retried each cycle.
+                    obs_server, obs_state = start_introspection_server(
+                        config, quiet=True, **peer_hooks
+                    )
+                    if obs_server is not None and coordinator is not None:
+                        coordinator.set_notify_port(obs_server.port)
+                cycle_mode = "full"
             try:
                 with timed("labelgen.total"):
                     if backend_set is not None:
@@ -669,47 +672,52 @@ def run(
                                 with timed("gpu.shutdown"):
                                     current.shutdown()
 
-                if len(labels) <= 1:
-                    log.warning("no labels generated from any source")
-                log.info("Cycle timings: %s", timing.cycle_summary())
-                timing.write_timings_file(tfd.timings_file or "")
-                if supervised and supervisor.restored and (
-                    cycle_mode == "degraded" or STALE_SOURCES_LABEL in labels
-                ):
-                    # Not trustworthy live inventory: overlay the fresh
-                    # facts onto the restored inventory.
-                    labels = supervisor.with_restored(labels)
-                if flap is not None:
-                    labels = flap.observe(labels)
-                if actuation is not None:
-                    # After the damper (the advice family has its own
-                    # hysteresis) and before the write. A changed advice
-                    # set is a new object: the damper's baseline is never
-                    # mutated.
-                    labels = actuation.project(labels, cycle_mode)
-                log.info("Writing labels to output file %s", output_file or "<stdout>")
-                labels.write_to_file(output_file)
-                wrote_this_epoch = True
-                obs_metrics.CYCLES_TOTAL.labels(outcome=cycle_mode).inc()
-                if event_loop is not None:
-                    if wake_first_ts is not None:
-                        obs_metrics.WAKE_TO_LABELS.observe(
-                            time.monotonic() - wake_first_ts
+                # Everything the cycle does with its labels up to the
+                # state save: the overlays, the write, the obs state and
+                # the slice coordinator.
+                with timing.span("cycle.publish"):
+                    if len(labels) <= 1:
+                        log.warning("no labels generated from any source")
+                    log.info("Cycle timings: %s", timing.cycle_summary())
+                    timing.write_timings_file(tfd.timings_file or "")
+                    if supervised and supervisor.restored and (
+                        cycle_mode == "degraded" or STALE_SOURCES_LABEL in labels
+                    ):
+                        # Not trustworthy live inventory: overlay the fresh
+                        # facts onto the restored inventory.
+                        labels = supervisor.with_restored(labels)
+                    if flap is not None:
+                        labels = flap.observe(labels)
+                    if actuation is not None:
+                        # After the damper (the advice family has its own
+                        # hysteresis) and before the write. A changed advice
+                        # set is a new object: the damper's baseline is never
+                        # mutated.
+                        labels = actuation.project(labels, cycle_mode)
+                    log.info("Writing labels to output file %s", output_file or "<stdout>")
+                    with timing.span("labels.write"):
+                        labels.write_to_file(output_file)
+                    wrote_this_epoch = True
+                    obs_metrics.CYCLES_TOTAL.labels(outcome=cycle_mode).inc()
+                    if event_loop is not None:
+                        if wake_first_ts is not None:
+                            obs_metrics.WAKE_TO_LABELS.observe(
+                                time.monotonic() - wake_first_ts
+                            )
+                            wake_first_ts = None
+                        # A moved health verdict or slice membership wakes a
+                        # prompt follow-up.
+                        delta_tracker.observe_labels(labels)
+                        if coordinator is not None:
+                            delta_tracker.observe_peers(coordinator.membership_token())
+                    if obs_state is not None:
+                        obs_state.labels_written(
+                            labels, engine.last_provenance, mode=cycle_mode
                         )
-                        wake_first_ts = None
-                    # A moved health verdict or slice membership wakes a
-                    # prompt follow-up.
-                    delta_tracker.observe_labels(labels)
                     if coordinator is not None:
-                        delta_tracker.observe_peers(coordinator.membership_token())
-                if obs_state is not None:
-                    obs_state.labels_written(
-                        labels, engine.last_provenance, mode=cycle_mode
-                    )
-                if coordinator is not None:
-                    # Peers see what the node published, markers and the
-                    # slice family stripped (peering/snapshot.py).
-                    coordinator.publish_local(labels, cycle_mode)
+                        # Peers see what the node published, markers and the
+                        # slice family stripped (peering/snapshot.py).
+                        coordinator.publish_local(labels, cycle_mode)
             except (InitRetriesExhausted, TooManyConsecutiveFailures):
                 raise  # supervision verdicts, not containable faults
             except Exception as e:  # noqa: BLE001 - supervision boundary
@@ -744,7 +752,8 @@ def run(
                 else:
                     reserve = supervisor.reserve_labels()
                     try:
-                        reserve.write_to_file(output_file)
+                        with timing.span("labels.write"):
+                            reserve.write_to_file(output_file)
                     except Exception as we:  # noqa: BLE001 - already degraded
                         log.warning("could not re-serve last-good labels: %s", we)
                     else:
@@ -761,10 +770,11 @@ def run(
                 # The backoff replaces the sleep interval for a failed
                 # cycle; a signal during it is serviced at once.
                 log.info("retrying failed cycle in %.3fs", delay)
-                if event_loop is None:
-                    decision = _wait_for_signal(sigs, delay)
-                else:
-                    decision = event_loop.wait_backoff(delay)
+                with timing.span("cycle.wait"):
+                    if event_loop is None:
+                        decision = _wait_for_signal(sigs, delay)
+                    else:
+                        decision = event_loop.wait_backoff(delay)
                 if decision == "restart":
                     return True
                 if decision == "shutdown":
@@ -774,8 +784,10 @@ def run(
                 continue
             else:
                 if supervised:
-                    supervisor.cycle_succeeded(labels, mode=cycle_mode)
-                    supervisor.touch_heartbeat()
+                    with timing.span("state.save"):
+                        supervisor.cycle_succeeded(labels, mode=cycle_mode)
+                    with timing.span("heartbeat"):
+                        supervisor.touch_heartbeat()
                     if cycle_mode == "full" and not supervisor.restored:
                         # Live inventory is back: the restart clock stops
                         # (restored and degraded writes do not count).
@@ -790,27 +802,29 @@ def run(
             if oneshot:
                 return False
 
-            if event_loop is None:
-                # A signal that arrived during a long cycle is honored now.
-                decision = _check_signal(sigs)
-                if decision is None:
-                    log.info("Sleeping for %ss", sleep_interval)
-                    decision = _wait_for_signal(sigs, sleep_interval)
-            else:
-                wake = event_loop.wait_for_wake()
-                decision = wake.decision
-                if decision is None:
-                    wake_first_ts = wake.first_ts
-                    log.info(
-                        "reconcile wake: %s%s",
-                        "+".join(wake.reasons),
-                        f" ({wake.coalesced} coalesced)" if wake.coalesced else "",
-                    )
+            with timing.span("cycle.wait"):
+                if event_loop is None:
+                    # A signal that arrived during a long cycle is honored now.
+                    decision = _check_signal(sigs)
+                    if decision is None:
+                        log.info("Sleeping for %ss", sleep_interval)
+                        decision = _wait_for_signal(sigs, sleep_interval)
+                else:
+                    wake = event_loop.wait_for_wake()
+                    decision = wake.decision
+                    if decision is None:
+                        wake_first_ts = wake.first_ts
+                        log.info(
+                            "reconcile wake: %s%s",
+                            "+".join(wake.reasons),
+                            f" ({wake.coalesced} coalesced)" if wake.coalesced else "",
+                        )
             if decision == "restart":
                 return True
             if decision == "shutdown":
                 return False
     finally:
+        timing.end_cycle()
         # Signals forwarded but not serviced go back on ``sigs`` for the
         # next epoch's reader.
         if forwarder is not None:

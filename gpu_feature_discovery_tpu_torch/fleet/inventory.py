@@ -576,6 +576,7 @@ class InventoryStore:
                 self._path,
                 json.dumps(doc, sort_keys=True).encode(),
                 INVENTORY_MODE,
+                fsync_file="state",
             )
             self._last_saved = (snapshot, region_snapshot, generation)
             return True

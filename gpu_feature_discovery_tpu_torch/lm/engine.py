@@ -215,6 +215,8 @@ class LabelEngine:
         futures: Dict[str, concurrent.futures.Future] = {}
         if offloaded:
             pool = self._ensure_pool()
+            # A pool thread has no span of its own: the cycle's is handed in.
+            ctx = timing.context()
         for src in offloaded:
             state = self._state.setdefault(src.name, _SourceState())
             if state.inflight is not None:
@@ -224,7 +226,7 @@ class LabelEngine:
                     futures[src.name] = state.inflight
                     continue
                 self._harvest(src.name, state)
-            fut = pool.submit(lambda src=src: self._run_source(src))
+            fut = pool.submit(lambda src=src: self._run_source(src, ctx))
             # In flight from submission: if an earlier source's error
             # aborts this cycle, the next one must wait on THIS future.
             state.inflight = fut
@@ -299,12 +301,9 @@ class LabelEngine:
             out[src.name] = entry
         return out
 
-    def _run_source(self, src: LabelSource) -> Labels:
-        t0 = time.perf_counter()
-        try:
+    def _run_source(self, src: LabelSource, ctx) -> Labels:
+        with timing.adopt(ctx), timing.timed(f"labeler.{src.name}"):
             return src.run()
-        finally:
-            timing.record(f"labeler.{src.name}", time.perf_counter() - t0)
 
     def _harvest(self, name: str, state: _SourceState) -> None:
         """Fold a finished straggler's result into the cache. If it failed

@@ -88,6 +88,7 @@ from gpu_feature_discovery_tpu_torch.lm.labels import Labels
 from gpu_feature_discovery_tpu_torch.native import nvml
 from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
+from gpu_feature_discovery_tpu_torch.utils import timing
 from gpu_feature_discovery_tpu_torch.utils.logging import warn_once
 
 log = logging.getLogger("tfd.lm")
@@ -197,13 +198,15 @@ class _FirstProbeThread(threading.Thread):
         super().__init__(name="tfd-burnin-first-probe", daemon=True)
         self._measure = measure
         self._devices = devices
+        self._span_ctx = timing.context()
         self.outcome = None
         self.abandoned = False
 
     def run(self):
         t0 = time.perf_counter()
         try:
-            report, error = self._measure(devices=self._devices), None
+            with timing.adopt(self._span_ctx):
+                report, error = self._measure(devices=self._devices), None
         except Exception as e:  # noqa: BLE001 - delivered to the consumer
             log.debug("burn-in first probe failed:", exc_info=True)
             report, error = None, e

@@ -143,11 +143,13 @@ def _file_contents_equal(path: str, contents: bytes) -> bool:
         return False
 
 
-def _write_file_atomically(path: str, contents: bytes, perm: int) -> Optional[tuple]:
+def _write_file_atomically(path: str, contents: bytes, perm: int,
+                           fsync_file: str = "labels") -> Optional[tuple]:
     """Stage into ``<dir>/tfd-tmp`` then rename over the target. The
     staging dir lives on the target's filesystem so the rename is atomic;
     the temp file is fsynced before the rename and the directory after, so
-    a node crash cannot leave the target naming a truncated inode.
+    a node crash cannot leave the target naming a truncated inode. Both
+    fsyncs count in ``tfd_fsyncs_total{file=fsync_file}``.
     Returns the staged file's stat signature, taken before the rename."""
     abs_path = os.path.abspath(path)
     out_dir = os.path.dirname(abs_path)
@@ -160,6 +162,7 @@ def _write_file_atomically(path: str, contents: bytes, perm: int) -> Optional[tu
             f.write(contents)
             f.flush()
             fsync_start = time.perf_counter()
+            obs_metrics.FSYNCS.labels(file=fsync_file).inc()
             os.fsync(f.fileno())
             obs_metrics.FSYNC_DURATION.observe(time.perf_counter() - fsync_start)
         sig = _stat_signature(tmp_name)
@@ -171,11 +174,11 @@ def _write_file_atomically(path: str, contents: bytes, perm: int) -> Optional[tu
             pass
         raise
     os.chmod(abs_path, perm)
-    _fsync_dir(out_dir)
+    _fsync_dir(out_dir, fsync_file)
     return sig
 
 
-def _fsync_dir(dir_path: str) -> None:
+def _fsync_dir(dir_path: str, fsync_file: str) -> None:
     """Persist a just-completed rename. Best-effort: some filesystems
     refuse a directory fsync, and the write itself already succeeded."""
     try:
@@ -183,6 +186,7 @@ def _fsync_dir(dir_path: str) -> None:
     except OSError:
         return
     try:
+        obs_metrics.FSYNCS.labels(file=fsync_file).inc()
         os.fsync(dir_fd)
     except OSError:
         pass

@@ -13,7 +13,11 @@ the introspection server renders ``REGISTRY``. Recording is
 unconditional; ``--metrics-port`` only decides whether a scraper can
 see it. Every series is recorded in the labeling process, the one that
 serves ``/metrics``: what the broker worker measures on the device
-reaches it in the worker's reports.
+reaches it in the worker's reports, and its spans in its replies.
+
+Three families are the port's own, with no twin: ``tfd_span_duration_seconds``
+and ``tfd_probe_gap_seconds`` (the span tree of ``obs/spans.py``, on
+``SPAN_BUCKETS``) and ``tfd_fsyncs_total``.
 """
 
 from __future__ import annotations
@@ -666,6 +670,14 @@ FSYNC_DURATION = REGISTRY.histogram(
     "fsync cost of the staged file before its atomic rename (label and "
     "timings files both stage through the same writer).",
 )
+FSYNCS = REGISTRY.counter(
+    "tfd_fsyncs_total",
+    "Every fsync the atomic writer makes, of the staged file and of its "
+    "directory after the rename, by the file written: labels, state "
+    "(--state-dir) or timings (--timings-file). A churn-free skipped "
+    "label write makes none. Port-only.",
+    labelnames=("file",),
+)
 
 # -- per-cycle stage store (the utils/timing.py backing) --------------------
 
@@ -680,6 +692,37 @@ STAGE_DURATION = REGISTRY.gauge(
     "Most recent duration of each named span (the Cycle timings log line "
     "and --timings-file render from the same store).",
     labelnames=("stage",),
+)
+
+
+# -- the span tree (obs/spans.py, utils/timing.py) --------------------------
+
+# Fine enough for the tail of a 13 ms cycle and long enough for a worker's
+# spawn: 50 us doubling to 26.2 s (DEFAULT_BUCKETS stays the twin's).
+SPAN_BUCKETS = (
+    0.00005, 0.0001, 0.0002, 0.0004, 0.0008, 0.0016, 0.0032, 0.0064,
+    0.0128, 0.0256, 0.0512, 0.1024, 0.2048, 0.4096, 0.8192, 1.6384,
+    3.2768, 6.5536, 13.1072, 26.2144,
+)
+SPAN_DURATION = REGISTRY.histogram(
+    "tfd_span_duration_seconds",
+    "Every span of the span tree by name (docs/torch/observability.md "
+    "lists the fixed set): the labeling cycle and its stages, the broker's "
+    "RPCs, the probe's phases and the broker worker's spans, folded in "
+    "from the worker's replies. Port-only.",
+    labelnames=("span",),
+    buckets=SPAN_BUCKETS,
+)
+PROBE_GAP = REGISTRY.histogram(
+    "tfd_probe_gap_seconds",
+    "The time between two consecutive probes' device windows (one "
+    "probe.device end to the next one's start) split by the host layer "
+    "that held it: probe (the probe's host time outside its device window), "
+    "broker (the pipe both ways), labelgen (the label cycle outside the "
+    "health labeler), loop (the cycle outside labelgen.total). The four "
+    "parts of one gap sum to it exactly. Port-only.",
+    labelnames=("layer",),
+    buckets=SPAN_BUCKETS,
 )
 
 
@@ -707,7 +750,10 @@ def cycle_stages() -> Dict[str, float]:
 
 
 def reset_for_tests() -> None:
-    """Zero every series and forget the cycle stages, so a test can
-    assert exact counter values."""
+    """Zero every series and forget the cycle stages and the span ring,
+    so a test can assert exact counter values."""
+    from gpu_feature_discovery_tpu_torch.obs import spans
+
     REGISTRY.reset_values()
     reset_cycle_stages()
+    spans.reset()

@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 import re
 import threading
+from bisect import bisect_left
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 _METRIC_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
@@ -212,12 +213,15 @@ class _HistogramChild:
 
     def observe(self, value: float) -> None:
         with self._lock:
-            self.sum += value
-            for i, bound in enumerate(self._bounds):
-                if value <= bound:
-                    self.counts[i] += 1
-                    return
-            self.counts[-1] += 1  # the +Inf bucket
+            self._add(value)
+
+    def _add(self, value: float) -> None:
+        """One observation; the caller holds the lock. The first bucket
+        whose bound is >= value; NaN, never <= a bound, and values past
+        the last bound land in +Inf."""
+        i = bisect_left(self._bounds, value) if value == value else len(self._bounds)
+        self.sum += value
+        self.counts[i] += 1
 
 
 class Histogram(_Metric):
@@ -245,6 +249,13 @@ class Histogram(_Metric):
     def observe(self, value: float, **labelvalues: str) -> None:
         child = self.labels(**labelvalues) if labelvalues else self._default_child()
         child.observe(value)
+
+    def observe_children(self, pairs: Iterable[Tuple["_HistogramChild", float]]) -> None:
+        """Observe each ``(child, value)`` (children of this family, from
+        ``labels()``) under one acquisition of the lock."""
+        with self._lock:
+            for child, value in pairs:
+                child._add(value)
 
     def _render_child(self, key, child) -> List[str]:
         lines = []

@@ -15,6 +15,10 @@ never holds up the daemon's shutdown. Endpoints:
 - ``/debug/labels``: JSON of the last written labels with per-source
   provenance, write mode and generation; gated by ``--debug-endpoints``.
   It never carries the probe token.
+- ``/debug/spans`` (the port's own): the span ring of this process
+  (``obs/spans.py``) as Chrome trace-event JSON, on torch.profiler's
+  clock (``?base_ns=`` subtracts a profiler export's
+  ``baseTimeNanoseconds``); gated by ``--debug-endpoints``.
 - ``POST /probe``: an on-demand reconcile wake (``--reconcile=event``),
   authenticated by ``--probe-token`` (``X-TFD-Probe-Token`` or
   ``Authorization: Bearer``, compared with ``hmac.compare_digest``):
@@ -72,9 +76,9 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Optional
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
-from gpu_feature_discovery_tpu_torch.obs import metrics
+from gpu_feature_discovery_tpu_torch.obs import metrics, spans
 from gpu_feature_discovery_tpu_torch.obs.registry import CONTENT_TYPE, Registry
 
 log = logging.getLogger("tfd.obs")
@@ -318,6 +322,17 @@ def _make_handler(
                 self._reply(200 if ok else 503, (detail + "\n").encode())
             elif path == "/debug/labels" and debug_endpoints:
                 body = json.dumps(state.debug_snapshot(), indent=2, sort_keys=True)
+                self._reply(200, body.encode() + b"\n", "application/json")
+            elif path == "/debug/spans" and debug_endpoints:
+                # ?base_ns= takes a profiler export's baseTimeNanoseconds,
+                # so the two files' ts share an origin.
+                query = parse_qs(urlsplit(self.path).query)
+                try:
+                    base_ns = int(query.get("base_ns", ["0"])[-1])
+                except ValueError:
+                    self._reply(400, b"base_ns: want an integer (ns)\n")
+                    return
+                body = json.dumps(spans.chrome_trace(base_ns))
                 self._reply(200, body.encode() + b"\n", "application/json")
             elif path == "/peer/snapshot" and peer_snapshot is not None:
                 if not self._peer_auth_ok():

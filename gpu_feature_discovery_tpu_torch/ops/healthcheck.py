@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from gpu_feature_discovery_tpu_torch.native import nvml
+from gpu_feature_discovery_tpu_torch.utils import timing
 from gpu_feature_discovery_tpu_torch.ops import device_timing
 from gpu_feature_discovery_tpu_torch.ops.collectives import (
     DataParallelGrad,
@@ -952,6 +953,7 @@ def measure_node_health(
     probe and of the whole process so far, so a caller in another process
     can count the kernel's launches."""
     t_total = time.perf_counter()
+    t_prepare = timing.now_ns()
     launches_before = hbm_stream_sum.launches
     if devices is None:
         if not torch.cuda.is_available():
@@ -972,6 +974,9 @@ def measure_node_health(
     elif ici and len(devices) < 2:
         # An explicit request must fail loudly: one device has no ring.
         raise ValueError("ici sweep requested but only one local device")
+    # The device window: the first launch (the warm-up's, when the probe
+    # pays first use) to the last readback.
+    t_launch = timing.now_ns()
     if on_cuda:
         report = _measure_node_health_traced(
             devices, size=size, depth=depth, iters=iters, per_chip=per_chip
@@ -1054,6 +1059,8 @@ def measure_node_health(
         sweep = ici_ring_sweep(chip_mesh(devices))
         report["ici_ok"] = sweep["links_ok"] and sweep["allreduce_ok"]
         report["phases"]["ici_ms"] = round((time.perf_counter() - t1) * 1e3, 3)
+    # The last readback is behind: the device window ends here.
+    t_device = timing.now_ns()
     if report.get("chips_allreduce_ok") is False:
         # A corrupt reduction is a collective fault: fold it into the
         # published verdict even when the sweep passed or did not run.
@@ -1063,4 +1070,7 @@ def measure_node_health(
         hbm_stream_sum.launches - launches_before
     )
     report["phases"]["hbm_stream_sum_launches_process"] = hbm_stream_sum.launches
+    timing.emit("probe.prepare", t_prepare, t_launch)
+    timing.emit("probe.device", t_launch, t_device)
+    timing.emit("probe.report", t_device, timing.now_ns())
     return report

@@ -75,6 +75,7 @@ from typing import Dict, Optional
 
 from gpu_feature_discovery_tpu_torch.config.spec import config_to_dict
 from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
+from gpu_feature_discovery_tpu_torch.obs import spans as obs_spans
 from gpu_feature_discovery_tpu_torch.resource import registry
 from gpu_feature_discovery_tpu_torch.resource.types import Manager, ResourceError
 from gpu_feature_discovery_tpu_torch.sandbox import probe
@@ -93,6 +94,7 @@ from gpu_feature_discovery_tpu_torch.sandbox.snapshot import (
     SnapshotChip,
     SnapshotManager,
 )
+from gpu_feature_discovery_tpu_torch.utils import timing
 
 log = logging.getLogger("tfd.sandbox")
 
@@ -250,7 +252,7 @@ class _HealthProbe:
         # first saw this worker's context, before its first allocation.
         self.context_used: Optional[list] = None
 
-    def _run(self, devices, opts: dict) -> None:
+    def _run(self, devices, opts: dict, span_ctx) -> None:
         from gpu_feature_discovery_tpu_torch.ops.healthcheck import (
             is_busy_error,
             measure_node_health,
@@ -261,7 +263,8 @@ class _HealthProbe:
         error = None
         with self._chip_lock:
             try:
-                report = measure_node_health(devices=devices, **opts)
+                with timing.adopt(span_ctx):
+                    report = measure_node_health(devices=devices, **opts)
             except Exception as e:  # noqa: BLE001 - shipped to the parent
                 error = e
             busy = error is not None and is_busy_error(error)
@@ -300,7 +303,8 @@ class _HealthProbe:
             if devices is None:
                 return {"status": "unacquirable"}
             self._thread = threading.Thread(
-                target=self._run, args=(devices, health_options(req)),
+                target=self._run,
+                args=(devices, health_options(req), timing.context()),
                 name="tfd-broker-health", daemon=True,
             )
             self._thread.start()
@@ -314,8 +318,18 @@ class _HealthProbe:
         return outcome or {"status": "probe-failed", "error": "probe thread died"}
 
 
-def _child_prewarm(health_probe: _HealthProbe, per_chip: bool = True,
-                   acquire=None) -> None:
+def _child_prewarm(health_probe: _HealthProbe, per_chip: bool, acquire,
+                   startup) -> None:
+    """``_prewarm`` under ``worker.prewarm``; ``startup`` is the start-up
+    tree's ``(id, start)``, whose root ``worker.start`` ends with it."""
+    start_id, t_start = startup
+    with timing.adopt((0, start_id)), timing.span("worker.prewarm"):
+        _prewarm(health_probe, per_chip, acquire)
+    obs_spans.record("worker.start", t_start, timing.now_ns(), start_id, 0, 0)
+
+
+def _prewarm(health_probe: _HealthProbe, per_chip: bool = True,
+             acquire=None) -> None:
     """Warm-start: build the kernel, capture the burn-in graph and run
     every probe once right after init, OFF the label-serving path (a
     background thread: ``snapshot`` requests serve meanwhile), so the
@@ -399,32 +413,70 @@ def _classic_devices(manager):
     return acquire
 
 
+# The ops a worker names its request spans by; any other is "other", so
+# no client-chosen value becomes a span name.
+_SPAN_OPS = frozenset({"ping", "snapshot", "health", "memory"})
+
+
+def _span_fields(resp: dict) -> dict:
+    """The spans this worker ended since its last reply, with what the
+    labeling process needs to fold them: this pid and its clock's offset
+    to torch.profiler's."""
+    spans = obs_spans.drain()
+    if spans:
+        resp["spans"] = spans
+        resp["span_pid"] = os.getpid()
+        resp["span_clock"] = list(obs_spans.cached_profiler_offset())
+    return resp
+
+
 def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"",
-                backend: Optional[str] = None) -> None:
+                backend: Optional[str] = None,
+                started_ns: Optional[int] = None) -> None:
     """The worker body: select + init the backend ONCE, report ready,
     then serve requests until EOF or a shutdown request. Never returns;
     every path leaves through os._exit. ``buf`` holds request bytes read
     past the first (config) frame. ``backend`` keys the worker to one
     registry token, whose provider it builds instead of the classic
-    selection; only a gpu-family worker runs the burn-in."""
+    selection; only a gpu-family worker runs the burn-in.
+
+    Spans: each request runs under ``worker.<op>``, from its frame's
+    arrival to its reply, in the cycle and under the parent the frame
+    names; the start-up tree ``worker.start`` (from ``started_ns``, the
+    parent's spawn) holds ``worker.import``, ``worker.cuda_init``,
+    ``worker.enumerate`` and ``worker.prewarm``. Every reply carries the
+    spans ended since the last (``_span_fields``)."""
     from gpu_feature_discovery_tpu_torch.resource import factory, registry
 
+    obs_spans.ship()
+    start_id = obs_spans.new_id()
+    t_start = started_ns or timing.now_ns()
     gpu_worker = backend is None or (
         registry.provider_for(backend).family == registry.FAMILY_GPU
     )
+    burnin = config.flags.tfd.with_burnin and gpu_worker
     acquire = None
     try:
-        if backend is None:
-            manager = factory.select_manager(config)
-        else:
-            manager = registry.select_backend_manager(config, backend)
-        manager.init()
-        if gpu_worker:
-            acquire = _classic_devices(manager)
-        if config.flags.tfd.with_burnin and gpu_worker:
-            # The probe's imports (torch) belong to the spawn, under its
-            # budget, not to the first health request's bounded wait.
-            import gpu_feature_discovery_tpu_torch.ops.healthcheck  # noqa: F401
+        with timing.adopt((0, start_id)):
+            if burnin:
+                # The probe's imports (torch) belong to the spawn, under its
+                # budget, not to the first health request's bounded wait.
+                import gpu_feature_discovery_tpu_torch.ops.healthcheck  # noqa: F401
+            t_import = timing.now_ns()
+            timing.emit("worker.import", t_start, t_import)
+            if burnin:
+                # CUDA's initialisation; its context comes with the pre-warm.
+                sys.modules["torch"].cuda.device_count()
+            t_cuda = timing.now_ns()
+            timing.emit("worker.cuda_init", t_import, t_cuda)
+            if backend is None:
+                manager = factory.select_manager(config)
+            else:
+                manager = registry.select_backend_manager(config, backend)
+            manager.init()
+            if gpu_worker:
+                acquire = _classic_devices(manager)
+            timing.emit("worker.enumerate", t_cuda, timing.now_ns())
     except BaseException as e:  # noqa: BLE001 - shipped to the parent
         try:
             _write_frame(resp_w, {
@@ -438,22 +490,26 @@ def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"",
     # Serialises the devices between the pre-warm and health requests.
     chip_lock = threading.Lock()
     health_probe = _HealthProbe(chip_lock, acquire)
-    if config.flags.tfd.with_burnin and gpu_worker:
+    if burnin:
         from gpu_feature_discovery_tpu_torch.lm.health import _chip_probe_opts
 
         threading.Thread(
             target=_child_prewarm,
             # The parent's resolution: --chip-probes=off must not warm the
             # per-device verdict pass.
-            args=(health_probe, _chip_probe_opts(config)[0], acquire),
+            args=(health_probe, _chip_probe_opts(config)[0], acquire,
+                  (start_id, t_start)),
             name="tfd-broker-prewarm",
             daemon=True,
         ).start()
+    else:
+        obs_spans.record("worker.start", t_start, timing.now_ns(), start_id, 0, 0)
 
     while True:
         frame, buf = _child_read_request(req_r, buf)
         if frame is None:
             os._exit(0)  # the parent closed the pipe (or sent garbage)
+        received = timing.now_ns()
         try:
             req = json.loads(frame.decode())
         except ValueError:
@@ -469,6 +525,12 @@ def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"",
             signal.signal(signal.SIGSEGV, signal.SIG_DFL)
             os.kill(os.getpid(), signal.SIGSEGV)
         op = req.get("op")
+        try:
+            request_span = timing.Open(
+                f"worker.{op if op in _SPAN_OPS else 'other'}", start=received,
+                ctx=(int(req.get("cycle") or 0), int(req.get("parent") or 0)))
+        except (TypeError, ValueError):
+            request_span = timing.Open("worker.other", start=received, ctx=(0, 0))
         try:
             if op == "ping":
                 resp = {"status": "ok"}
@@ -497,8 +559,9 @@ def _child_main(req_r: int, resp_w: int, config, buf: bytes = b"",
             # must not kill the held backend; the parent decides whether
             # to degrade the cycle or recycle the worker.
             resp = {"status": "error", "error_type": type(e).__name__, "error": str(e)}
+        request_span.end()
         try:
-            _write_frame(resp_w, resp)
+            _write_frame(resp_w, _span_fields(resp))
         except OSError:
             os._exit(0)
 
@@ -613,6 +676,7 @@ class BrokerClient:
         )
         stderr_file.close()
         start = time.monotonic()
+        spawn_ns = timing.now_ns()
         pid, req_w, resp_r = probe.spawn_child("broker", stderr_file.name)
         # Registered like any probe child (kills go through the registry)
         # but exempt from the epoch-close sweep.
@@ -625,6 +689,7 @@ class BrokerClient:
                 "config": config_to_dict(self._config), "backend": self._backend,
                 "hang": hang, "segv": segv,
                 "providers": registry.child_provider_docs(),
+                "spawn_ns": spawn_ns,
             })
         except OSError:
             pass  # died already: the READY read sees EOF
@@ -848,6 +913,10 @@ class BrokerClient:
                 payload["crash"] = True
             pid = self.pid
             stderr_path = self._stderr_path
+            # The round trip's span; the frame names it as the parent of
+            # the worker's, with the cycle.
+            rpc = timing.Open(f"broker.rpc.{op}")
+            payload["cycle"], payload["parent"] = rpc.cycle, rpc.id
             start = time.monotonic()
             with self._pid_lock:
                 self._inflight = True
@@ -938,6 +1007,9 @@ class BrokerClient:
             finally:
                 with self._pid_lock:
                     self._inflight = False
+                rpc.end()
+            obs_spans.fold(doc.pop("spans", None), rpc.id, rpc.cycle,
+                           pid=doc.pop("span_pid", None), offset=doc.pop("span_clock", None))
             obs_metrics.BROKER_REQUESTS.inc()
             self._served += 1
             if self._max_requests and self._served >= self._max_requests:

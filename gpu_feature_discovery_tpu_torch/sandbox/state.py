@@ -90,7 +90,8 @@ class LabelStateStore:
         try:
             os.makedirs(self._dir, exist_ok=True)
             _write_file_atomically(
-                self._path, json.dumps(doc, sort_keys=True).encode(), STATE_MODE
+                self._path, json.dumps(doc, sort_keys=True).encode(), STATE_MODE,
+                fsync_file="state",
             )
             self._last_saved = dict(labels)
             return True

@@ -160,7 +160,7 @@ def main() -> None:
         from gpu_feature_discovery_tpu_torch.sandbox.broker import _child_main
 
         _child_main(CHILD_REQUEST_FD, CHILD_RESPONSE_FD, config, buf,
-                    doc.get("backend"))
+                    doc.get("backend"), started_ns=doc.get("spawn_ns"))
     finally:
         os._exit(1)
 

@@ -356,7 +356,14 @@ def test_kill_child_reaches_worker_mid_spawn(tmp_path):
 # ---------------------------------------------------------------------------
 
 DOCS = [{"op": "ping"}, {"status": "ok", "snapshot": {"chips": [1, 2]}},
-        {"status": "warming"}, {"op": "health", "sick_chips": [1], "wait_s": 2.0}]
+        {"status": "warming"}, {"op": "health", "sick_chips": [1], "wait_s": 2.0},
+        # Port-only fields, added beside the twin's: the request's cycle and
+        # parent span, and the reply's spans with the worker's pid and clock
+        # offset (obs/spans.py). The twin's reader passes them through.
+        {"op": "health", "wait_s": 2.0, "cycle": 7, "parent": (4242 << 32) | 9},
+        {"status": "warming", "spans": [[(4243 << 32) | 1, (4242 << 32) | 9, 7,
+                                         "worker.health", 10, 20, 4243, 1]],
+         "span_pid": 4243, "span_clock": [1792326706000000000, "torch.profiler"]}]
 
 
 @pytest.mark.parametrize("writer,reader", [

@@ -321,3 +321,39 @@ def test_allreduce_probe_and_sweep_on_card(dev):
     assert sweep == {"links_ok": True, "allreduce_ok": True, "devices": 1}
     with pytest.raises(ValueError, match="only one local device"):
         healthcheck.measure_node_health(devices=[dev], per_chip=True, ici=True)
+
+
+def test_a_probes_cuda_operations_lie_inside_its_device_span(dev):
+    """The shared clock: one probe under torch.profiler (CUDA activities),
+    its span export's measured offset applied to the program's spans:
+    every CUDA operation of the probe lies inside ``probe.device``, within
+    50 us at each end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpu_feature_discovery_tpu_torch.obs import spans
+    from gpu_feature_discovery_tpu_torch.utils import timing
+
+    healthcheck.measure_node_health(devices=[dev], per_chip=True)  # first use
+    torch.cuda.synchronize()
+    spans.reset()
+    timing.begin_cycle()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        healthcheck.measure_node_health(devices=[dev], per_chip=True)
+    spans.end_cycle()
+    export = spans.chrome_trace()
+    offset = export["otherData"]["offsets_ns"][str(spans._pid)]
+    window = [s for s in spans.snapshot() if s[3] == "probe.device"]
+    assert len(window) == 1
+    lo, hi = window[0][4] + offset["offset_ns"], window[0][5] + offset["offset_ns"]
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    assert len(ops) >= 5, ops
+    early = [(n, lo - s) for n, s, _ in ops if s < lo - 50_000]
+    late = [(n, e - hi) for n, _, e in ops if e > hi + 50_000]
+    assert not early and not late, (early, late)
+    first = min(s for _, s, _ in ops) - lo
+    last = hi - max(e for _, _, e in ops)
+    print(f"probe.device {(hi - lo) / 1e3:.1f} us; first op {first / 1e3:.1f} us after "
+          f"its start, last op ends {last / 1e3:.1f} us before its end; "
+          f"{len(ops)} ops; offset {offset['offset_ns']} ns from {offset['source']}")

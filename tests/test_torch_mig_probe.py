@@ -414,10 +414,12 @@ def test_no_label_key_metric_family_or_flag_beyond_the_twins(layout, strategy):
     patterns = _twin_health_key_patterns()
     assert all(any(p.match(k) for p in patterns) for k in labels), sorted(labels)
     # The parent's flags are the twin's less its two TPU-only ones; its
-    # metric families the twin's.
+    # metric families the twin's and the port's three own (the span tree
+    # and the fsync count).
     assert {f.name for f in FLAG_DEFS} == \
         {f.name for f in TWIN_FLAG_DEFS} - {"libtpu-path", "pjrt-create-options"}
-    assert set(obs_metrics.REGISTRY.families()) == set(twin_metrics.REGISTRY.families())
+    assert set(obs_metrics.REGISTRY.families()) == set(twin_metrics.REGISTRY.families()) | {
+        "tfd_span_duration_seconds", "tfd_probe_gap_seconds", "tfd_fsyncs_total"}
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,11 @@ from gpu_feature_discovery_tpu_torch.utils import timing
 from pathlib import Path
 
 DOCS = Path(__file__).resolve().parent.parent / "docs" / "observability.md"
+TORCH_DOCS = Path(__file__).resolve().parent.parent / "docs" / "torch" / "observability.md"
+
+# The port's own families, with no twin: the span tree (obs/spans.py) and
+# the atomic writer's fsync count. Each is documented in the port's docs.
+PORT_ONLY = {"tfd_span_duration_seconds", "tfd_probe_gap_seconds", "tfd_fsyncs_total"}
 
 # Twin families whose layers the port does not have yet: none since the
 # fleet collector and its --max-inflight-requests gate were ported.
@@ -157,11 +162,24 @@ def test_every_port_family_is_the_twins_and_is_documented():
     port = metrics.REGISTRY.families()
     twin = twin_metrics.REGISTRY.families()
     docs = DOCS.read_text()
+    torch_docs = TORCH_DOCS.read_text()
     for name, fam in port.items():
+        if name in PORT_ONLY:
+            assert name not in twin, f"{name} is a twin family"
+            assert f"`{name}`" in torch_docs, f"{name} is not in docs/torch/observability.md"
+            continue
         assert name in twin, f"{name} is not a twin family"
         assert _signature(fam) == _signature(twin[name]), name
         assert f"`{name}`" in docs, f"{name} is not in docs/observability.md"
-    assert len(port) == 87
+    assert set(port) >= PORT_ONLY
+    assert len(port) == 90
+    # The span families' buckets: 50 us doubling to about 30 s; the twin's
+    # default buckets are untouched.
+    for name in ("tfd_span_duration_seconds", "tfd_probe_gap_seconds"):
+        bounds = port[name].bounds
+        assert bounds[0] == 5e-05 and 20 <= bounds[-1] <= 30
+        assert all(abs(b / a - 2) < 1e-9 for a, b in zip(bounds, bounds[1:]))
+    assert registry.DEFAULT_BUCKETS == twin_registry.DEFAULT_BUCKETS
 
 
 def test_the_families_left_out_are_pinned():
@@ -170,7 +188,7 @@ def test_the_families_left_out_are_pinned():
     port = set(metrics.REGISTRY.families())
     twin = set(twin_metrics.REGISTRY.families())
     assert twin - port == LEFT_OUT
-    assert port <= twin
+    assert port - twin == PORT_ONLY
 
 
 def test_the_wake_reasons_are_the_twins():
@@ -326,6 +344,14 @@ def test_request_table_answers_like_the_twins(options):
         for key, (twin_answer, port_answer) in before + after:
             assert port_answer == twin_answer, key
         codes = {key: answers[0][0] for key, answers in after}
+        # /debug/spans is the port's own (obs/spans.py): outside the twin's
+        # table, answered by the port alone, behind --debug-endpoints.
+        port_spans = _request(ports[1], "GET", "/debug/spans")
+        twin_spans = _request(ports[0], "GET", "/debug/spans")
+        assert twin_spans[0] == 404
+        assert port_spans[0] == (200 if options["debug_endpoints"] else 404)
+        if options["debug_endpoints"]:
+            assert "traceEvents" in json.loads(port_spans[3])
         assert codes[("GET", "/metrics")] == 200
         assert codes[("GET", "/readyz")] == 200
         assert codes[("GET", "/peer/snapshot")] == 404
