@@ -14,7 +14,17 @@ Phases, each printing one JSON line:
                   version on the card, at the main path's shapes, with
                   its slip twins, bitwise determinism and kernels per
                   call; timed with CUDA events in turns with a library
-                  call, beside its bound and ptxas's report. Then a
+                  call, beside its bound and ptxas's report. The
+                  burn-in's RMS epilogue (one more ``kernels`` line):
+                  held to its plain version at the probe's, the CPU's
+                  and the verdicts' layers and one off the 8-float
+                  vector, on grids of 1, 16 and 132 SMs; NaN and Inf
+                  reaching rms and the checksum; its ticket counter
+                  back at 0; bad inputs refused with no launch; one
+                  layer timed as a graph of its own in turns with the
+                  plain version and ``rms_norm``; the burn-in graph's
+                  replay and kernels per replay against the same pass
+                  captured with the plain epilogue. Then a
                   seeded sweep (``--seed``, numpy) of ``hbm_stream_sum``
                   over 240 draws of 1 to 2048 chunks on grids of 1 to the
                   card's SMs: the chunk and tile patterns exact, each with
@@ -378,18 +388,25 @@ def phase_device() -> dict:
     return info
 
 
-def phase_build() -> list:
-    """The port's one kernel source, built with nvcc (a later source gets
-    its own nvcc, all started together); returns ptxas's lines."""
-    from gpu_feature_discovery_tpu_torch.ops import hbm
+def phase_build() -> dict:
+    """The port's kernel sources, each built with its own nvcc, all
+    started together; returns ptxas's lines per kernel library."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gpu_feature_discovery_tpu_torch.ops import hbm, rms_epilogue
 
     t0 = time.perf_counter()
-    path, log = hbm.build_kernel()
-    ptxas = [line for line in log.splitlines() if "ptxas" in line]
+    builders = {"hbm_stream_sum": hbm.build_kernel,
+                "rms_epilogue": rms_epilogue.build_kernel}
+    with ThreadPoolExecutor(len(builders)) as pool:
+        built = {name: pool.submit(fn) for name, fn in builders.items()}
+        built = {name: future.result() for name, future in built.items()}
+    ptxas = {name: [line for line in log.splitlines() if "ptxas" in line]
+             for name, (_, log) in built.items()}
     emit(
         "build",
         seconds=time.perf_counter() - t0,
-        libraries=[os.path.relpath(path, REPO)],
+        libraries=[os.path.relpath(path, REPO) for path, _ in built.values()],
         ptxas=ptxas,
     )
     return ptxas
@@ -446,6 +463,33 @@ def _kernel_launches_in(fn) -> dict:
                 event.name.startswith(("Memcpy", "Memset", "cudaEvent")):
             kernels[event.name] = kernels.get(event.name, 0) + 1
     return kernels
+
+
+def _kernel_us_in(fn, calls: int = TIMED_LAUNCHES) -> dict:
+    """Each device kernel that ``calls`` calls of ``fn`` ran, by name (its
+    first 96 characters): launches per call and mean device us per
+    launch, from torch.profiler. A session that recorded no kernel at
+    all (CUPTI drops records now and then) is profiled again, up to
+    three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    times = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for event in prof.events():
+            if event.device_type == torch.autograd.DeviceType.CUDA and not \
+                    event.name.startswith(("Memcpy", "Memset", "cudaEvent")):
+                times.setdefault(event.name[:96], []).append(event.time_range.elapsed_us())
+        if times:
+            break
+    return {name: {"per_call": len(us) / calls, "mean_us": sum(us) / len(us)}
+            for name, us in times.items()}
 
 
 # The seeded sweep of hbm_stream_sum against its plain version, the port's
@@ -792,6 +836,298 @@ def phase_kernels(ptxas: list) -> dict:
     return entry
 
 
+# The burn-in's RMS epilogue (ops/rms_epilogue.py) at the shapes its
+# callers use: the probe's 2048 x 2048 layers, the CPU geometry's 512, the
+# verdicts' 128, and one that is no multiple of the 8-float vector.
+EPILOGUE_SHAPES = ((2048, 2048), (512, 512), (128, 128), (37, 29))
+# The grids it is held on: one SM, a MIG 1g slice's 16, and every SM.
+EPILOGUE_SMS = (1, 16, 132)
+
+
+def bf16_ulps(a, b):
+    """Per element, how many bf16 steps lie between two bf16 tensors of
+    finite values (+0 and -0 are one value)."""
+    import torch
+
+    def ordered(t):
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def epilogue_agreement(y, got) -> dict:
+    """An epilogue's ``(carry, rms, checksum)`` on ``y`` against the plain
+    version's: the rms's relative gap, the carry's bf16 steps apart (most
+    and share of elements that differ), and the checksum (where there is
+    one) against the f32 and the f64 sum of its own carry, each over the
+    carry's absolute sum."""
+    import torch
+
+    from gpu_feature_discovery_tpu_torch.ops import rms_epilogue
+
+    carry, rms, total = got
+    plain_carry, plain_rms, _ = rms_epilogue.rms_epilogue_reference(y, torch.bfloat16)
+    ulps = bf16_ulps(carry, plain_carry)
+    out = {
+        "shape": list(y.shape),
+        "rms_rel": abs(rms.item() - plain_rms.item()) / plain_rms.item(),
+        "carry_max_ulps": int(ulps.max().item()),
+        "carry_differ_share": (ulps != 0).double().mean().item(),
+    }
+    if total is not None:
+        wide = carry.float()
+        scale = wide.abs().double().sum().item()
+        out["checksum_vs_f32_sum"] = abs(total.item() - wide.sum().item()) / scale
+        out["checksum_vs_f64_sum"] = abs(total.item() - wide.double().sum().item()) / scale
+    return out
+
+
+# Tolerances of the agreement, each with its reason: the rms differs only
+# in the order of the f32 sum of squares (per vector in f32, then f64);
+# a carry element rounds to another bf16 only where that order moved rms
+# by an ulp and the quotient lay at a rounding edge; the checksum sums
+# each 8 values in f32 and the rest in f64, so it lies within f32's
+# rounding of the f64 sum, and torch's f32 sum within its own
+# accumulation error of both.
+EPILOGUE_LIMITS = {"rms_rel": 1e-6, "carry_max_ulps": 1, "carry_differ_share": 1e-3,
+                   "checksum_vs_f32_sum": 1e-5, "checksum_vs_f64_sum": 1e-6}
+
+
+def check_epilogue_agreement(got: dict, where: str) -> None:
+    for key, limit in EPILOGUE_LIMITS.items():
+        if key in got:
+            check(got[key] <= limit, f"epilogue {where}: {key} {got[key]} over {limit}")
+
+
+# What rms_epilogue refuses before any launch: an f64 product, a strided
+# view, a 1-D tensor, an empty one, a carry in a dtype other than bf16 and
+# (on a card) a view off the 16-byte alignment of the vector loads.
+def epilogue_rejections(device) -> dict:
+    import torch
+
+    flat = torch.zeros(64 * 64 + 1, device=device)
+    cases = {
+        "float64": (torch.zeros(64, 64, dtype=torch.float64, device=device),
+                    torch.bfloat16, "float32"),
+        "non_contiguous": (torch.zeros(64, 128, device=device)[:, :64],
+                           torch.bfloat16, "contiguous"),
+        "one_d": (torch.zeros(64, device=device), torch.bfloat16, "2-D"),
+        "empty": (torch.zeros(0, 64, device=device), torch.bfloat16, "non-empty"),
+    }
+    if torch.device(device).type == "cuda":
+        cases["float16_carry"] = (torch.zeros(64, 64, device=device), torch.float16,
+                                  "bfloat16")
+        cases["misaligned"] = (flat[1:].view(64, 64), torch.bfloat16, "16-byte aligned")
+    return cases
+
+
+def check_epilogue_rejections(device, kernels_in=None) -> dict:
+    """Each case raises rms_epilogue's ValueError and launches nothing."""
+    from gpu_feature_discovery_tpu_torch.ops import rms_epilogue
+
+    out = {}
+    for name, (y, dtype, text) in epilogue_rejections(device).items():
+        before = rms_epilogue.rms_epilogue.launches
+        caught = []
+
+        def call():
+            try:
+                rms_epilogue.rms_epilogue(y, dtype, checksum=True)
+            except ValueError as e:
+                caught.append(str(e))
+
+        ran = kernels_in(call) if kernels_in is not None else {}
+        if kernels_in is None:
+            call()
+        check(caught and text in caught[0], f"{name}: {caught or 'no ValueError'}")
+        check(rms_epilogue.rms_epilogue.launches == before and not ran,
+              f"{name}: launched ({ran}) before refusing")
+        out[name] = caught[0]
+    return out
+
+
+def _plain_burnin_step(x, ws):
+    """The burn-in pass as it ran before the hand-written epilogue: the
+    products and the plain epilogue, the yardstick of the graph's time."""
+    import torch
+
+    from gpu_feature_discovery_tpu_torch.ops import healthcheck, rms_epilogue
+
+    carry = x
+    rms = torch.zeros((), dtype=torch.float32, device=x.device)
+    for w in ws:
+        carry, rms, _ = rms_epilogue.rms_epilogue_reference(
+            healthcheck._matmul_f32(carry, w), x.dtype)
+    return carry.float().sum(), rms
+
+
+def phase_rms_epilogue(ptxas: list) -> dict:
+    """The burn-in's RMS epilogue against its plain version on the card:
+    at EPILOGUE_SHAPES on random products and on the probe's own first
+    layer, on grids of EPILOGUE_SMS; NaN and Inf carried into rms and the
+    checksum; bitwise deterministic; the ticket counter back at 0; bad
+    inputs refused with no launch; two kernels per call. Timed at the
+    probe's layer in turns with the plain version and the library's
+    ``rms_norm``, beside its byte bound; and the burn-in graph's replay,
+    its kernels per replay, against the same pass captured with the plain
+    epilogue."""
+    import torch
+
+    from gpu_feature_discovery_tpu_torch.ops import healthcheck, rms_epilogue
+
+    dev = torch.device("cuda", 0)
+    device_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    agreement, worst = [], dict.fromkeys(EPILOGUE_LIMITS, 0.0)
+    for shape in EPILOGUE_SHAPES:
+        y = torch.randn(shape, generator=gen, device=dev) * 7.0
+        for sms in sorted({min(s, device_sms) for s in EPILOGUE_SMS}):
+            got = epilogue_agreement(y, rms_epilogue._launch(y, checksum=True, sms=sms))
+            check_epilogue_agreement(got, f"{shape} on {sms} SMs")
+            agreement.append({**got, "sms": sms})
+            worst = {k: max(worst[k], got[k]) for k in worst}
+    size, depth = healthcheck.CUDA_PROBE_SIZE, healthcheck.CUDA_PROBE_DEPTH
+    x, ws = healthcheck._burnin_workspace(dev, size, depth, healthcheck.PROBE_DTYPE)
+    y = healthcheck._matmul_f32(x, ws[0])
+    probe_layer = epilogue_agreement(
+        y, rms_epilogue.rms_epilogue(y, torch.bfloat16, checksum=True))
+    check_epilogue_agreement(probe_layer, "at the probe's first layer")
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    first = rms_epilogue.rms_epilogue(y, torch.bfloat16, checksum=True)
+    again = [rms_epilogue.rms_epilogue(y, torch.bfloat16, checksum=True) for _ in range(3)]
+    bitwise = all(torch.equal(bits(a), bits(b)) for call in again for a, b in zip(first, call))
+    check(bitwise, "two epilogue calls on one product differ")
+    torch.cuda.synchronize(dev)
+    counter = rms_epilogue.launch_scratch(
+        dev, torch.cuda.current_stream(dev).cuda_stream)[1].item()
+    check(counter == 0, f"the ticket counter holds {counter} after the launches")
+
+    poisoned = {}
+    for name, value in (("nan", float("nan")), ("inf", float("inf"))):
+        bad = y.clone()
+        bad[size // 3, size // 5] = value
+        carry, rms, total = rms_epilogue.rms_epilogue(bad, torch.bfloat16, checksum=True)
+        poisoned[name] = {"rms": rms.item(), "checksum": total.item()}
+        check(not math.isfinite(rms.item()) and not math.isfinite(total.item()),
+              f"a {name} in y left rms {rms.item()} / checksum {total.item()} finite")
+    verdicts, _ = healthcheck.sharded_chip_verdicts(
+        [dev], healthcheck.VERDICT_MAX_SIZE, healthcheck.VERDICT_MAX_DEPTH, sick_chips={0})
+    check(verdicts == [False], f"the NaN-poisoned verdict pass read {verdicts}")
+
+    rejected = check_epilogue_rejections(dev, kernels_in=_kernel_launches_in)
+    launched = _kernel_launches_in(
+        lambda: rms_epilogue.rms_epilogue(y, torch.bfloat16, checksum=True))
+    check(sum(launched.values()) == 2 and all("rms_" in k for k in launched),
+          f"one call ran {launched}, want rms_sumsq and rms_scale_cast")
+
+    # The burn-in pass: the probe's graph against the same pass captured
+    # with the plain epilogue, kernels per replay and device ms in turns.
+    healthcheck.reset_probe_workspaces()
+    graph, cs, rms = healthcheck._burnin_graph(dev, size, depth)
+    x, ws = healthcheck._burnin_workspace(dev, size, depth, healthcheck.PROBE_DTYPE)
+    side = torch.cuda.Stream(dev)
+    _plain_burnin_step(x, ws)
+    plain_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(plain_graph, stream=side, capture_error_mode="thread_local"):
+        plain_cs, plain_rms = _plain_burnin_step(x, ws)
+    graph.replay()
+    plain_graph.replay()
+    torch.cuda.synchronize(dev)
+    eager_cs, eager_rms = healthcheck.burnin_step(x, ws)
+    check(cs.item() == eager_cs.item() and rms.item() == eager_rms.item(),
+          f"graph {cs.item()} / {rms.item()} against eager {eager_cs.item()} / "
+          f"{eager_rms.item()}")
+    pass_gaps = {"checksum_rel": abs(cs.item() - plain_cs.item()) / abs(plain_cs.item()),
+                 "rms_rel": abs(rms.item() - plain_rms.item()) / plain_rms.item()}
+    per_replay = {"kernel": _kernel_launches_in(graph.replay),
+                  "plain": _kernel_launches_in(plain_graph.replay)}
+    pass_turns = in_turns({"kernel": graph.replay, "plain": plain_graph.replay})
+
+    # One layer's epilogue. Queueing a call from the host takes longer
+    # than its device time, so back-to-back calls would time the host:
+    # each call is captured in a graph of its own and the replays timed.
+    y = healthcheck._matmul_f32(x, ws[0])
+
+    def graphed(fn):
+        fn()
+        stream = torch.cuda.Stream(dev)
+        with torch.cuda.stream(stream):
+            rms_epilogue.launch_scratch(dev, stream.cuda_stream)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=stream, capture_error_mode="thread_local"):
+            fn()
+        return g
+
+    layer_graphs = {
+        "kernel": graphed(lambda: rms_epilogue.rms_epilogue(y, torch.bfloat16, True)),
+        "plain": graphed(lambda: rms_epilogue.rms_epilogue_reference(y, torch.bfloat16, True)),
+        "library": graphed(
+            lambda: torch.nn.functional.rms_norm(y, y.shape, eps=rms_epilogue.EPS)),
+    }
+    layer_turns = in_turns({name: g.replay for name, g in layer_graphs.items()})
+    grid_graphs = {sms: graphed(lambda: rms_epilogue._launch(y, True, sms=sms))
+                   for sms in sorted({min(s, device_sms) for s in EPILOGUE_SMS})}
+    grids_ms = {sms: cuda_ms(g.replay) for sms, g in grid_graphs.items()}
+    layer_kernels = {name: _kernel_us_in(g.replay) for name, g in layer_graphs.items()}
+    pass_kernels = {"kernel": _kernel_us_in(graph.replay),
+                    "plain": _kernel_us_in(plain_graph.replay)}
+    host_us = host_us_per_call(lambda: rms_epilogue.rms_epilogue(y, torch.bfloat16, True))
+    # Bound: y read once and the bf16 carry written once (the two scalars
+    # are nothing); the design's own traffic adds the second read of y,
+    # 42 MB a layer from HBM at most.
+    nbytes = y.numel() * (4 + 2)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ms = layer_turns["median_ms"]["kernel"]
+    entry = {
+        "name": "rms_epilogue",
+        "route": "cuda",
+        "source": "gpu_feature_discovery_tpu_torch/ops/csrc/rms_epilogue.cu",
+        "replaces": "none (the burn-in's RMS epilogue, left to XLA by the JAX package)",
+        "ms": ms,
+        "plain_ms": layer_turns["median_ms"]["plain"],
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": layer_turns["median_ms"]["library"],
+    }
+    emit(
+        "kernels",
+        kernels=[{
+            **entry,
+            "shape": [size, size],
+            "probe_layer": probe_layer,
+            "agreement_worst": worst,
+            "agreement": agreement,
+            "random_bitwise_equal": bitwise,
+            "poisoned": poisoned,
+            "rejected": rejected,
+            "kernels_per_call": launched,
+            "in_turns": layer_turns,
+            "kernel_us": layer_kernels,
+            "grids_ms": grids_ms,
+            "host_us_per_call": host_us,
+            "pct_of_bound": 100 * bound_ms / ms,
+            "ptxas": ptxas,
+            "pass": {
+                "kernels_per_replay": {k: sum(v.values()) for k, v in per_replay.items()},
+                "kernels": per_replay,
+                "in_turns": pass_turns,
+                "kernel_us": pass_kernels,
+                "bound_ms": healthcheck.burnin_flops(size, depth) / 989e12 * 1e3,
+                "gaps_to_plain": pass_gaps,
+            },
+        }],
+    )
+    del graph, plain_graph, layer_graphs, grid_graphs
+    healthcheck.reset_probe_workspaces()
+    torch.cuda.empty_cache()
+    return entry
+
+
 def _max_rel(got, want) -> float:
     import numpy as np
 
@@ -988,7 +1324,7 @@ def phase_main_path(entries: dict, count: int) -> None:
     import torch
 
     from gpu_feature_discovery_tpu_torch.cmd.main import start
-    from gpu_feature_discovery_tpu_torch.ops import hbm
+    from gpu_feature_discovery_tpu_torch.ops import hbm, rms_epilogue
 
     capture = _PhaseCapture()
     lm_log = logging.getLogger("tfd.lm")
@@ -999,12 +1335,14 @@ def phase_main_path(entries: dict, count: int) -> None:
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         out = os.path.join(tmp, "tfd")
         hbm.hbm_stream_sum.launches = 0
+        rms_epilogue.rms_epilogue.launches = 0
         t0 = time.perf_counter()
         rc = start(["--oneshot", "--with-burnin", "--backends", "gpu",
                     "--output-file", out])
         torch.cuda.synchronize()
         cycle_s = time.perf_counter() - t0
-        launches = {"hbm_stream_sum": hbm.hbm_stream_sum.launches}
+        launches = {"hbm_stream_sum": hbm.hbm_stream_sum.launches,
+                    "rms_epilogue": rms_epilogue.rms_epilogue.launches}
         check(rc == 0, f"oneshot cycle exited {rc}")
         labels = _read_labels(out)
     lm_log.removeHandler(capture)
@@ -2736,6 +3074,7 @@ def phase_slice(entries: dict, smi: str) -> dict:
     check(PER_DEVICE_LABELS, "the slice phase reads each daemon's per-device "
           "verdict (chips.sick), which a node whose CUDA lists a subset of "
           "NVML's GPUs does not publish")
+    from gpu_feature_discovery_tpu_torch.ops import kernel_cache
     from gpu_feature_discovery_tpu_torch.peering.coordinator import CONFIRM_POLLS
     from gpu_feature_discovery_tpu_torch.sandbox import broker
 
@@ -2747,8 +3086,8 @@ def phase_slice(entries: dict, smi: str) -> dict:
     procs, pids = [], {}
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         # One fresh kernel cache for the three: their workers' first use
-        # builds the same library at once (a per-pid temp file, then an
-        # atomic rename).
+        # builds the same libraries at once (a per-pid temp file, then an
+        # atomic rename), and the cache ends with one of each.
         cache = os.path.join(tmp, "kernel-cache")
         outs = [os.path.join(tmp, f"w{i}.tfd") for i in range(SLICE_WORKERS)]
         logs = [os.path.join(tmp, f"w{i}.log") for i in range(SLICE_WORKERS)]
@@ -2848,7 +3187,8 @@ def phase_slice(entries: dict, smi: str) -> dict:
                       for i in range(SLICE_WORKERS)), f"CUDA and NVML mappings: {maps}")
             used_mib = _device_used_mib() - used_before
             libs = sorted(os.listdir(cache))
-            check(len(libs) == 1 and libs[0].endswith(".so"),
+            check(libs == sorted(kernel_cache.library_path(src).name
+                                 for src in kernel_cache.KERNEL_SOURCES),
                   f"the shared kernel cache holds {libs}")
 
             fleet_checks = _fleet_steady(fleet, ports)
@@ -4313,6 +4653,8 @@ side = torch.cuda.Stream(dev)
 used("side_stream")
 hc.burnin_step(xb, wsb)
 used("cublas_first_pass")
+with torch.cuda.stream(side):
+    hc.rms_epilogue.launch_scratch(dev, side.cuda_stream)
 graph = torch.cuda.CUDAGraph()
 with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
     cs, rms = hc.burnin_step(xb, wsb)
@@ -5130,7 +5472,8 @@ def main(argv=None) -> int:
         return 2
     info = phase_device()
     ptxas = phase_build()
-    entries = {"hbm_stream_sum": phase_kernels(ptxas)}
+    entries = {"hbm_stream_sum": phase_kernels(ptxas["hbm_stream_sum"]),
+               "rms_epilogue": phase_rms_epilogue(ptxas["rms_epilogue"])}
     phase_collectives(info["count"])
     phase_main_path(entries, info["count"])
     facts = phase_host_facts(info["count"])

@@ -8,7 +8,9 @@ The probe behind the health labeler (lm/health.py, gated by
 - ``burnin_step`` chains bf16 matmuls with f32 output and an RMS
   normalisation after every layer, so "all outputs finite" is a
   meaningful health signal at any depth. The products are library calls
-  (cuBLAS through ``torch.mm``), as the twin left them to XLA.
+  (cuBLAS through ``torch.mm``), as the twin left them to XLA; on CUDA
+  the normalisation and the checksum are two hand-written kernels per
+  layer (ops/rms_epilogue.py).
 - The HBM probe is the hand-written stream-sum kernel (ops/hbm.py).
 - ``sharded_chip_verdicts`` runs a capped burn-in on every local device
   and all-reduces the healthy count over the chip mesh — the twin's
@@ -25,7 +27,7 @@ The probe behind the health labeler (lm/health.py, gated by
 
 On CUDA the rates come from CUDA events (ops/device_timing.py) at the
 2048x4 / 256 MiB geometry. The twin times one compiled XLA program, pure
-device time; a pass of eager PyTorch launches about 40 kernels, and an
+device time; a pass of eager PyTorch launches a dozen kernels, and an
 event pair around them would wait on the host queueing them. So the
 timed burn-in pass is a CUDA graph, captured once per (device, size,
 depth) during the warm-up and replayed between the event pair: the
@@ -56,7 +58,7 @@ import torch
 
 from gpu_feature_discovery_tpu_torch.native import nvml
 from gpu_feature_discovery_tpu_torch.utils import timing
-from gpu_feature_discovery_tpu_torch.ops import device_timing
+from gpu_feature_discovery_tpu_torch.ops import device_timing, rms_epilogue
 from gpu_feature_discovery_tpu_torch.ops.collectives import (
     DataParallelGrad,
     Mesh,
@@ -140,16 +142,20 @@ def burnin_step(
     """One burn-in pass: chain ``x @ ws[i]`` for every layer of ``ws``.
 
     Returns ``(checksum, rms)`` as 0-d f32 tensors on the inputs' device;
-    a healthy device yields finite values for both."""
+    a healthy device yields finite values for both. After every product
+    the RMS epilogue (ops/rms_epilogue.py: the plain lines on the CPU,
+    two kernels on CUDA) normalises the carry, and the last layer's also
+    sums it into the checksum."""
     carry = x
-    rms = torch.zeros((), dtype=torch.float32, device=x.device)
-    for w in ws:
+    checksum = rms = None
+    for i, w in enumerate(ws):
         y = _matmul_f32(carry, w)
-        # RMS-normalise in f32, then return to the matmul dtype: keeps the
-        # chain bounded at any depth.
-        rms = torch.sqrt(torch.mean(torch.square(y)) + 1e-6)
-        carry = (y / rms).to(x.dtype)
-    return carry.float().sum(), rms
+        carry, rms, checksum = rms_epilogue.rms_epilogue(
+            y, x.dtype, checksum=i == len(ws) - 1
+        )
+    if checksum is None:  # no layer
+        return carry.float().sum(), torch.zeros((), dtype=torch.float32, device=x.device)
+    return checksum, rms
 
 
 def burnin_flops(size: int, depth: int) -> float:
@@ -270,6 +276,10 @@ def _burnin_graph(device: torch.device, size: int, depth: int) -> tuple:
         # for this stream, which the verdicts then reuse. A warm-up on
         # another stream would keep a workspace that nothing runs on.
         burnin_step(xb, wsb)
+        # The epilogue's zeroed scratch for the capture's stream, which a
+        # capture cannot make.
+        with torch.cuda.stream(side):
+            rms_epilogue.launch_scratch(device, side.cuda_stream)
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
@@ -286,11 +296,13 @@ def _burnin_graph(device: torch.device, size: int, depth: int) -> tuple:
 
 
 def reset_probe_workspaces() -> None:
-    """Drop every per-device probe cache: the captured burn-in graphs,
-    the resident burn-in inputs, the HBM stream buffers and the stream
-    kernel's scratch, the all-reduce payloads, the timing gate's sizes
-    and the warmed-probe memo."""
+    """Drop every per-device probe cache: the captured burn-in graphs
+    and the epilogue's scratch they captured, the resident burn-in
+    inputs, the HBM stream buffers and the stream kernel's scratch, the
+    all-reduce payloads, the timing gate's sizes and the warmed-probe
+    memo."""
     _burnin_graphs.clear()
+    rms_epilogue.reset_scratch()
     stream_workspace.cache_clear()
     launch_scratch.cache_clear()
     _burnin_workspace.cache_clear()
@@ -314,6 +326,8 @@ BUSY_ERROR_TEXTS = (
     # The stream kernel's launch (ops/hbm.py) returned
     # cudaErrorMemoryAllocation.
     "hbm_stream_sum kernel launch failed: cudaError 2",
+    # The same of the burn-in's epilogue kernels (ops/rms_epilogue.py).
+    "rms_epilogue kernel launch failed: cudaError 2",
 )
 # A text must not run on into a digit ("cudaError 2" is not "cudaError 20").
 _BUSY_ERROR = re.compile("|".join(re.escape(t) + r"(?!\d)" for t in BUSY_ERROR_TEXTS))

@@ -55,9 +55,11 @@ RESOLVED_CACHE_DIR_ENV = "TFD_RESOLVED_COMPILATION_CACHE_DIR"
 # build/ at the repo root; .gitignore lists it.
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
-# Every hand-written kernel the probe builds (ops/hbm.py).
+# Every hand-written kernel source the probe builds: the HBM stream sum
+# (ops/hbm.py) and the burn-in's RMS epilogue (ops/rms_epilogue.py).
 HBM_STREAM_SUM_CU = Path(__file__).resolve().parent / "csrc" / "hbm_stream_sum.cu"
-KERNEL_SOURCES = (HBM_STREAM_SUM_CU,)
+RMS_EPILOGUE_CU = Path(__file__).resolve().parent / "csrc" / "rms_epilogue.cu"
+KERNEL_SOURCES = (HBM_STREAM_SUM_CU, RMS_EPILOGUE_CU)
 
 TARGET = "sm_90a"
 NVCC_FLAGS = (

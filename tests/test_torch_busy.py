@@ -101,6 +101,7 @@ BUSY = {
     "cublas": RuntimeError(
         "CUDA error: CUBLAS_STATUS_ALLOC_FAILED when calling `cublasCreate(handle)`"),
     "kernel": RuntimeError("hbm_stream_sum kernel launch failed: cudaError 2"),
+    "epilogue-kernel": RuntimeError("rms_epilogue kernel launch failed: cudaError 2"),
     "mig-fold": healthcheck.DeviceBusy("MIG device(s) busy: MIG-1: CUDA error: out of memory"),
     "capture-end": _raised_while_handling(
         torch.OutOfMemoryError("CUDA out of memory. Tried to allocate 2.00 MiB."),
@@ -115,6 +116,8 @@ NOT_BUSY = {
     "launch-failure": RuntimeError("CUDA error: unspecified launch failure"),
     "kernel-other-code": RuntimeError("hbm_stream_sum kernel launch failed: cudaError 20"),
     "kernel-illegal": RuntimeError("hbm_stream_sum kernel launch failed: cudaError 700"),
+    "epilogue-kernel-other-code": RuntimeError(
+        "rms_epilogue kernel launch failed: cudaError 20"),
     "cublas-execution": RuntimeError(
         "CUDA error: CUBLAS_STATUS_EXECUTION_FAILED when calling `cublasGemmEx`"),
     "no-device": RuntimeError("the pinned device is not acquirable"),

@@ -7,10 +7,12 @@ file imports no JAX, so it also runs on a card machine without it:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import math
+
 import pytest
 import torch
 
-from gpu_feature_discovery_tpu_torch.ops import hbm, healthcheck
+from gpu_feature_discovery_tpu_torch.ops import hbm, healthcheck, rms_epilogue
 
 pytestmark = pytest.mark.cuda
 
@@ -357,3 +359,117 @@ def test_a_probes_cuda_operations_lie_inside_its_device_span(dev):
     print(f"probe.device {(hi - lo) / 1e3:.1f} us; first op {first / 1e3:.1f} us after "
           f"its start, last op ends {last / 1e3:.1f} us before its end; "
           f"{len(ops)} ops; offset {offset['offset_ns']} ns from {offset['source']}")
+
+
+# ---------------------------------------------------------------------------
+# The burn-in's RMS epilogue (ops/rms_epilogue.py) against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sms", [1, 16, 132])
+@pytest.mark.parametrize("size, depth", [(2048, 4), (512, 8), (128, 2), (37, 2)])
+def test_epilogue_matches_plain_version_layer_by_layer(dev, size, depth, sms):
+    """The burn-in chain at the probe's, the CPU's and the verdicts'
+    geometries and at one whose layers are no multiple of the 8-float
+    vector, on a grid of one SM, of a MIG 1g slice and of the card."""
+    import chip_smoke
+
+    sms = min(sms, torch.cuda.get_device_properties(dev).multi_processor_count)
+    x, ws = healthcheck._burnin_input_arrays(size, depth, torch.bfloat16, dev)
+    carry = x
+    for i, w in enumerate(ws):
+        y = healthcheck._matmul_f32(carry, w)
+        last = i == depth - 1
+        before = rms_epilogue.rms_epilogue.launches
+        got = rms_epilogue._launch(y, last, sms=sms)
+        assert rms_epilogue.rms_epilogue.launches == before + 2
+        assert got[0].dtype == torch.bfloat16 and got[0].shape == y.shape
+        assert got[1].shape == () and got[1].device == dev
+        assert (got[2] is not None) == last
+        # chip_smoke.EPILOGUE_LIMITS: rms within rel 1e-6 (only the order
+        # of the sum of squares differs), every carry element within one
+        # bf16 step and under 0.1% of them off, the checksum within f32
+        # summation error of the kernel's own carry.
+        agreement = chip_smoke.epilogue_agreement(y, got)
+        assert ("checksum_vs_f64_sum" in agreement) == last
+        chip_smoke.check_epilogue_agreement(agreement, f"layer {i}")
+        carry = got[0]
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf"), -float("inf")])
+def test_epilogue_carries_nan_and_inf_into_rms_and_checksum(dev, value):
+    y = torch.randn((256, 256), device=dev)
+    y[17, 203] = value
+    carry, rms, total = rms_epilogue.rms_epilogue(y, torch.bfloat16, checksum=True)
+    plain_carry, plain_rms, plain_total = rms_epilogue.rms_epilogue_reference(
+        y, torch.bfloat16, checksum=True)
+    assert not math.isfinite(float(rms)) and not math.isfinite(float(plain_rms))
+    assert math.isnan(float(total)) and math.isnan(float(plain_total))
+
+
+def test_epilogue_is_bitwise_deterministic(dev):
+    x, ws = healthcheck._burnin_workspace(dev, 2048, 4, torch.bfloat16)
+    y = healthcheck._matmul_f32(x, ws[0])
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    first = rms_epilogue.rms_epilogue(y, torch.bfloat16, checksum=True)
+    for _ in range(3):
+        again = rms_epilogue.rms_epilogue(y, torch.bfloat16, checksum=True)
+        for a, b in zip(first, again):
+            assert torch.equal(bits(a), bits(b))
+
+
+def test_epilogue_leaves_its_ticket_counter_at_zero_per_stream(dev):
+    """One counter per (device, stream), back at 0 after every launch; a
+    launch on a side stream takes its own."""
+    y = torch.randn((512, 512), device=dev)
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        got_side = rms_epilogue.rms_epilogue(y, torch.bfloat16, checksum=True)
+    got_main = rms_epilogue.rms_epilogue(y, torch.bfloat16, checksum=True)
+    torch.cuda.synchronize(dev)
+    assert float(got_side[1]) == float(got_main[1])
+    assert float(got_side[2]) == float(got_main[2])
+    counters = [rms_epilogue.launch_scratch(dev, s.cuda_stream)[1] for s in (main, side)]
+    assert counters[0].data_ptr() != counters[1].data_ptr()
+    assert [int(c.item()) for c in counters] == [0, 0]
+
+
+@pytest.mark.parametrize(
+    "case", ["float64", "non_contiguous", "one_d", "empty", "float16_carry", "misaligned"])
+def test_epilogue_refuses_before_any_launch(dev, case):
+    import chip_smoke
+
+    y, dtype, text = chip_smoke.epilogue_rejections(dev)[case]
+    before = rms_epilogue.rms_epilogue.launches
+    with pytest.raises(ValueError, match=text):
+        rms_epilogue.rms_epilogue(y, dtype, checksum=True)
+    assert rms_epilogue.rms_epilogue.launches == before
+
+
+def test_burnin_step_on_card_runs_the_epilogue_kernels(dev):
+    """Eager and as the probe's graph: two epilogue kernels a layer, the
+    products the only other kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    healthcheck.reset_probe_workspaces()
+    size, depth = healthcheck.CUDA_PROBE_SIZE, healthcheck.CUDA_PROBE_DEPTH
+    x, ws = healthcheck._burnin_workspace(dev, size, depth, healthcheck.PROBE_DTYPE)
+    before = rms_epilogue.rms_epilogue.launches
+    cs, rms = healthcheck.burnin_step(x, ws)
+    assert rms_epilogue.rms_epilogue.launches == before + 2 * depth
+    assert math.isfinite(float(cs)) and math.isfinite(float(rms))
+    graph, _, _ = healthcheck._burnin_graph(dev, size, depth)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize(dev)
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.name for e in prof.events() if e.device_type == cuda]
+    ours = [n for n in names if "rms_sumsq" in n or "rms_scale_cast" in n]
+    assert len(ours) == 2 * depth, names
+    assert len(names) - len(ours) == depth, names
+    healthcheck.reset_probe_workspaces()

@@ -84,6 +84,16 @@ def test_wheel_ships_the_kernel_source_and_the_console_script(wheel):
     assert not any(n.startswith("gpu_feature_discovery_tpu/") for n in names)
 
 
+def test_wheel_ships_every_kernel_source(wheel):
+    """Each source the kernel cache builds (and ``--prebuild`` ships), the
+    burn-in's RMS epilogue among them, rides in the wheel."""
+    with zipfile.ZipFile(wheel) as z:
+        names = z.namelist()
+    sources = [f"{PORT}/ops/csrc/{s.name}" for s in kernel_cache.KERNEL_SOURCES]
+    assert f"{PORT}/ops/csrc/rms_epilogue.cu" in sources
+    assert set(sources) <= set(names)
+
+
 def test_version_runs_from_the_unpacked_wheel(unpacked, tmp_path):
     result = _run(unpacked, ["-m", PORT, "--version"], cwd=tmp_path)
     assert result.returncode == 0, result.stderr
