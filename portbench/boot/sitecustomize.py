@@ -13,6 +13,15 @@ What it does in each process:
   readback of the pack (its ``.cpu()``), with the probe's end on the
   monotonic clock; the wrap adds no copy and no wait on the device. The
   port exposes none of these outside its process.
+- On a probe over several devices, ``sharded_chip_verdicts``,
+  ``ici_allreduce_probe``, ``ici_ring_sweep`` and the ``all_reduce`` and
+  ``ring_shift`` they call are wrapped too: the record takes each card's
+  reduced healthy count and sweep total from the program's own reads of
+  them (their ``.item()``), the timed all-reduce's ``checksum_ok`` and
+  the sweep's ``links_ok``. The last timed all-reduce's output buffers
+  (which the program keeps) and the last sweep's received ranks are read
+  once, at ``trace-stop``, after the window. Over one device nothing of
+  this runs.
 - A thread waits (inotify, no polling) for the harness's ``trace-start``
   file and then, in a process that holds a CUDA context, starts
   ``torch.profiler`` (CUDA activities); at ``trace-stop`` it stops it and
@@ -27,8 +36,9 @@ What it does in each process:
 
 ``PORTBENCH_FAULT`` plants a fault for the benchmark's own tests
 (``answer``: each probe's HBM sum altered where it is packed; ``stale``:
-each probe after the first returns the previous report unrun). Benchmark
-runs never set it.
+each probe after the first returns the previous report unrun;
+``collective``: card 0's reduced healthy count read one higher by the
+program). Benchmark runs never set it.
 """
 
 import atexit
@@ -40,6 +50,7 @@ import select
 import sys
 import threading
 import time
+import weakref
 
 _OUT = os.environ.get("PORTBENCH_OUT", "")
 _FAULT = os.environ.get("PORTBENCH_FAULT", "")
@@ -50,6 +61,11 @@ _records = []
 _records_lock = threading.Lock()
 _packs = threading.local()
 _flushed = False
+# The collectives' last outputs, read once after the window: the timed
+# all-reduce's buffers (weak: the program's cache owns them) and the last
+# sweep's received ranks.
+_kept = {}
+_after = None
 
 
 def _write_json(name, doc):
@@ -98,6 +114,7 @@ def _patch(hc):
         return packed.as_subclass(pack_class)
 
     def measure_traced(devices, *args, **kwargs):
+        _packs.collective = None
         if _FAULT == "stale" and "report" in last:
             return last["report"]
         _packs.items = []
@@ -108,13 +125,121 @@ def _patch(hc):
         last["report"] = report
         # The host copies, read into numbers only when the record is
         # written, after the window.
+        record = {"t": time.monotonic(), "devices": [str(d) for d in devices],
+                  "values": host[-len(devices):]}
+        if len(devices) > 1:
+            record["collective"] = _packs.collective = {}
         with _records_lock:
-            _records.append({"t": time.monotonic(), "devices": [str(d) for d in devices],
-                             "values": host[-len(devices):]})
+            _records.append(record)
         return report
 
     hc.health_pack = health_pack
     hc._measure_node_health_traced = measure_traced
+    _patch_collectives(hc)
+
+
+def _read_class():
+    import torch
+
+    class Read(torch.Tensor):
+        """One card's reduced value, whose read by the program (its
+        ``.item()``) is kept for the record as it goes by."""
+
+        __torch_function__ = torch._C._disabled_torch_function_impl
+
+        def item(self):
+            value = torch.Tensor.item(self)
+            if _FAULT == "collective" and self._key == "counts" and self._card == 0:
+                value += 1
+            with _records_lock:
+                self._reads.append([self._card, value])
+            return value
+
+    return Read
+
+
+# The phase of a multi-device probe -> the key its reduced reads go under.
+_READS = {"verdicts": "counts", "sweep": "totals"}
+
+
+def _patch_collectives(hc):
+    """Capture a multi-device probe's collectives into its record's
+    ``collective`` entry (see the module's docstring)."""
+    orig_all_reduce = hc.all_reduce
+    orig_ring_shift = hc.ring_shift
+    read_class = _read_class()
+
+    def phased(phase, fn, keep):
+        def wrapper(*args, **kwargs):
+            coll = getattr(_packs, "collective", None)
+            if coll is None:
+                return fn(*args, **kwargs)
+            _packs.phase = phase
+            try:
+                result = fn(*args, **kwargs)
+            finally:
+                _packs.phase = None
+            with _records_lock:
+                keep(coll, result)
+            return result
+        return wrapper
+
+    def keep_allreduce(coll, result):
+        coll["allreduce"] = {"ok": result["checksum_ok"]}
+
+    def keep_sweep(coll, result):
+        coll["sweep"] = {"links_ok": result["links_ok"]}
+
+    def all_reduce(tensors, out=None):
+        result = orig_all_reduce(tensors, out=out)
+        coll = getattr(_packs, "collective", None)
+        phase = getattr(_packs, "phase", None)
+        if coll is None or phase is None or len(result) < 2:
+            return result
+        if phase == "allreduce":
+            _kept["allreduce_out"] = [weakref.ref(t) for t in result]
+            return result
+        key = _READS[phase]
+        with _records_lock:
+            reads = coll.setdefault(key, [])
+        wrapped = []
+        for card, t in enumerate(result):
+            t = t.as_subclass(read_class)
+            t._key, t._card, t._reads = key, card, reads
+            wrapped.append(t)
+        return wrapped
+
+    def ring_shift(tensors, group):
+        received = orig_ring_shift(tensors, group)
+        if getattr(_packs, "phase", None) == "sweep" and len(received) > 1:
+            _kept["received"] = list(received)
+        return received
+
+    hc.all_reduce = all_reduce
+    hc.ring_shift = ring_shift
+    hc.sharded_chip_verdicts = phased("verdicts", hc.sharded_chip_verdicts, lambda c, r: None)
+    hc.ici_allreduce_probe = phased("allreduce", hc.ici_allreduce_probe, keep_allreduce)
+    hc.ici_ring_sweep = phased("sweep", hc.ici_ring_sweep, keep_sweep)
+
+
+def read_after_window():
+    """The collectives' last outputs, read once after the window: per card
+    the timed all-reduce's output summed in float64, its min and max (None
+    where the program has dropped the buffer), and the last sweep's
+    received ranks. Empty where no multi-device probe ran."""
+    import torch
+
+    out = {}
+    refs = _kept.get("allreduce_out")
+    if refs:
+        out["allreduce"] = []
+        for ref in refs:
+            t = ref()
+            out["allreduce"].append(None if t is None else [
+                torch.sum(t, dtype=torch.float64).item(), t.min().item(), t.max().item()])
+    if "received" in _kept:
+        out["received"] = [int(t.item()) for t in _kept["received"]]
+    return out
 
 
 class _Loader(importlib.abc.Loader):
@@ -189,6 +314,12 @@ def _trace_thread():
         prof.stop()
         doc = reduce_events(prof.profiler.kineto_results.events())
         doc.update(pid=os.getpid(), t0=t0, t1=t1, host_window_s=t1 - t0)
+    global _after
+    if _kept and _cuda_ready():
+        try:
+            _after = read_after_window()
+        except Exception as e:  # a reading that fails is judged as missing
+            _after = {"error": repr(e)}
     # The record so far, in case the process is killed before it exits.
     _write_probes()
     if prof is not None:
@@ -271,11 +402,17 @@ def _write_probes():
     with _records_lock:
         records = [dict(r, values=[h.reshape(3).tolist() for h in r["values"]])
                    for r in _records]
-    _write_json(f"probes-{os.getpid()}.json", {
+        # The collectives' entries are still written to by a probe in
+        # flight: the dump below reads a copy.
+        records = json.loads(json.dumps(records))
+    doc = {
         "pid": os.getpid(),
         "records": records,
         "forbidden_modules": forbidden_modules(),
-    })
+    }
+    if _after is not None:
+        doc["after_window"] = _after
+    _write_json(f"probes-{os.getpid()}.json", doc)
 
 
 def flush():

@@ -73,10 +73,15 @@ def reader(name: str) -> Callable:
 
 def metrics_for(bench: dict, cell: str, trace: bool) -> list:
     """The metrics a cell reports: its end-to-end metrics with ``trace``
-    off, its per-layer metrics with it on; a metric with a ``workloads``
-    list only in those cells."""
-    section = bench["per_layer"] if trace else bench["end_to_end"]
-    return [m for m in section if cell in m.get("workloads", [cell])]
+    off, its per-layer metrics with it on. A metric with a ``workloads``
+    list is reported only in those cells; a per-layer metric without one
+    in every cell that reports the end-to-end metric it moves."""
+    e2e = [m for m in bench["end_to_end"] if cell in m.get("workloads", [cell])]
+    if not trace:
+        return e2e
+    reported = {m["name"] for m in e2e}
+    return [m for m in bench["per_layer"]
+            if (cell in m["workloads"] if "workloads" in m else m["moves"] in reported)]
 
 
 def read_metric(spec: dict, run) -> Optional[float]:

@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 
 import seams
 import work
-from reference import burnin, stream
+from reference import burnin, collectives, stream
 from reference import labels as ref_labels
 
 BOOT = Path(__file__).resolve().parent / "boot"
@@ -67,6 +67,7 @@ class Run:
     apps: str = ""  # nvidia-smi's compute processes at the window's end
     all_stamps: List[float] = field(default_factory=list)  # every heartbeat of the run
     scrape_times: List[float] = field(default_factory=list)  # each edge scrape's request, response
+    after: dict = field(default_factory=dict)  # the collectives' last outputs, read after the window
 
     @property
     def cycles(self) -> int:
@@ -225,6 +226,15 @@ def collect_records(out_dir: str) -> List[dict]:
     return sorted(records, key=lambda r: r["t"])
 
 
+def collect_after(out_dir: str) -> dict:
+    """The collectives' last outputs that the probing process read after
+    the window (``after_window`` in its record), or {} where none did."""
+    after = {}
+    for path in glob.glob(os.path.join(out_dir, "probes-*.json")):
+        after.update(json.loads(Path(path).read_text()).get("after_window", {}))
+    return after
+
+
 def smi_apps() -> str:
     """The card's compute processes and their memory, as nvidia-smi lists
     them (a diagnostic beside ``card_mib_held``)."""
@@ -359,6 +369,7 @@ def run_cell(root: Path, cell: dict, config: dict, mix: dict, seconds: float,
         proc = None
         run.records = collect_records(out_dir)
         run.probes = [r for r in run.records if t_start < r["t"] <= t_end]
+        run.after = collect_after(out_dir)
         run.traces = [json.loads(Path(p).read_text())
                       for p in glob.glob(os.path.join(out_dir, "trace-*.json"))]
         if card and not run.traces:
@@ -414,6 +425,40 @@ def heartbeat_count_gap(run: Run) -> float:
     return max(0.0, low - full, full - high)
 
 
+def collective_gap(run: Run) -> Optional[float]:
+    """The values a multi-device cell's probes read back from their three
+    reductions that disagree with the plain reference, each missing value
+    counted as one: per window probe each card's reduced healthy count
+    (the verdict pass), the timed all-reduce's own check and the sweep's
+    link check, each card's sweep total; and once, after the window, each
+    card's last all-reduce output (its sum, min and max) and each card's
+    last received rank. None where the window holds no probe."""
+    if not run.probes:
+        return None
+    n = run.cell["chips"]
+    want = collectives.expected(n, run.config["probe"]["allreduce_mib"])
+
+    def wrong(reads, key):
+        got = {card: value for card, value in reads.get(key, [])}
+        return sum(got.get(i) != w for i, w in enumerate(want[key]))
+
+    gap = 0
+    for probe in run.probes:
+        coll = probe.get("collective", {})
+        gap += wrong(coll, "counts") + wrong(coll, "totals")
+        gap += coll.get("allreduce", {}).get("ok") is not True
+        gap += coll.get("sweep", {}).get("links_ok") is not True
+    outputs = run.after.get("allreduce") or []
+    for i in range(n):
+        reading = outputs[i] if i < len(outputs) else None
+        gap += 3 if reading is None else sum(
+            got != w for got, w in zip(reading, (want["sum"], want["element"], want["element"])))
+    received = run.after.get("received") or []
+    gap += sum((received[i] if i < len(received) else None) != w
+               for i, w in enumerate(want["received"]))
+    return float(gap)
+
+
 def judge(run: Run, ref: dict, want_labels: Optional[dict]) -> Dict[str, dict]:
     """Each number compared, with its limit (from the configuration's
     ``limits``; the derivation of each is in PERF.md)."""
@@ -434,6 +479,8 @@ def judge(run: Run, ref: dict, want_labels: Optional[dict]) -> Dict[str, dict]:
         "checksum_gap": checksum_gap,
         "rms_gap": rms_gap,
     }
+    if run.cell["chips"] > 1:
+        checks["collective_gap"] = collective_gap(run)
     if want_labels is not None:
         checks["label_mismatches"] = len(ref_labels.mismatches(
             run.labels, want_labels, run.cell["chips"]))

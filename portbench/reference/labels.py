@@ -56,6 +56,9 @@ def expected(node: Node, smi_rows: List[List[str]]) -> Dict[str, str]:
         want[f"{PREFIX}.family"] = family
     for i in range(n):
         want[f"{PREFIX}.chip.{i}.ok"] = "true"
+    if n > 1:
+        # The ring sweep and the NCCL verdicts; one device has no ring.
+        want[f"{PREFIX}.health.ici.ok"] = "true"
     return want
 
 
@@ -63,6 +66,10 @@ def expected(node: Node, smi_rows: List[List[str]]) -> Dict[str, str]:
 # measurements, so only their presence is held (a probe whose stream sum
 # was wrong publishes no HBM rate).
 PRESENT = ("health.matmul-tflops", "health.hbm-gbps", "health.probe-ms")
+# Over several cards, the timed all-reduce's rate; and no card named a
+# straggler on a healthy node.
+PRESENT_MULTI = ("health.ici.allreduce-gbps",)
+ABSENT_MULTI = ("straggler-chip",)
 
 
 def parse(text: str) -> Dict[str, str]:
@@ -75,9 +82,15 @@ def parse(text: str) -> Dict[str, str]:
 
 
 def mismatches(labels: Dict[str, str], want: Dict[str, str], chips: int) -> List[str]:
-    """Every expected label missing or different, every rate missing."""
+    """Every expected label missing or different, every rate missing and,
+    over several cards, every label a healthy node does not publish."""
     out = [f"{k}: {labels.get(k)!r} != {v!r}" for k, v in want.items() if labels.get(k) != v]
     present = [f"{PREFIX}.{k}" for k in PRESENT]
     present += [f"{PREFIX}.chip.{i}.{k}" for i in range(chips) for k in ("tflops", "hbm-gbps")]
+    absent = []
+    if chips > 1:
+        present += [f"{PREFIX}.{k}" for k in PRESENT_MULTI]
+        absent += [f"{PREFIX}.{k}" for k in ABSENT_MULTI]
     out += [f"{k}: missing" for k in present if k not in labels]
+    out += [f"{k}: {labels[k]!r} on a healthy node" for k in absent if k in labels]
     return out

@@ -118,7 +118,8 @@ def test_the_capture_reads_the_ports_own_readback(monkeypatch):
         return real_cpu(self, *args, **kwargs)
 
     monkeypatch.setattr(torch.Tensor, "cpu", counting_cpu)
-    hc = types.SimpleNamespace()
+    hc = types.SimpleNamespace(all_reduce=None, ring_shift=None, sharded_chip_verdicts=None,
+                               ici_allreduce_probe=None, ici_ring_sweep=None)
     hc.health_pack = lambda cs, rms, total: torch.stack([cs, rms, total])
 
     def measure(devices):

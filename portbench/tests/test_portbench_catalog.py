@@ -55,6 +55,10 @@ def test_per_layer_metrics_name_a_layer_and_what_they_move():
     for m in BENCH["per_layer"]:
         assert m["moves"] in e2e and m["layer"] and "\n" not in m["layer"]
         assert set(m.get("workloads", cells)) <= cells
+    # Each cell a per-layer metric is reported in reports what it moves.
+    for w in cells:
+        reported = {m["name"] for m in catalog.metrics_for(BENCH, w, False)}
+        assert {m["moves"] for m in catalog.metrics_for(BENCH, w, True)} <= reported, w
 
 
 def test_every_cell_reports_setup_another_end_to_end_and_a_per_layer_metric():
@@ -74,11 +78,16 @@ def test_a_new_config_traffic_and_metric_are_found_by_name(tmp_path, monkeypatch
     assert catalog.config("h200x1-new") == {"probe": {"size": 8}}
     assert catalog.traffic("cadence")["args"][1] == "10"
     assert catalog.reader("write_ms")(21) == 42
-    bench = {"end_to_end": [], "per_layer": [
-        {"name": "write_ms", "workloads": ["x1-broker.cadence"]}, {"name": "all_cells"}]}
+    bench = {"end_to_end": [{"name": "setup_s"}, {"name": "rate", "workloads": ["x1-broker.soak"]}],
+             "per_layer": [{"name": "write_ms", "workloads": ["x1-broker.cadence"], "moves": "setup_s"},
+                           {"name": "all_cells", "moves": "setup_s"},
+                           {"name": "rate_cells", "moves": "rate"}]}
     assert [m["name"] for m in catalog.metrics_for(bench, "x1-broker.cadence", True)] == [
         "write_ms", "all_cells"]
-    assert [m["name"] for m in catalog.metrics_for(bench, "x1-broker.soak", True)] == ["all_cells"]
+    assert [m["name"] for m in catalog.metrics_for(bench, "x1-broker.soak", True)] == [
+        "all_cells", "rate_cells"]
+    assert [m["name"] for m in catalog.metrics_for(bench, "x1-broker.cadence", False)] == [
+        "setup_s"]
     with pytest.raises(catalog.CatalogError):
         catalog.config("absent")
 

@@ -50,14 +50,14 @@ def test_the_inputs_are_the_stated_draw():
     assert ws.shape == (2, 16, 16) and ws.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("config", ["h100x1-daemonset", "h100x1-inprocess"])
+@pytest.mark.parametrize("config", ["h100x1-daemonset", "h100x1-inprocess", "h100x4-daemonset"])
 def test_the_control_fails_at_the_cells_geometry(config):
     out = control.readings(catalog.config(config), "cpu")
     assert out["fails"], out
 
 
 def test_the_control_fails_on_the_card_at_the_cells_geometry(card):
-    for config in ("h100x1-daemonset", "h100x1-inprocess"):
+    for config in ("h100x1-daemonset", "h100x1-inprocess", "h100x4-daemonset"):
         out = control.readings(catalog.config(config), "cuda")
         assert out["fails"], out
 
@@ -82,7 +82,7 @@ def test_the_expected_labels():
 def test_a_label_file_is_held_to_them():
     want = ref_labels.expected(_node(2), [["NVIDIA H100 80GB HBM3", "580.159.03", "81559"]] * 2)
     labels = dict(want)
-    for key in ref_labels.PRESENT:
+    for key in ref_labels.PRESENT + ref_labels.PRESENT_MULTI:
         labels[f"nvidia.com/gpu.{key}"] = "1"
     for i in range(2):
         labels[f"nvidia.com/gpu.chip.{i}.tflops"] = labels[f"nvidia.com/gpu.chip.{i}.hbm-gbps"] = "1"
@@ -95,7 +95,8 @@ def test_a_label_file_is_held_to_them():
 
 def test_the_reference_imports_nothing_of_the_program():
     code = ("import sys; sys.path.insert(0, %r); "
-            "import reference.burnin, reference.stream, reference.labels, reference.nvml; "
+            "import reference.burnin, reference.stream, reference.labels, reference.nvml, "
+            "reference.collectives; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flax', 'gpu_feature_discovery_tpu', "
             "'gpu_feature_discovery_tpu_torch'}))") % str(catalog.HERE)
