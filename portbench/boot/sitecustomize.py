@@ -38,7 +38,12 @@ What it does in each process:
 (``answer``: each probe's HBM sum altered where it is packed; ``stale``:
 each probe after the first returns the previous report unrun;
 ``collective``: card 0's reduced healthy count read one higher by the
-program). Benchmark runs never set it.
+program; ``busy_health``: a probe that could not get device memory reads
+as a failed probe, ``is_busy_error`` false for every error; ``busy_keep``:
+from the first busy failure on, the process keeps 256 MiB of the device
+past ``release_probe_memory``; ``busy_leak``: after every busy failure it
+keeps 16 MiB more, as long as the device has room). Benchmark runs never
+set it.
 """
 
 import atexit
@@ -66,6 +71,10 @@ _flushed = False
 # sweep's received ranks.
 _kept = {}
 _after = None
+# What the ``busy_keep`` and ``busy_leak`` faults keep: once, and after
+# every busy failure.
+_busy_kept = []
+BUSY_KEEP_BYTES = {"busy_keep": 256 << 20, "busy_leak": 16 << 20}
 
 
 def _write_json(name, doc):
@@ -136,6 +145,28 @@ def _patch(hc):
     hc.health_pack = health_pack
     hc._measure_node_health_traced = measure_traced
     _patch_collectives(hc)
+    _patch_busy(hc)
+
+
+def _patch_busy(hc):
+    """The busy path's faults (the module's docstring)."""
+    if _FAULT == "busy_health":
+        hc.is_busy_error = lambda exc: False
+    elif _FAULT in BUSY_KEEP_BYTES:
+        orig_release = hc.release_probe_memory
+
+        def release_probe_memory(error=None):
+            orig_release(error)
+            if _FAULT == "busy_leak" or not _busy_kept:
+                import torch
+
+                try:
+                    _busy_kept.append(torch.empty(BUSY_KEEP_BYTES[_FAULT], dtype=torch.uint8,
+                                                  device="cuda"))
+                except torch.OutOfMemoryError:
+                    pass
+
+        hc.release_probe_memory = release_probe_memory
 
 
 def _read_class():

@@ -8,12 +8,23 @@ the heartbeat that opens the window. The window's cycles are the
 heartbeat's touches (``seams.HeartbeatWatch``); ``/metrics`` is scraped
 only at its edges. The card's memory is read through NVML, device-wide,
 while this process holds no CUDA context; the reference runs after the
-daemon has stopped and the readings are taken."""
+daemon has stopped and the readings are taken.
+
+A traffic mix with a ``tenant`` entry first fills the card: the tenant
+(``tenant.py``) takes every device's free memory less ``margin_mib``
+before the daemon starts. Once the broker worker is up, set-up counts
+``busy_cycles`` heartbeats with the card's memory and the label file read
+at each, releases the tenant, stamps the release once NVML shows its
+memory back, and waits for the first label write that carries health
+labels again (``recover_s``). The soak's warm-up and window follow, the
+tenant gone."""
 
 import bisect
 import glob
+import http.client
 import json
 import os
+import select
 import shutil
 import signal
 import subprocess
@@ -29,7 +40,8 @@ import work
 from reference import burnin, collectives, stream
 from reference import labels as ref_labels
 
-BOOT = Path(__file__).resolve().parent / "boot"
+HERE = Path(__file__).resolve().parent
+BOOT = HERE / "boot"
 # Module names, compared whole by their top-level part, that no process of
 # a run may hold: the port is measured, never the JAX package beside it.
 FORBIDDEN = ("jax", "jaxlib", "flax", "gpu_feature_discovery_tpu")
@@ -68,6 +80,18 @@ class Run:
     all_stamps: List[float] = field(default_factory=list)  # every heartbeat of the run
     scrape_times: List[float] = field(default_factory=list)  # each edge scrape's request, response
     after: dict = field(default_factory=dict)  # the collectives' last outputs, read after the window
+    # With a tenant: its report, the card once it held its memory, the
+    # card at each busy heartbeat (read as each is seen, in order), those
+    # heartbeats, the label file at each, the busy phase's edge scrapes,
+    # the release's stamp and the recovery.
+    tenant: Optional[dict] = None
+    used_tenant: Optional[List[int]] = None
+    busy_used: List[List[int]] = field(default_factory=list)
+    busy_stamps: List[float] = field(default_factory=list)
+    busy_labels: List[Dict[str, str]] = field(default_factory=list)
+    busy_scrapes: List[Dict[str, float]] = field(default_factory=list)
+    release_t: Optional[float] = None
+    recover_s: Optional[float] = None
 
     @property
     def cycles(self) -> int:
@@ -78,11 +102,24 @@ class Run:
 
     def delta_mean(self, family: str, labels: str = "") -> Optional[float]:
         """A histogram's mean over the window's edges, or None."""
-        count = self.delta(f"{family}_count{labels}")
-        return self.delta(f"{family}_sum{labels}") / count if count > 0 else None
+        return _mean(self.scrape_start, self.scrape_end, family, labels)
+
+    def busy_mean(self, family: str, labels: str = "") -> Optional[float]:
+        """A histogram's mean over the busy phase's edges, or None."""
+        if len(self.busy_scrapes) != 2:
+            return None
+        return _mean(*self.busy_scrapes, family, labels)
 
     def peaks(self) -> Optional[dict]:
         return work.PEAKS.get(self.device_kind)
+
+
+def _mean(start: dict, end: dict, family: str, labels: str) -> Optional[float]:
+    def delta(key):
+        return end.get(key, 0.0) - start.get(key, 0.0)
+
+    count = delta(f"{family}_count{labels}")
+    return delta(f"{family}_sum{labels}") / count if count > 0 else None
 
 
 def _format(value: str, slots: dict) -> str:
@@ -276,6 +313,147 @@ class _Memory:
             self.nvml.__exit__(None, None, None)
 
 
+# How long the tenant may take to report what it holds and to give it back.
+TENANT_TIMEOUT_S = 120.0
+
+
+def tenant_command(margin_mib: int) -> List[str]:
+    return [sys.executable, str(HERE / "tenant.py"), "--margin-mib", str(margin_mib)]
+
+
+def _tenant_line(tenant: subprocess.Popen) -> dict:
+    """The tenant's next line of JSON, or RunError."""
+    ready, _, _ = select.select([tenant.stdout], [], [], TENANT_TIMEOUT_S)
+    line = tenant.stdout.readline() if ready else ""
+    if not line.startswith("{"):
+        raise RunError(f"the tenant gave no report (exit {tenant.poll()}): {line!r}")
+    return json.loads(line)
+
+
+def start_tenant(root: Path, spec: dict):
+    """The tenant in a session of its own, with none of the run's
+    environment for the daemon and no start-up hook; once it holds the
+    memory, its process and its report."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(SCRUB_PREFIXES) and k != "PYTHONPATH"}
+    tenant = subprocess.Popen(tenant_command(spec["margin_mib"]), cwd=str(root), env=env,
+                              stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+                              start_new_session=True)
+    try:
+        report = _tenant_line(tenant)
+        if report["forbidden_modules"]:
+            raise RunError(f"the tenant held {report['forbidden_modules']}")
+    except BaseException:
+        _stop(tenant)
+        raise
+    return tenant, report
+
+
+def release_tenant(tenant: subprocess.Popen, memory: _Memory, held: int) -> float:
+    """Tell the tenant to free its ``held`` bytes; the stamp once NVML
+    shows the card's use down by more than half of them (on the CPU, once
+    the tenant says it has freed them)."""
+    before = memory.read()
+    tenant.stdin.write("release\n")
+    tenant.stdin.flush()
+    if before is None:
+        _tenant_line(tenant)
+        return time.monotonic()
+    deadline = time.monotonic() + TENANT_TIMEOUT_S
+    while True:
+        used = memory.read()
+        now = time.monotonic()
+        if sum(used) <= sum(before) - held // 2:
+            return now
+        if now > deadline:
+            raise RunError(f"NVML did not show the tenant's memory back in {TENANT_TIMEOUT_S} s")
+        time.sleep(0.0005)
+
+
+def _wait_ready(proc: subprocess.Popen, output: str, mix: dict, memory: _Memory,
+                deadline: float, log_path: str) -> None:
+    """Until the daemon's first label write that carries health labels."""
+    ready = mix["ready_label"] + "="
+    next_sample = 0.0
+    while True:
+        if proc.poll() is not None:
+            raise RunError(f"daemon exited {proc.returncode} in set-up:\n{_log_tail(log_path)}")
+        now = time.monotonic()
+        if now > deadline:
+            raise RunError(f"no {ready!r} label within {mix['setup_timeout_s']} s:\n"
+                           f"{_log_tail(log_path)}")
+        if now >= next_sample:
+            memory.read()
+            next_sample = now + 0.25
+        try:
+            if ready in Path(output).read_text():
+                return
+        except OSError:
+            pass
+        time.sleep(0.02)
+
+
+def _busy_phase(run: Run, proc: subprocess.Popen, tenant: subprocess.Popen, port: int,
+                watch: seams.HeartbeatWatch, labels: seams.LabelWatch, output: str,
+                mix: dict, memory: _Memory, deadline: float, log_path: str) -> None:
+    """From the daemon's start on a card the tenant fills, through the
+    tenant's release, to the first label write with health labels."""
+    def alive(phase):
+        if proc.poll() is not None:
+            raise RunError(f"daemon exited {proc.returncode} {phase}:\n{_log_tail(log_path)}")
+        if time.monotonic() > deadline:
+            raise RunError(f"set-up ran out of its {mix['setup_timeout_s']} s {phase}:\n"
+                           f"{_log_tail(log_path)}")
+
+    while True:
+        alive("before its broker worker was up")
+        memory.read()
+        try:
+            scraped = seams.scrape(port, timeout=2.0)
+        except (OSError, http.client.HTTPException):
+            scraped = {}
+        if scraped.get("tfd_broker_up") == 1.0:
+            break
+        time.sleep(0.05)
+    # The first cycle with the worker up also waits for its pre-warm's
+    # attempt: its labels are read, but the busy phase's edges (its first
+    # scrape and heartbeat) come after it.
+    first = seen = edge = watch.count()
+    next_sample = 0.0
+    while seen < first + 1 + mix["tenant"]["busy_cycles"]:
+        alive("in the busy phase")
+        now = time.monotonic()
+        if now >= next_sample:
+            memory.read()
+            next_sample = now + 0.25
+        count = watch.count()
+        if count == seen:
+            time.sleep(0.001)
+            continue
+        seen = count
+        used = memory.read()
+        if used is not None:
+            run.busy_used.append(used)
+        try:
+            run.busy_labels.append(ref_labels.parse(Path(output).read_text()))
+        except OSError:
+            run.busy_labels.append({})
+        if not run.busy_scrapes:
+            run.busy_scrapes = [seams.scrape(port)]
+            edge = seen
+    run.busy_scrapes.append(seams.scrape(port))
+    run.busy_stamps = watch.stamps()[edge - 1:seen]
+    run.release_t = release_tenant(tenant, memory, sum(run.tenant["held_bytes"]))
+    try:
+        ok = labels.first_carrying_after(run.release_t, mix["recover_timeout_s"])
+    except TimeoutError:
+        raise RunError(f"no {mix['ready_label']!r} label within {mix['recover_timeout_s']} s "
+                       f"of the tenant's release:\n{_log_tail(log_path)}") from None
+    run.recover_s = ok - run.release_t
+    if tenant.wait(TENANT_TIMEOUT_S) != 0:
+        raise RunError(f"the tenant exited {tenant.returncode}")
+
+
 def run_cell(root: Path, cell: dict, config: dict, mix: dict, seconds: float,
              trace: bool, device_kind: str) -> Run:
     """One run. With ``device_kind`` "cpu" (the benchmark's own tests) the
@@ -294,34 +472,29 @@ def run_cell(root: Path, cell: dict, config: dict, mix: dict, seconds: float,
     log_path = os.path.join(tmp, "daemon.log")
     memory = _Memory(card)
     watch = seams.HeartbeatWatch(str(heartbeat.parent), heartbeat.name)
-    proc = None
+    proc = tenant = labels = None
     try:
         run.used_base = memory.read()
+        if "tenant" in mix:
+            tenant, run.tenant = start_tenant(root, mix["tenant"])
+            run.used_tenant = memory.read()
+            labels = seams.LabelWatch(str(Path(output).parent), Path(output).name,
+                                      mix["ready_label"])
         with open(log_path, "wb") as log:
             t0 = time.monotonic()
             proc = subprocess.Popen(
                 list(config["command"]) + list(mix["args"]), cwd=str(root), env=env,
                 stdin=subprocess.DEVNULL, stdout=log, stderr=log, start_new_session=True,
             )
-        ready = mix["ready_label"] + "="
         deadline = t0 + mix["setup_timeout_s"]
-        next_sample = 0.0
-        while True:
-            if proc.poll() is not None:
-                raise RunError(f"daemon exited {proc.returncode} in set-up:\n{_log_tail(log_path)}")
-            now = time.monotonic()
-            if now > deadline:
-                raise RunError(f"no {ready!r} label within {mix['setup_timeout_s']} s:\n"
-                               f"{_log_tail(log_path)}")
-            if now >= next_sample:
-                memory.read()
-                next_sample = now + 0.25
-            try:
-                if ready in Path(output).read_text():
-                    break
-            except OSError:
-                pass
-            time.sleep(0.02)
+        if tenant is None:
+            _wait_ready(proc, output, mix, memory, deadline, log_path)
+        else:
+            _busy_phase(run, proc, tenant, port, watch, labels, output, mix, memory, deadline,
+                        log_path)
+            # Its reads of the label file stop here, before the warm-up.
+            labels.close()
+            labels = None
         warm_from = watch.count()
         while watch.count() < warm_from + mix["warmup_cycles"]:
             if proc.poll() is not None:
@@ -376,13 +549,21 @@ def run_cell(root: Path, cell: dict, config: dict, mix: dict, seconds: float,
             raise RunError("no process of the run wrote a device trace")
         return run
     finally:
-        if proc is not None:
-            try:
-                _stop(proc)
-            finally:
-                sys.stderr.write(_log_tail(log_path, 2000) + "\n")
-        watch.close()
-        memory.close()
+        try:
+            if proc is not None:
+                try:
+                    _stop(proc)
+                finally:
+                    sys.stderr.write(_log_tail(log_path, 2000) + "\n")
+        finally:
+            if tenant is not None:
+                _stop(tenant)
+                tenant.stdin.close()
+                tenant.stdout.close()
+            if labels is not None:
+                labels.close()
+            watch.close()
+            memory.close()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -484,6 +665,16 @@ def judge(run: Run, ref: dict, want_labels: Optional[dict]) -> Dict[str, dict]:
     if want_labels is not None:
         checks["label_mismatches"] = len(ref_labels.mismatches(
             run.labels, want_labels, run.cell["chips"]))
+    if run.tenant is not None:
+        # While the tenant holds the card: no verdict at any busy heartbeat,
+        # and the host's facts at the busy phase's end.
+        checks["busy_health_labels"] = (
+            sum(len(ref_labels.verdicts(labels)) for labels in run.busy_labels)
+            if run.busy_labels else None)
+        if want_labels is not None:
+            checks["busy_label_mismatches"] = (
+                len(ref_labels.fact_mismatches(run.busy_labels[-1], want_labels))
+                if run.busy_labels else None)
     return {k: {"value": v, "limit": limits[k]} for k, v in checks.items()}
 
 

@@ -72,6 +72,22 @@ PRESENT_MULTI = ("health.ici.allreduce-gbps",)
 ABSENT_MULTI = ("straggler-chip",)
 
 
+# A verdict of the probe: a health label, a count of healthy or sick chips,
+# or a chip's own; every other expected label is a fact of the host.
+VERDICT = re.compile(rf"^{re.escape(PREFIX)}\.(health\.|chips\.|chip\.\d+\.)")
+
+
+def verdicts(labels: Dict[str, str]) -> List[str]:
+    return [k for k in labels if VERDICT.match(k)]
+
+
+def fact_mismatches(labels: Dict[str, str], want: Dict[str, str]) -> List[str]:
+    """Every fact of the host in ``want`` that ``labels`` lacks or gets
+    wrong: what a node publishes whether or not the probe could run."""
+    return [f"{k}: {labels.get(k)!r} != {v!r}" for k, v in want.items()
+            if not VERDICT.match(k) and labels.get(k) != v]
+
+
 def parse(text: str) -> Dict[str, str]:
     labels = {}
     for line in text.splitlines():

@@ -132,6 +132,21 @@ def main(argv=None) -> int:
         f"portbench: {cell['name']} seed {args.seed} setup_s {run.setup_s} cycles {run.cycles} "
         f"probes {len(run.probes)} cpu_s {run.cpu_s} used {run.used_base} -> {run.used_end} "
         f"apps {run.apps}\n")
+    if run.tenant is not None:
+        fill = [u / g.memory_total_bytes for u, g in zip(run.used_tenant or [], node.gpus)]
+        sys.stderr.write(
+            f"portbench: tenant held {[b >> 20 for b in run.tenant['held_bytes']]} MiB, left "
+            f"{[b >> 20 for b in run.tenant['free_bytes']]} MiB; used {run.used_tenant} -> "
+            f"{run.busy_used} at {len(run.busy_stamps)} busy heartbeats, the fullest card "
+            f"{max(fill, default=0.0)} used; released at {run.release_t}, recover_s "
+            f"{run.recover_s}\n")
+        if any(labels.get(mix["ready_label"]) == "true" for labels in run.busy_labels):
+            # A probe that passes beside the tenant found room in its margin:
+            # the traffic no longer makes the card busy for this program.
+            sys.stderr.write(
+                f"portbench: a probe passed beside the tenant: margin_mib "
+                f"{mix['tenant']['margin_mib']} now holds the whole probe, so the busy checks "
+                f"fail a sound program; the margin is re-read in a benchmark PR (PERF.md)\n")
     for t in run.traces:
         stream = work.kernel_time([t], "stream_sum")
         sys.stderr.write(f"portbench: trace of pid {t['pid']}: {t['graph']} graph, "

@@ -1,6 +1,7 @@
 """Where the harness meets the running daemon: the heartbeat file's
-touches, read through inotify and stamped on this process's monotonic
-clock; the ``/metrics`` exposition, scraped and parsed; a free port."""
+touches and the label file's writes, read through inotify and stamped on
+this process's monotonic clock; the ``/metrics`` exposition, scraped and
+parsed; a free port."""
 
 import bisect
 import ctypes
@@ -15,6 +16,8 @@ import urllib.request
 from typing import Dict, List
 
 IN_ATTRIB = 0x00000004
+IN_CLOSE_WRITE = 0x00000008
+IN_MOVED_TO = 0x00000080
 _EVENT = struct.Struct("iIII")
 
 
@@ -23,12 +26,14 @@ class HeartbeatWatch:
     IN_ATTRIB) on the monotonic clock, from a thread that does nothing
     else. Each touch is one completed labeling cycle of the daemon."""
 
+    MASK = IN_ATTRIB
+
     def __init__(self, directory: str, name: str):
         libc = ctypes.CDLL(None, use_errno=True)
         self._fd = libc.inotify_init1(os.O_CLOEXEC | os.O_NONBLOCK)
         if self._fd < 0:
             raise OSError(ctypes.get_errno(), "inotify_init1")
-        if libc.inotify_add_watch(self._fd, directory.encode(), IN_ATTRIB) < 0:
+        if libc.inotify_add_watch(self._fd, directory.encode(), self.MASK) < 0:
             raise OSError(ctypes.get_errno(), f"inotify_add_watch {directory}")
         self._name = name.encode()
         self._stop_r, self._stop_w = os.pipe()
@@ -53,11 +58,14 @@ class HeartbeatWatch:
                 _wd, mask, _cookie, length = _EVENT.unpack_from(data, pos)
                 name = data[pos + _EVENT.size:pos + _EVENT.size + length].rstrip(b"\0")
                 pos += _EVENT.size + length
-                if mask & IN_ATTRIB and name == self._name:
+                if mask & self.MASK and name == self._name:
                     touches += 1
             if touches:
-                with self._lock:
-                    self._stamps.extend([now] * touches)
+                self._seen(now, touches)
+
+    def _seen(self, now: float, touches: int) -> None:
+        with self._lock:
+            self._stamps.extend([now] * touches)
 
     def stamps(self) -> List[float]:
         with self._lock:
@@ -84,6 +92,44 @@ class HeartbeatWatch:
         self._thread.join(5)
         for fd in (self._fd, self._stop_r, self._stop_w):
             os.close(fd)
+
+
+class LabelWatch(HeartbeatWatch):
+    """Stamps every write of the label file ``name`` in ``directory`` (the
+    daemon renames a staged file into place) and reads the file as each
+    is seen: whether it then carried the label ``key``."""
+
+    MASK = IN_MOVED_TO | IN_CLOSE_WRITE
+
+    def __init__(self, directory: str, name: str, key: str):
+        self._path = os.path.join(directory, name)
+        self._key = key + "="
+        self._carried: List[bool] = []
+        super().__init__(directory, name)
+
+    def _seen(self, now: float, touches: int) -> None:
+        try:
+            with open(self._path) as f:
+                carried = self._key in f.read()
+        except OSError:
+            carried = False
+        with self._lock:
+            self._stamps.append(now)
+            self._carried.append(carried)
+
+    def first_carrying_after(self, t: float, timeout: float) -> float:
+        """The first write later than ``t`` whose file carried the key;
+        waits up to ``timeout`` s."""
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._lock:
+                i = bisect.bisect_right(self._stamps, t)
+                hit = next((s for s, c in zip(self._stamps[i:], self._carried[i:]) if c), None)
+            if hit is not None:
+                return hit
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no label write carried {self._key!r}")
+            time.sleep(0.0005)
 
 
 _SAMPLE = re.compile(r"^([A-Za-z_:][A-Za-z0-9_:]*(?:\{[^}]*\})?)\s+(\S+)")

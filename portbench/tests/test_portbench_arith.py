@@ -187,3 +187,59 @@ def test_the_judge_fails_each_fault(fault):
     else:
         run.probes = []
     assert not _correct(run, ref, want)
+
+
+HOST_FACTS = {"nvidia.com/gpu.count": "1", "nvidia.com/gpu.product": "nvidia-h100-80gb-hbm3"}
+
+
+def _busy_run():
+    """A sound run with a tenant: host facts and no verdict at each busy
+    heartbeat, then the sound window."""
+    run, ref, want = _sound_run()
+    want = dict(want, **HOST_FACTS)
+    run.labels.update(HOST_FACTS)
+    run.tenant = {"held_bytes": [80 << 30]}
+    run.busy_labels = [dict(HOST_FACTS, **{"nvidia.com/gpu.slice.capable": "true"})
+                       for _ in range(20)]
+    return run, ref, want
+
+
+def test_the_judge_passes_a_sound_busy_run_and_holds_a_soak_to_no_busy_check():
+    run, ref, want = _busy_run()
+    checks = cell.judge(run, ref, want)
+    assert checks["busy_health_labels"] == {"value": 0, "limit": 0}
+    assert checks["busy_label_mismatches"] == {"value": 0, "limit": 0}
+    assert cell.correct(checks)
+    assert not {"busy_health_labels", "busy_label_mismatches"} & set(cell.judge(*_sound_run()))
+
+
+@pytest.mark.parametrize("key, value", [
+    ("nvidia.com/gpu.health.ok", "false"), ("nvidia.com/gpu.health.ok", "true"),
+    ("nvidia.com/gpu.health.timing", "wall-clock"), ("nvidia.com/gpu.chips.sick", "1"),
+    ("nvidia.com/gpu.chips.healthy", "0"), ("nvidia.com/gpu.chip.0.ok", "false"),
+    ("nvidia.com/gpu.chip.12.tflops", "400")])
+def test_a_verdict_at_one_busy_heartbeat_is_not_correct(key, value):
+    run, ref, want = _busy_run()
+    run.busy_labels[7][key] = value
+    checks = cell.judge(run, ref, want)
+    assert checks["busy_health_labels"]["value"] == 1
+    assert not cell.correct(checks)
+
+
+@pytest.mark.parametrize("fault", ["fact-missing", "fact-altered", "no-busy-heartbeat"])
+def test_the_hosts_facts_at_the_busy_phases_end_are_held(fault):
+    run, ref, want = _busy_run()
+    last = run.busy_labels[-1]
+    if fault == "fact-missing":
+        del last["nvidia.com/gpu.count"]
+    elif fault == "fact-altered":
+        last["nvidia.com/gpu.product"] = "nvidia-h100-pcie"
+    else:
+        run.busy_labels = []
+    checks = cell.judge(run, ref, want)
+    assert not cell.correct(checks)
+    if fault != "no-busy-heartbeat":
+        assert checks["busy_label_mismatches"]["value"] == 1
+        assert checks["busy_health_labels"]["value"] == 0
+    else:
+        assert checks["busy_health_labels"]["value"] is None

@@ -99,3 +99,43 @@ def test_the_command_names_only_files_under_paths():
         assert not word.startswith("/") and ".." not in word
     for p in BENCH["paths"]:
         assert re.match(r"^[A-Za-z0-9_./-]{1,200}$", p) and not p.endswith("_torch")
+
+
+SOAK_E2E = {"x1-broker.soak": ["probe_card_ms", "card_mib_held", "setup_s"],
+            "x1-inproc.soak": ["probe_card_ms", "card_mib_held", "setup_s"],
+            "x4-broker.soak": ["probe_card_ms.multi", "card_mib_held", "setup_s"]}
+SPANS = ["probe_cycle_ms", "probe_cycle_p95_ms", "host_cpu_ms", "labelgen_ms"]
+GAPS = ["cycle_span_ms", "probe_window_ms", "gap_probe_ms"]
+SOAK_PER_LAYER = {
+    "x1-broker.soak": SPANS + ["broker_rpc_ms", "probe_ms", "burnin_roofline",
+                               "hbm_stream_sum_roofline", "device_idle_pct", "worker_ready_s",
+                               "prewarm_s"] + GAPS + ["gap_broker_ms", "gap_labelgen_ms",
+                                                      "gap_loop_ms", "fsyncs_per_cycle",
+                                                      "worker_import_s"],
+    "x1-inproc.soak": SPANS + ["probe_ms", "burnin_roofline", "hbm_stream_sum_roofline",
+                               "device_idle_pct", "prewarm_s"] + GAPS + [
+                                   "gap_labelgen_ms", "gap_loop_ms", "fsyncs_per_cycle"],
+    "x4-broker.soak": SPANS + ["broker_rpc_ms", "probe_ms", "worker_ready_s", "prewarm_s"]
+    + GAPS + ["gap_broker_ms", "gap_labelgen_ms", "gap_loop_ms", "fsyncs_per_cycle",
+              "worker_import_s", "allreduce_roofline", "gate_spin_ms", "collective_card_ms"],
+}
+
+
+@pytest.mark.parametrize("cell", sorted(SOAK_E2E))
+def test_the_soak_cells_report_what_they_reported_before_the_busy_cell(cell):
+    assert [m["name"] for m in catalog.metrics_for(BENCH, cell, False)] == SOAK_E2E[cell]
+    assert [m["name"] for m in catalog.metrics_for(BENCH, cell, True)] == SOAK_PER_LAYER[cell]
+
+
+def test_the_busy_cell_reports_the_busy_path_and_the_soaks_window():
+    e2e = [m["name"] for m in catalog.metrics_for(BENCH, "x1-broker.busy", False)]
+    assert e2e == ["probe_card_ms", "card_mib_held", "setup_s", "busy_mib_held"]
+    busy = ["busy_rpc_ms", "busy_cycle_ms", "recover_s"]
+    per_layer = [m["name"] for m in catalog.metrics_for(BENCH, "x1-broker.busy", True)]
+    assert per_layer == SOAK_PER_LAYER["x1-broker.soak"] + busy
+    # Each busy metric is reported in the busy cell alone; the busy phase
+    # and the verdict's return are part of its set-up.
+    for m in BENCH["per_layer"]:
+        if m["name"] in busy:
+            assert m["workloads"] == ["x1-broker.busy"] and m["moves"] == "setup_s"
+    assert catalog.traffic("busy")["tenant"] == {"margin_mib": 1157, "busy_cycles": 20}
