@@ -39,9 +39,9 @@ Phases, each printing one JSON line:
                   apart, through the several-device helper even on one
                   card; the timed all-reduce (32 MiB per card: on one card
                   the one-device copy, timed beside NCCL over the card,
-                  with no NCCL call in the probes) and its timing gate's
-                  spins (device ms beside the host's queueing ms), the
-                  ring sweeps over
+                  with no NCCL call in the probes) and its timing gates
+                  (device ms beside the host's queueing ms and each
+                  card's outcome), the ring sweeps over
                   the chip mesh and the (data, model) mesh, peer copies
                   per ring edge, the DP+TP train step against the same
                   step on the CPU, the dry run, and the node probe's
@@ -393,11 +393,12 @@ def phase_build() -> dict:
     started together; returns ptxas's lines per kernel library."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from gpu_feature_discovery_tpu_torch.ops import hbm, rms_epilogue
+    from gpu_feature_discovery_tpu_torch.ops import hbm, rms_epilogue, timing_gate
 
     t0 = time.perf_counter()
     builders = {"hbm_stream_sum": hbm.build_kernel,
-                "rms_epilogue": rms_epilogue.build_kernel}
+                "rms_epilogue": rms_epilogue.build_kernel,
+                "timing_gate": timing_gate.build_kernel}
     with ThreadPoolExecutor(len(builders)) as pool:
         built = {name: pool.submit(fn) for name, fn in builders.items()}
         built = {name: future.result() for name, future in built.items()}
@@ -1190,10 +1191,10 @@ def phase_collectives(count: int) -> None:
 
     nccl.all_reduce = counting
 
-    # The timing gate: the first spin on these devices runs
-    # GATE_FIRST_CYCLES and calibrates; the probe's (3 calls) and every
-    # later one (5 calls) are sized from the host's queueing time per call
-    # that the last one measured.
+    # The timing gate (ops/timing_gate.py): each card's gate kernel holds
+    # its stream until the host has queued every call and opened it, or
+    # until its 1 ms watchdog. Each gate of 5 calls here reports every
+    # card's outcome; the probe's (3 calls) warns if one timed out.
     collectives.all_reduce(ones, out=dst)  # first use on these buffers, untimed
     gates = [device_timing.gated_windows(
         devices, lambda: collectives.all_reduce(ones, out=dst), 5)]
@@ -1206,7 +1207,7 @@ def phase_collectives(count: int) -> None:
         gates.append(device_timing.gated_windows(
             devices, lambda: collectives.all_reduce(ones, out=dst), 5))
     out["gates"] = [{"gate_ms": g.gate_s * 1e3, "queued_ms": g.queued_s * 1e3,
-                     "held": g.held} for g in gates]
+                     "held": g.held, "outcomes": list(g.outcomes)} for g in gates]
     check(all(g.held for g in gates),
           f"the host queued the all-reduces past the timing gate: {out['gates']}")
     # One card copies its payload out of place: read once, written once.

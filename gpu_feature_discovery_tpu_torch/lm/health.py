@@ -64,7 +64,9 @@ worker's pre-warm (``prewarm_ms``, shipped with its first report: the
 pre-warm pays first use there, so every probe reports 0),
 ``tfd_chip_ok{chip}`` and the raw, ungated
 ``tfd_chip_tflops{chip}`` beside the ``chip.<i>.*`` labels (with the
-label's index), and ``tfd_straggler_detected_total``.
+label's index), ``tfd_straggler_detected_total``, and
+``tfd_timing_gate_total{outcome}`` from the report's
+``phases.timing_gate_*`` (the multi-GPU all-reduce's gates).
 """
 
 from __future__ import annotations
@@ -87,6 +89,7 @@ from gpu_feature_discovery_tpu_torch.lm.labeler import Empty, Labeler
 from gpu_feature_discovery_tpu_torch.lm.labels import Labels
 from gpu_feature_discovery_tpu_torch.native import nvml
 from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
+from gpu_feature_discovery_tpu_torch.ops import timing_gate
 from gpu_feature_discovery_tpu_torch.resource.types import Manager
 from gpu_feature_discovery_tpu_torch.utils import timing
 from gpu_feature_discovery_tpu_torch.utils.logging import warn_once
@@ -783,10 +786,16 @@ def _labels_from_probe(
         report.get("phases"),
         probe_ms,
     )
-    compile_ms = (report.get("phases") or {}).get("compile_ms")
+    phases = report.get("phases") or {}
+    compile_ms = phases.get("compile_ms")
     if compile_ms:
         # Only a probe that paid first use reports a non-zero phase.
         obs_metrics.FIRST_PROBE_COMPILE.set(float(compile_ms) / 1e3)
+    for outcome in timing_gate.OUTCOMES:
+        # The all-reduce's timing gates since the last report, per device.
+        gates = phases.get(f"timing_gate_{outcome}")
+        if gates:
+            obs_metrics.TIMING_GATE.labels(outcome=outcome).inc(gates)
     peak_tf, peak_hbm = _spec_peaks(manager)
     labels = Labels(
         {

@@ -15,9 +15,9 @@ see it. Every series is recorded in the labeling process, the one that
 serves ``/metrics``: what the broker worker measures on the device
 reaches it in the worker's reports, and its spans in its replies.
 
-Three families are the port's own, with no twin: ``tfd_span_duration_seconds``
+Four families are the port's own, with no twin: ``tfd_span_duration_seconds``
 and ``tfd_probe_gap_seconds`` (the span tree of ``obs/spans.py``, on
-``SPAN_BUCKETS``) and ``tfd_fsyncs_total``.
+``SPAN_BUCKETS``), ``tfd_fsyncs_total`` and ``tfd_timing_gate_total``.
 """
 
 from __future__ import annotations
@@ -677,6 +677,16 @@ FSYNCS = REGISTRY.counter(
     "(--state-dir) or timings (--timings-file). A churn-free skipped "
     "label write makes none. Port-only.",
     labelnames=("file",),
+)
+TIMING_GATE = REGISTRY.counter(
+    "tfd_timing_gate_total",
+    "Timing gates of the multi-GPU all-reduce probe, one per GPU per gate, "
+    "by outcome: released (the host had queued every timed call and "
+    "opened the gate) or timed_out (the gate's 1 ms watchdog opened it "
+    "first, so that probe's all-reduce windows may include host time). "
+    "Counted from the probe's reports, the broker worker's included. "
+    "Port-only.",
+    labelnames=("outcome",),
 )
 
 # -- per-cycle stage store (the utils/timing.py backing) --------------------

@@ -15,10 +15,14 @@ plane per device, named ``/device:CUDA:<index>``.
 
 from __future__ import annotations
 
+import threading
 import time
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from collections import Counter
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
+
+from gpu_feature_discovery_tpu_torch.ops import timing_gate
 
 DeviceDurations = Dict[str, Dict[str, List[float]]]  # name -> plane -> [sec]
 
@@ -60,69 +64,33 @@ class DeviceClock:
         return out
 
 
-# The spin that holds every device's stream before a gated window opens
-# is sized from what the last gate measured: three times the host's
-# queueing time per timed call, times the calls to come (the host's
-# queueing per call varies by up to 2x between gates), so a spin the
-# host outran is at least doubled. It is never shorter than GATE_MIN_S,
-# and never longer than the first spin, GATE_FIRST_CYCLES: that spin,
-# the fixed one of old, calibrates the device's cycles per second, about
-# 1-2 ms at the H100's 1-2 GHz SM clock. Where the host needs longer to
-# queue (many devices), the windows open early and the gate reports it
-# (``Gate.held``) rather than spend more device time than the fixed spin.
-GATE_FIRST_CYCLES = 2_000_000
-GATE_QUEUE_MULTIPLE = 3.0
-GATE_MIN_S = 100e-6
-
-
 class Gate(NamedTuple):
     """One gated timing: the per-call windows (seconds, slowest device),
-    whether the host finished queueing inside the spin, the spin's own
-    device time and the host's queueing time (seconds)."""
+    whether every device's gate was released by the host (none timed
+    out), the gate's own device time and the host's queueing time
+    (seconds), and each device's outcome (``timing_gate.OUTCOMES``)."""
 
     windows: List[float]
     held: bool
     gate_s: float
     queued_s: float
+    outcomes: Tuple[str, ...]
 
 
-def next_gate_s(queued_s: float, max_s: float) -> float:
-    """The next spin's length from the host's last queueing time:
-    GATE_QUEUE_MULTIPLE times it, within [GATE_MIN_S, max_s]. A spin the
-    host outran (queued_s >= its length) is so at least doubled, up to
-    ``max_s``."""
-    return min(max_s, max(GATE_MIN_S, GATE_QUEUE_MULTIPLE * queued_s))
+# Gates per outcome, one count per device per gate, since the last
+# drain_gate_outcomes: the probe's report carries them to the process
+# that serves tfd_timing_gate_total.
+gate_outcomes: Counter = Counter()
+_outcomes_lock = threading.Lock()
 
 
-class GateSize:
-    """The spin of one device set: its cycles per second as the last spin
-    measured them, and the host's last queueing time per timed call, from
-    which the next spin is sized for its own number of calls."""
-
-    def __init__(self):
-        self.cycles_per_s: Optional[float] = None
-        self.queued_per_call_s: Optional[float] = None
-
-    def cycles(self, iters: int) -> int:
-        """Cycles of the next spin, ahead of ``iters`` timed calls:
-        GATE_FIRST_CYCLES until calibrated, and never more."""
-        if self.cycles_per_s is None or self.queued_per_call_s is None:
-            return GATE_FIRST_CYCLES
-        gate_s = next_gate_s(self.queued_per_call_s * iters,
-                             GATE_FIRST_CYCLES / self.cycles_per_s)
-        return max(1, min(GATE_FIRST_CYCLES, round(gate_s * self.cycles_per_s)))
-
-    def record(self, cycles: int, gate_s: float, queued_s: float, iters: int) -> None:
-        """Calibrate from a spin of ``cycles`` that lasted ``gate_s`` on
-        the device, ahead of ``iters`` calls the host queued in
-        ``queued_s``."""
-        if gate_s > 0:
-            self.cycles_per_s = cycles / gate_s
-        self.queued_per_call_s = queued_s / max(1, iters)
-
-
-# One GateSize per device set; healthcheck.reset_probe_workspaces clears it.
-gate_sizes: Dict[tuple, GateSize] = {}
+def drain_gate_outcomes() -> Dict[str, int]:
+    """Each outcome's count since the last drain (every outcome, 0 where
+    none)."""
+    with _outcomes_lock:
+        counts = {name: gate_outcomes[name] for name in timing_gate.OUTCOMES}
+        gate_outcomes.clear()
+    return counts
 
 
 def gated_windows(devices, fn: Callable[[], Any], iters: int) -> Gate:
@@ -132,14 +100,18 @@ def gated_windows(devices, fn: Callable[[], Any], iters: int) -> Gate:
 
     An event pair around one multi-device call would also time the host:
     the first device's window opens while the host still queues the
-    others. So each stream first spins, which holds the windows shut
-    until the host has queued every call; the spin is sized by
-    ``next_gate_s`` from the last gate on the same devices
-    (``GateSize``)."""
+    others. So each stream first runs the gate kernel
+    (``ops/timing_gate.py``), which holds the windows shut until the
+    host, having queued every call and its marks, opens the gate with
+    this gate's epoch: in a ``finally``, so a raising ``fn`` leaves no
+    device to wait out the watchdog."""
     devices = list(dict.fromkeys(devices))
-    size = gate_sizes.setdefault(tuple(devices), GateSize())
-    cycles = size.cycles(iters)
+    gate = timing_gate.host_words()
     streams = [torch.cuda.current_stream(d) for d in devices]
+    for i, (d, s) in enumerate(zip(devices, streams)):
+        with torch.cuda.device(d):
+            gate.load(d, i, s.cuda_stream)
+    epoch = gate.next_epoch()
     marks: List[List[Any]] = [[] for _ in devices]
 
     def mark():
@@ -149,22 +121,28 @@ def gated_windows(devices, fn: Callable[[], Any], iters: int) -> Gate:
                 e.record(s)
             marks[i].append(e)
 
+    gate.arm(len(devices))
     t0 = time.perf_counter()
-    mark()
-    for d, s in zip(devices, streams):
-        with torch.cuda.device(d), torch.cuda.stream(s):
-            torch.cuda._sleep(cycles)
-    mark()
-    for _ in range(iters):
-        fn()
+    try:
         mark()
-    queued_s = time.perf_counter() - t0
+        for i, (d, s) in enumerate(zip(devices, streams)):
+            with torch.cuda.device(d):
+                gate.launch(i, epoch, s.cuda_stream)
+        mark()
+        for _ in range(iters):
+            fn()
+            mark()
+        queued_s = time.perf_counter() - t0
+    finally:
+        gate.open(epoch)
     for row in marks:
         row[-1].synchronize()
+    outcomes = gate.outcomes(len(devices))
+    with _outcomes_lock:
+        gate_outcomes.update(outcomes)
     gate_s = min(row[0].elapsed_time(row[1]) for row in marks) / 1e3
     windows = [
         max(row[k].elapsed_time(row[k + 1]) for row in marks) / 1e3
         for k in range(1, iters + 1)
     ]
-    size.record(cycles, gate_s, queued_s, iters)
-    return Gate(windows, queued_s < gate_s, gate_s, queued_s)
+    return Gate(windows, all(o == "released" for o in outcomes), gate_s, queued_s, outcomes)

@@ -32,8 +32,8 @@ event pair around them would wait on the host queueing them. So the
 timed burn-in pass is a CUDA graph, captured once per (device, size,
 depth) during the warm-up and replayed between the event pair: the
 window holds the device's work only. The all-reduce is timed behind a
-spin that holds every stream until the host has queued it
-(``device_timing.gated_windows``). On the CPU (tests,
+gate kernel that holds every stream until the host has queued it
+(``device_timing.gated_windows``, ``ops/timing_gate.py``). On the CPU (tests,
 ``TFD_BURNIN_ALLOW_CPU``) the host clock times a 512x8 burn-in, there is
 no HBM probe and ``ici_gbps`` stays None, as the twin splits TPU and
 non-TPU devices.
@@ -58,7 +58,7 @@ import torch
 
 from gpu_feature_discovery_tpu_torch.native import nvml
 from gpu_feature_discovery_tpu_torch.utils import timing
-from gpu_feature_discovery_tpu_torch.ops import device_timing, rms_epilogue
+from gpu_feature_discovery_tpu_torch.ops import device_timing, rms_epilogue, timing_gate
 from gpu_feature_discovery_tpu_torch.ops.collectives import (
     DataParallelGrad,
     Mesh,
@@ -299,8 +299,8 @@ def reset_probe_workspaces() -> None:
     """Drop every per-device probe cache: the captured burn-in graphs
     and the epilogue's scratch they captured, the resident burn-in
     inputs, the HBM stream buffers and the stream kernel's scratch, the
-    all-reduce payloads, the timing gate's sizes and the warmed-probe
-    memo."""
+    all-reduce payloads, the timing gate's epoch and words and the
+    warmed-probe memo."""
     _burnin_graphs.clear()
     rms_epilogue.reset_scratch()
     stream_workspace.cache_clear()
@@ -308,7 +308,7 @@ def reset_probe_workspaces() -> None:
     _burnin_workspace.cache_clear()
     _allreduce_workspace.cache_clear()
     _warmed_probe_keys.clear()
-    device_timing.gate_sizes.clear()
+    timing_gate.reset()
 
 
 # What a probe's error says when it could not get device memory: the
@@ -559,9 +559,10 @@ def ici_allreduce_probe(
         )
         samples = gate.windows
         if not gate.held:
-            log.warning("all-reduce probe: the host queued past the timing gate "
-                        "(%.3f ms queued, %.3f ms gate); the windows may include "
-                        "host time", gate.queued_s * 1e3, gate.gate_s * 1e3)
+            log.warning("all-reduce probe: the host queued past the timing gate's "
+                        "watchdog (%.3f ms queued, %.3f ms gate, %s); the windows "
+                        "may include host time", gate.queued_s * 1e3,
+                        gate.gate_s * 1e3, ", ".join(gate.outcomes))
     else:
         samples = []
         for _ in range(max(1, iters)):
@@ -965,7 +966,10 @@ def measure_node_health(
     The report is plain JSON data (the broker worker ships it over a
     pipe). Its ``phases`` carry the ``hbm_stream_sum`` launches of this
     probe and of the whole process so far, so a caller in another process
-    can count the kernel's launches."""
+    can count the kernel's launches, and the timing gates' outcomes, one
+    per device per gate, since the last report (the pre-warm's gates
+    ride with the first), as ``timing_gate_released`` and
+    ``timing_gate_timed_out``."""
     t_total = time.perf_counter()
     t_prepare = timing.now_ns()
     launches_before = hbm_stream_sum.launches
@@ -1084,6 +1088,8 @@ def measure_node_health(
         hbm_stream_sum.launches - launches_before
     )
     report["phases"]["hbm_stream_sum_launches_process"] = hbm_stream_sum.launches
+    for outcome, count in device_timing.drain_gate_outcomes().items():
+        report["phases"][f"timing_gate_{outcome}"] = count
     timing.emit("probe.prepare", t_prepare, t_launch)
     timing.emit("probe.device", t_launch, t_device)
     timing.emit("probe.report", t_device, timing.now_ns())

@@ -56,10 +56,12 @@ RESOLVED_CACHE_DIR_ENV = "TFD_RESOLVED_COMPILATION_CACHE_DIR"
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 # Every hand-written kernel source the probe builds: the HBM stream sum
-# (ops/hbm.py) and the burn-in's RMS epilogue (ops/rms_epilogue.py).
+# (ops/hbm.py), the burn-in's RMS epilogue (ops/rms_epilogue.py) and the
+# all-reduce's timing gate (ops/timing_gate.py).
 HBM_STREAM_SUM_CU = Path(__file__).resolve().parent / "csrc" / "hbm_stream_sum.cu"
 RMS_EPILOGUE_CU = Path(__file__).resolve().parent / "csrc" / "rms_epilogue.cu"
-KERNEL_SOURCES = (HBM_STREAM_SUM_CU, RMS_EPILOGUE_CU)
+TIMING_GATE_CU = Path(__file__).resolve().parent / "csrc" / "timing_gate.cu"
+KERNEL_SOURCES = (HBM_STREAM_SUM_CU, RMS_EPILOGUE_CU, TIMING_GATE_CU)
 
 TARGET = "sm_90a"
 NVCC_FLAGS = (

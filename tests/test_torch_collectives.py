@@ -19,7 +19,7 @@ from gpu_feature_discovery_tpu.lm import health as twin_health
 from gpu_feature_discovery_tpu.ops import healthcheck as twin
 from gpu_feature_discovery_tpu_torch.config.flags import new_config
 from gpu_feature_discovery_tpu_torch.lm import health
-from gpu_feature_discovery_tpu_torch.ops import collectives, device_timing, healthcheck
+from gpu_feature_discovery_tpu_torch.ops import collectives, healthcheck
 
 CPU = torch.device("cpu")
 
@@ -331,56 +331,3 @@ def test_prewarm_runs_the_collectives_the_probe_will_run(monkeypatch, n, per_chi
     assert calls == want
     monkeypatch.undo()
     healthcheck.reset_probe_workspaces()
-
-
-# ---------------------------------------------------------------------------
-# The timing gate's spin (ops/device_timing.py), sized from measured
-# values rather than a fixed cycle count. The twin times the psum with no
-# spin at all, so there is no twin to compare with: the rule itself.
-# ---------------------------------------------------------------------------
-
-# The longest spin: the first, fixed one (GATE_FIRST_CYCLES), here 2 ms.
-GATE_MAX_S = 2e-3
-
-GATE_CASES = {
-    # (spin's device s, host's queueing s) -> next spin's s
-    "held": (1e-3, 0.2e-3, 0.6e-3),
-    "outrun": (0.3e-3, 0.5e-3, 1.5e-3),
-    "floor": (1e-3, 0.01e-3, device_timing.GATE_MIN_S),
-    "cap": (1.5e-3, 3e-3, GATE_MAX_S),
-}
-
-
-@pytest.mark.parametrize("case", sorted(GATE_CASES))
-def test_gate_spin_is_sized_from_the_measured_queueing(case):
-    gate_s, queued_s, want = GATE_CASES[case]
-    got = device_timing.next_gate_s(queued_s, GATE_MAX_S)
-    assert got == pytest.approx(want, rel=1e-12)
-    assert device_timing.GATE_MIN_S <= got <= GATE_MAX_S
-    if queued_s >= gate_s:  # outrun: at least doubled, up to the cap
-        assert got >= min(2 * gate_s, GATE_MAX_S)
-
-
-def test_gate_spin_calibrates_cycles_from_the_last_spin():
-    size = device_timing.GateSize()
-    assert size.cycles(5) == device_timing.GATE_FIRST_CYCLES
-    # The first spin took 1 ms on the device (2 GHz); the host queued its
-    # 5 calls in 0.2 ms, so a spin ahead of 5 calls is 0.6 ms long
-    # (1,200,000 cycles), ahead of 3 calls 0.36 ms.
-    size.record(device_timing.GATE_FIRST_CYCLES, 1e-3, 0.2e-3, 5)
-    assert size.cycles_per_s == pytest.approx(2e9)
-    assert size.cycles(5) == pytest.approx(1_200_000, abs=1)
-    assert size.cycles(3) == pytest.approx(720_000, abs=1)
-    # The host outran a 0.2 ms spin (0.25 ms queued): the next is 0.75 ms.
-    size.record(400_000, 0.2e-3, 0.25e-3, 5)
-    assert size.cycles(5) == pytest.approx(1_500_000, abs=1)
-    # Outrun again (0.7 ms): 2.1 ms would be longer than the first spin
-    # (1 ms), so the spin stays at the first one's cycles, never more.
-    size.record(1_500_000, 0.75e-3, 0.7e-3, 5)
-    assert size.cycles(5) == device_timing.GATE_FIRST_CYCLES
-
-
-def test_reset_probe_workspaces_drops_the_gate_sizes():
-    device_timing.gate_sizes[("dev",)] = device_timing.GateSize()
-    healthcheck.reset_probe_workspaces()
-    assert device_timing.gate_sizes == {}

@@ -8,11 +8,18 @@ file imports no JAX, so it also runs on a card machine without it:
 """
 
 import math
+import time
 
 import pytest
 import torch
 
-from gpu_feature_discovery_tpu_torch.ops import hbm, healthcheck, rms_epilogue
+from gpu_feature_discovery_tpu_torch.ops import (
+    collectives,
+    device_timing,
+    hbm,
+    healthcheck,
+    rms_epilogue,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -323,6 +330,31 @@ def test_allreduce_probe_and_sweep_on_card(dev):
     assert sweep == {"links_ok": True, "allreduce_ok": True, "devices": 1}
     with pytest.raises(ValueError, match="only one local device"):
         healthcheck.measure_node_health(devices=[dev], per_chip=True, ici=True)
+
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices: the gate holds a multi-card collective")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def test_timing_gate_opens_once_the_host_has_queued_and_by_its_watchdog(cards):
+    """The gate over every local card holds three timed 32 MiB all-reduces
+    until the host has queued them, for less than the 1.01 ms the capped
+    spin before it took; a host that sleeps 3 ms before opening finds
+    every card timed out near the 1 ms watchdog, not at 3 ms."""
+    rows = (32 << 20) // (hbm.LANES * 4)
+    ones = [torch.ones((rows, hbm.LANES), device=d) for d in cards]
+    out = [torch.empty_like(t) for t in ones]
+    collectives.all_reduce(ones, out=out)  # the communicator, outside the gate
+    gate = device_timing.gated_windows(cards, lambda: collectives.all_reduce(ones, out=out), 3)
+    assert gate.held and gate.outcomes == ("released",) * len(cards)
+    assert gate.gate_s < 1.01e-3 and len(gate.windows) == 3
+    assert all(bool(torch.all(o == float(len(cards)))) for o in out)
+    late = device_timing.gated_windows(cards, lambda: time.sleep(3e-3), 1)
+    assert not late.held and late.outcomes == ("timed_out",) * len(cards)
+    assert 0.95e-3 <= late.gate_s < 1.5e-3
 
 
 def test_a_probes_cuda_operations_lie_inside_its_device_span(dev):

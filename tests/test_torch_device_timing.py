@@ -22,8 +22,11 @@ What carries over:
   pair cannot fail the way a profiler session can, so there is nothing
   to memoise), CPU devices by the wall clock."""
 
+import collections
 import contextlib
+import ctypes
 import math
+import types
 
 import numpy as np
 import pytest
@@ -31,7 +34,7 @@ import torch
 
 from gpu_feature_discovery_tpu.ops import hbm as twin_hbm
 from gpu_feature_discovery_tpu.ops import healthcheck as twin_healthcheck
-from gpu_feature_discovery_tpu_torch.ops import device_timing, healthcheck, hbm
+from gpu_feature_discovery_tpu_torch.ops import device_timing, healthcheck, hbm, timing_gate
 from gpu_feature_discovery_tpu_torch.ops.device_timing import DeviceClock, plane_name
 
 
@@ -293,3 +296,190 @@ def test_expected_stream_sum_is_the_twins_and_the_buffers(mib):
     buf = hbm.stream_pattern(rows)
     assert float(hbm.hbm_stream_sum_reference(buf)) == hbm.expected_stream_sum(rows)
     assert np.isfinite(hbm.expected_stream_sum(rows))
+
+
+# ---------------------------------------------------------------------------
+# the all-reduce's timing gate (ops/timing_gate.py, csrc/timing_gate.cu),
+# its library's entry points stood in for. The twin times its psum as one
+# program with no gate, so there is no twin to compare with: the rule
+# itself, that no window opens before the host has queued every call.
+# ---------------------------------------------------------------------------
+
+class _FakeGateLibrary:
+    """timing_gate.cu's entry points on the CPU. The host words are a
+    ctypes block; a launched gate writes "released" once the host has
+    opened its epoch or a later one (the kernel's signed 32-bit
+    comparison), at once where it already has (a load), or "timed out" at
+    once on a card the script times out."""
+
+    RELEASED, TIMED_OUT = 1, 2
+
+    def __init__(self, log):
+        self.log = log
+        self.timed_out = set()
+        self.block = None
+        self.pending = []   # (outcome address, epoch) not yet released
+        self.launches = []  # (card, epoch, timeout_ns, stream) of the gates
+        self.loads = []     # (card, epoch) of the launches that returned at once
+
+    def timing_gate_released(self):
+        return self.RELEASED
+
+    def timing_gate_timed_out(self):
+        return self.TIMED_OUT
+
+    def timing_gate_alloc(self, words):
+        self.block = (ctypes.c_uint32 * words)()
+        return ctypes.addressof(self.block)
+
+    def timing_gate_launch(self, word, epoch, outcome, timeout_ns, stream):
+        card = (outcome - word) // 4 - 1
+        if self._reached(ctypes.c_uint32.from_address(word).value, epoch):
+            self.loads.append((card, epoch))
+            self.log.append("load")
+            ctypes.c_uint32.from_address(outcome).value = self.RELEASED
+            return 0
+        self.launches.append((card, epoch, timeout_ns, stream))
+        self.log.append("gate")
+        if card in self.timed_out:
+            ctypes.c_uint32.from_address(outcome).value = self.TIMED_OUT
+        else:
+            self.pending.append((outcome, epoch))
+        return 0
+
+    def timing_gate_open(self, word, epoch):
+        self.log.append(("open", epoch))
+        ctypes.c_uint32.from_address(word).value = epoch
+        still = []
+        for outcome, want in self.pending:
+            if self._reached(epoch, want):
+                ctypes.c_uint32.from_address(outcome).value = self.RELEASED
+            else:
+                still.append((outcome, want))
+        self.pending = still
+
+    @staticmethod
+    def _reached(word, epoch):
+        return (word - epoch) & 0xFFFFFFFF < 2**31  # (int)(word - epoch) >= 0
+
+
+@pytest.fixture
+def fake_gate(fake_cuda_events, monkeypatch):
+    log = []
+    lib = _FakeGateLibrary(log)
+
+    class LoggedEvent(_FakeEvent):
+        def record(self, stream=None):
+            super().record(stream)
+            log.append("mark")
+
+    monkeypatch.setattr(torch.cuda, "Event", LoggedEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(timing_gate, "_kernel_library", lambda: lib)
+    monkeypatch.setattr(timing_gate, "_words", None)
+    monkeypatch.setattr(device_timing, "gate_outcomes", collections.Counter())
+    return lib
+
+
+CARDS = [torch.device("cuda", i) for i in range(3)]
+
+
+def _call(log, clock, raise_at=None):
+    calls = []
+
+    def fn():
+        calls.append(1)
+        log.append("call")
+        clock[0] += 1e-3
+        if len(calls) == raise_at:
+            raise RuntimeError("the collective failed")
+    return fn
+
+
+@pytest.mark.parametrize("start", [0, 0xFFFFFFFE], ids=["first", "wrap"])
+def test_gate_epochs_go_up_by_one_and_survive_the_wrap(fake_gate, fake_cuda_events, start):
+    words = timing_gate.host_words()
+    words.epoch = start
+    words.open(start)  # as after a gate of epoch ``start``
+    fake_gate.log.clear()
+    gates = [device_timing.gated_windows(CARDS, _call(fake_gate.log, fake_cuda_events), 2)
+             for _ in range(3)]
+    want = [(start + k) % 2**32 for k in (1, 2, 3)]
+    assert [e for _, e, _, _ in fake_gate.launches] == [e for e in want for _ in CARDS]
+    assert [x[1] for x in fake_gate.log if isinstance(x, tuple)] == want
+    assert all(g.held and g.outcomes == ("released",) * 3 for g in gates)
+    assert {t for _, _, t, _ in fake_gate.launches} == {timing_gate.TIMEOUT_NS}
+    assert {s for _, _, _, s in fake_gate.launches} == {7}
+    assert fake_gate.loads == [(i, start) for i in range(3)]  # once a card, before its first gate
+
+
+def test_gate_opens_after_the_last_call_and_its_mark(fake_gate, fake_cuda_events):
+    gate = device_timing.gated_windows(CARDS[:2], _call(fake_gate.log, fake_cuda_events), 3)
+    assert fake_gate.log == (["load"] * 2 + ["mark"] * 2 + ["gate"] * 2 + ["mark"] * 2
+                             + ["call", "mark", "mark"] * 3 + [("open", 1)])
+    assert gate.held and gate.windows == pytest.approx([1e-3] * 3)
+
+
+@pytest.mark.parametrize("raise_at", [1, 3])
+def test_gate_opens_even_when_the_collective_raises(fake_gate, fake_cuda_events, raise_at):
+    with pytest.raises(RuntimeError, match="the collective failed"):
+        device_timing.gated_windows(
+            CARDS, _call(fake_gate.log, fake_cuda_events, raise_at=raise_at), 3)
+    assert fake_gate.log[-1] == ("open", 1) and fake_gate.log.count("call") == raise_at
+    assert fake_gate.pending == []  # no card waits out the watchdog
+
+
+@pytest.mark.parametrize("timed_out", [(), (0,), (2,), (0, 1, 2)])
+def test_gate_is_held_only_when_no_card_timed_out(fake_gate, fake_cuda_events, timed_out):
+    fake_gate.timed_out = set(timed_out)
+    gate = device_timing.gated_windows(CARDS, _call(fake_gate.log, fake_cuda_events), 3)
+    assert gate.outcomes == tuple("timed_out" if i in timed_out else "released"
+                                  for i in range(3))
+    assert gate.held is (not timed_out)
+
+
+def test_gate_counts_each_outcome_per_card(fake_gate, fake_cuda_events):
+    device_timing.gated_windows(CARDS, _call(fake_gate.log, fake_cuda_events), 3)
+    fake_gate.timed_out = {1}
+    device_timing.gated_windows(CARDS, _call(fake_gate.log, fake_cuda_events), 3)
+    assert device_timing.drain_gate_outcomes() == {"released": 5, "timed_out": 1}
+    assert device_timing.drain_gate_outcomes() == {"released": 0, "timed_out": 0}
+
+
+def test_gate_counts_reach_the_report_and_the_counter(monkeypatch):
+    """The probe's report carries the gates since the last report (the
+    broker worker's pre-warm's with its first), and the labeling process
+    counts them in tfd_timing_gate_total, one per card per gate."""
+    from gpu_feature_discovery_tpu_torch.config.flags import new_config
+    from gpu_feature_discovery_tpu_torch.lm import health
+    from gpu_feature_discovery_tpu_torch.obs import metrics as obs_metrics
+
+    monkeypatch.setattr(device_timing, "gate_outcomes",
+                        collections.Counter({"released": 7, "timed_out": 1}))
+    cpu = [torch.device("cpu")]
+    first = healthcheck.measure_node_health(size=128, depth=2, iters=1, devices=cpu)
+    second = healthcheck.measure_node_health(size=128, depth=2, iters=1, devices=cpu)
+    assert (first["phases"]["timing_gate_released"],
+            first["phases"]["timing_gate_timed_out"]) == (7, 1)
+    assert (second["phases"]["timing_gate_released"],
+            second["phases"]["timing_gate_timed_out"]) == (0, 0)
+    monkeypatch.setattr(health, "_spec_peaks", lambda manager: (989.0, 3350.0))
+    before = {o: obs_metrics.TIMING_GATE.value(outcome=o) for o in timing_gate.OUTCOMES}
+    health._labels_from_probe(health._BurninSchedule(), None,
+                              new_config(cli_values={}, environ={}), first, None, 5.0)
+    health._labels_from_probe(health._BurninSchedule(), None,
+                              new_config(cli_values={}, environ={}), second, None, 5.0)
+    after = {o: obs_metrics.TIMING_GATE.value(outcome=o) for o in timing_gate.OUTCOMES}
+    assert {o: after[o] - before[o] for o in after} == {"released": 7, "timed_out": 1}
+
+
+def test_reset_probe_workspaces_drops_the_gate_state(fake_gate, fake_cuda_events):
+    for _ in range(2):
+        device_timing.gated_windows(CARDS, _call(fake_gate.log, fake_cuda_events), 1)
+    words = timing_gate.host_words()
+    assert words.epoch == 2 and list(words.words[:4]) == [2, 1, 1, 1]
+    healthcheck.reset_probe_workspaces()
+    assert words.epoch == 0 and not any(words.words)
+    gate = device_timing.gated_windows(CARDS, _call(fake_gate.log, fake_cuda_events), 1)
+    assert gate.held and fake_gate.launches[-1][1] == 1

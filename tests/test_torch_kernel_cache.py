@@ -19,7 +19,7 @@ from gpu_feature_discovery_tpu_torch.config.flags import (
     new_config,
     resolve_compilation_cache_dir,
 )
-from gpu_feature_discovery_tpu_torch.ops import hbm, kernel_cache, rms_epilogue
+from gpu_feature_discovery_tpu_torch.ops import hbm, kernel_cache, rms_epilogue, timing_gate
 from torch_env_guard import resolved_cache_dir_restored  # noqa: F401 - autouse
 
 REPO = Path(__file__).resolve().parent.parent
@@ -117,7 +117,7 @@ def test_prebuilt_library_loads_without_nvcc(cache):
     assert hbm.build_kernel() == (prebuilt, "")
 
 
-@pytest.mark.parametrize("module", [hbm, rms_epilogue])
+@pytest.mark.parametrize("module", [hbm, rms_epilogue, timing_gate])
 def test_each_kernels_prebuilt_library_loads_without_nvcc(cache, module):
     prebuilt = kernel_cache.library_path(module._CSRC)
     prebuilt.parent.mkdir(parents=True, exist_ok=True)
@@ -126,15 +126,16 @@ def test_each_kernels_prebuilt_library_loads_without_nvcc(cache, module):
 
 
 def test_prebuild_builds_every_kernel_source_once(cache, tmp_path, monkeypatch):
-    """The image's build step: one library per source, the stream sum's
-    and the burn-in epilogue's, each under the name the runtime looks up;
-    the cache then counts as usable even where it is read-only."""
+    """The image's build step: one library per source, the stream sum's,
+    the burn-in epilogue's and the timing gate's, each under the name the
+    runtime looks up; the cache then counts as usable even where it is
+    read-only."""
     _fake_nvcc(tmp_path, monkeypatch, 'echo lib > "$out"\n')
     directory = tmp_path / "image-kernels"
     libraries = kernel_cache.prebuild(str(directory))
     assert [lib.name.split("-")[0] for lib in libraries] == [
-        "libhbm_stream_sum", "librms_epilogue"]
-    assert _calls(tmp_path) == 2
+        "libhbm_stream_sum", "librms_epilogue", "libtiming_gate"]
+    assert _calls(tmp_path) == 3
     assert libraries == [kernel_cache.library_path(s) for s in kernel_cache.KERNEL_SOURCES]
     assert sorted(p.name for p in directory.iterdir()) == sorted(l.name for l in libraries)
     assert kernel_cache.kernel_cache_usable()

@@ -42,7 +42,8 @@ TORCH_DOCS = Path(__file__).resolve().parent.parent / "docs" / "torch" / "observ
 
 # The port's own families, with no twin: the span tree (obs/spans.py) and
 # the atomic writer's fsync count. Each is documented in the port's docs.
-PORT_ONLY = {"tfd_span_duration_seconds", "tfd_probe_gap_seconds", "tfd_fsyncs_total"}
+PORT_ONLY = {"tfd_span_duration_seconds", "tfd_probe_gap_seconds", "tfd_fsyncs_total",
+             "tfd_timing_gate_total"}
 
 # Twin families whose layers the port does not have yet: none since the
 # fleet collector and its --max-inflight-requests gate were ported.
@@ -172,7 +173,7 @@ def test_every_port_family_is_the_twins_and_is_documented():
         assert _signature(fam) == _signature(twin[name]), name
         assert f"`{name}`" in docs, f"{name} is not in docs/observability.md"
     assert set(port) >= PORT_ONLY
-    assert len(port) == 90
+    assert len(port) == 91
     # The span families' buckets: 50 us doubling to about 30 s; the twin's
     # default buckets are untouched.
     for name in ("tfd_span_duration_seconds", "tfd_probe_gap_seconds"):
